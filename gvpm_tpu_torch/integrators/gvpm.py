@@ -1,0 +1,294 @@
+"""G-VPM: gradient-domain volumetric photon density estimation
+(mirrors gvpm_tpu/integrators/gvpm.py on the `distance` volume path).
+
+Each progressive pass computes, besides the primal photon-density
+estimate, finite-difference gradients to the 4 neighbour pixels by
+shifting every (camera path, photon) pair: the camera subpath is
+retraced through the offset pixel with the same random numbers, and the
+photon is reconnected to a target that preserves the kernel-local
+offset. Per pixel: primal flux, and per direction d in
+{right,left,down,up} the shifted flux S_d and weighted base flux W_d
+(computeGradient, gvpm.cpp:1205-1306):
+
+  Gx[x] = (S_right[x] - W_right[x]) + (W_left[x+1] - S_left[x+1])
+  Gy[y] = (S_down[y] - W_down[y]) + (W_up[y+1] - S_up[y+1])
+
+The final image is the screened-Poisson reconstruction (ops/poisson.py)
+of the averaged primal + gradients.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..core import rng
+from ..core.config import GradientConfig
+from ..core.logging import StatsCounter, log
+from ..ops import cellgrid, poisson
+from ..render.bsdf import require_ported
+from ..render.medium import require_homogeneous
+from ..scene.types import Scene
+from . import gatherpoint, gradient_gather, ptracer, sppm
+
+# shift directions: (dx, dy) in image coords (gbdpt_proc.cpp:103)
+OFFSETS = ((1, 0), (-1, 0), (0, 1), (0, -1))
+RIGHT, LEFT, DOWN, UP = 0, 1, 2, 3
+CAMERA_FIELDS = ("valid", "o", "d", "length", "med", "thr", "pdf_prod",
+                 "depth")
+
+
+def assemble_gradients(primal_px, S_px, W_px, H, W_img):
+    """computeGradient (gvpm.cpp:1205-1306) on [H,W,...] buffers."""
+    def img(a):
+        return a.reshape(H, W_img, 3)
+
+    S = [img(S_px[i]) for i in range(4)]
+    Wb = [img(W_px[i]) for i in range(4)]
+    gx = S[RIGHT] - Wb[RIGHT]
+    gx[:, :-1] += Wb[LEFT][:, 1:] - S[LEFT][:, 1:]
+    gy = S[DOWN] - Wb[DOWN]
+    gy[:-1, :] += Wb[UP][1:, :] - S[UP][1:, :]
+    return img(primal_px), gx, gy
+
+
+def _flat_segments(cbeams, scene: Scene, pix_id):
+    """[S, n] camera segments of one pixel group -> flat [S*n] dict with
+    the (pixel, step) lane id `gid` that keys the distance randoms."""
+    n_steps = cbeams.valid.shape[0]
+    cd = {f: getattr(cbeams, f).reshape((-1,) + getattr(cbeams, f).shape[2:])
+          for f in CAMERA_FIELDS}
+    steps = torch.arange(n_steps, device=pix_id.device)[:, None]
+    cd["gid"] = (steps * (scene.width * scene.height)
+                 + pix_id[None, :]).reshape(-1)
+    return cd
+
+
+def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
+                 photons, k_cam, k_gather, px, py, border, surf_scale,
+                 vol_scale, r_vol_base, timings=None):
+    """The per-pixel gradient pass core: camera traces (base + 4
+    offsets), surface + volume gathers with shifts. Returns flat
+    (primal [n,3], S [4,n,3], W [4,n,3], stats) for the given pixels.
+    `timings`, when given, receives each phase's seconds (the phases end
+    in a device synchronize)."""
+    if volume != "distance":
+        raise NotImplementedError(
+            f"volume estimator {volume!r}: ROADMAP queue 1 items 13-14")
+    dev = scene.device
+    n = px.shape[0]
+    clock = _PhaseClock(dev, timings)
+
+    # base + 4 offset camera paths with the SAME random numbers, traced
+    # as one [5n]-ray wavefront
+    px5 = torch.cat([px] + [px + dx for dx, _ in OFFSETS])
+    py5 = torch.cat([py] + [py + dy for _, dy in OFFSETS])
+    gp5, cb5 = gatherpoint.trace(scene, cfg, k_cam, px5, py5, rand_tile=5)
+    base = gp5.map(lambda a: a[:n])
+    sgps = [gp5.map(lambda a, i=i: a[i * n:(i + 1) * n])
+            for i in range(1, 5)]
+    cam_groups = [cb5.map(lambda a, i=i: a[:, i * n:(i + 1) * n])
+                  for i in range(5)]
+    clock.lap("camera_trace")
+
+    pp = photons["p"]
+    pix_id = py.to(torch.int64) * scene.width + px.to(torch.int64)
+
+    def pack_rows(sel):
+        ph = {f: v[sel] for f, v in photons.items()}
+        return gradient_gather.pack_photons(
+            scene, ph, valid=ph["vtype"] != ptracer.VERT_NONE)
+
+    # ---- surface photons ----
+    f32 = dict(dtype=torch.float32, device=dev)
+    r_surf = base.radius * torch.tensor(surf_scale, **f32)
+    base_s = base.replace(radius=r_surf)
+    surf_valid = photons["vtype"] == ptracer.VERT_SURFACE
+    cell = torch.clamp(torch.where(base.valid, r_surf, 0.0).amax(),
+                       min=1e-5)
+    grid_s, sel_s = cellgrid.build_cells(
+        pp, surf_valid, scene.world_lo, scene.world_hi, cell, cfg.grid_dims,
+        max_rows=cfg.grid_surface_rows)
+    packed_s = pack_rows(sel_s)
+    clock.lap("surface_grid")
+    p_s, S_s, W_s, v_s, so_s, dr_s = gradient_gather.surface_gather(
+        scene, base_s, sgps, grid_s, packed_s, n_photons, border,
+        min_depth=cfg.min_depth, use_manifold=cfg.use_manifold)
+    clock.lap("surface_gather")
+    visits = v_s.sum()
+    shift_ok = so_s.sum()
+    dropped = dr_s
+
+    # ---- volume (VPM distance) ----
+    r_vol = torch.tensor(r_vol_base, **f32) * torch.tensor(vol_scale, **f32)
+    med_valid = photons["vtype"] == ptracer.VERT_MEDIUM
+    grid_v, sel_v = cellgrid.build_cells(
+        pp, med_valid, scene.medium_lo, scene.medium_hi, r_vol,
+        cfg.grid_dims, max_rows=cfg.grid_volume_rows)
+    packed_v = pack_rows(sel_v)
+    cb = _flat_segments(cam_groups[0], scene, pix_id)
+    scb_list = [_flat_segments(c, scene, pix_id) for c in cam_groups[1:]]
+    n_steps = cam_groups[0].valid.shape[0]
+    lane_full = torch.arange(n, device=dev).repeat(n_steps)
+    # compact valid medium segments to a fixed per-pixel budget (a
+    # stable sort keeps the JAX package's segment order)
+    budget = min(cb["valid"].shape[0], n * cfg.vol_segments_per_pixel)
+    order = torch.argsort((~cb["valid"]).to(torch.int8), stable=True)
+    order = order[:budget]
+    cb = {k: v[order] for k, v in cb.items()}
+    scb_list = [{k: v[order] for k, v in s.items()} for s in scb_list]
+    lane = lane_full[order]
+    border_lane = torch.stack([border[i][lane] for i in range(4)])
+    clock.lap("volume_grid")
+    p_v, S_v, W_v, v_v, so_v, dr_v = gradient_gather.volume_gather(
+        scene, cb, scb_list, grid_v, packed_v, n_photons, r_vol, k_gather,
+        border_lane, n_samples=cfg.volume_samples, min_depth=cfg.min_depth,
+        use_manifold=cfg.use_manifold)
+    clock.lap("volume_gather")
+    visits = visits + v_v.sum()
+    shift_ok = shift_ok + so_v.sum()
+    dropped = dropped + dr_v
+
+    # splat per-segment results back to pixel lanes
+    def to_px(a):
+        return torch.zeros((n, 3), **f32).index_add_(0, lane, a)
+
+    p_s = p_s + to_px(p_v)
+    S_s = S_s + torch.stack([to_px(S_v[i]) for i in range(4)])
+    W_s = W_s + torch.stack([to_px(W_v[i]) for i in range(4)])
+
+    # ---- directly-seen emission (directTracing, gvpm.cpp:1231-1240) ----
+    p_s = p_s + base.emission
+    for i in range(4):
+        w = torch.where(border[i], 1.0, 0.5)[..., None]
+        S_s[i] += w * sgps[i].emission
+        W_s[i] += w * base.emission
+    clock.lap("splat")
+    stats = dict(visits=visits, shift_ok=shift_ok, win_dropped=dropped)
+    return p_s, S_s, W_s, stats
+
+
+class _PhaseClock:
+    """Host wall-clock per phase, each ending in a device synchronize;
+    a no-op when no timings dict is asked for."""
+
+    def __init__(self, device, timings):
+        self.device, self.timings = device, timings
+        self.t0 = time.perf_counter()
+
+    def lap(self, name):
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        self.timings[name] = self.timings.get(name, 0.0) + t - self.t0
+        self.t0 = t
+
+
+def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
+                seed, it, surf_scale, vol_scale, r_vol_base, timings=None):
+    """One gradient pass. Returns (primal, gx, gy, stats): images
+    [H,W,3] plus stats {visits, shift_ok, ...}: real photon visits
+    (pairs passing the kernel test) and successful reconnection shifts.
+    `timings` (optional dict) collects per-phase seconds."""
+    require_homogeneous(scene)
+    require_ported(scene)
+    dev = scene.device
+    if dev.type == "cuda":
+        # float32 throughout, as the JAX package: no TF32 rounding
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    H, W = scene.height, scene.width
+    k_cam = rng.pass_key(seed, it, rng.STREAM_CAMERA, dev)
+    k_light = rng.pass_key(seed, it, rng.STREAM_LIGHT, dev)
+    k_gather = rng.pass_key(seed, it, rng.STREAM_GATHER, dev)
+    py, px = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing="ij")
+    px = px.reshape(-1).to(torch.float32)
+    py = py.reshape(-1).to(torch.float32)
+    xi, yi = px.to(torch.int64), py.to(torch.int64)
+    border = torch.stack([xi == W - 1, xi == 0, yi == H - 1, yi == 0])
+
+    clock = _PhaseClock(dev, timings)
+    photons = sppm.shoot_photons(scene, cfg, n_photons, k_light)
+    clock.lap("light_trace")
+    p_s, S_s, W_s, stats = pass_buffers(
+        scene, cfg, volume, n_photons, photons, k_cam, k_gather, px, py,
+        border, surf_scale, vol_scale, r_vol_base, timings=timings)
+    primal, gx, gy = assemble_gradients(p_s, S_s, W_s, H, W)
+    return primal, gx, gy, stats
+
+
+def render(scene: Scene, cfg: GradientConfig = GradientConfig(),
+           volume="distance", seed=0, passes=None, callback=None,
+           checkpoint_path=None, checkpoint_every=10, timings=None):
+    """Progressive G-VPM loop + screened-Poisson reconstruction.
+
+    checkpoint_path: if set, the accumulation state is written atomically
+    every `checkpoint_every` passes and the loop resumes from an existing
+    checkpoint. Per-pass visits and shift success feed StatsCounter.
+    `callback(it, primal_mean_so_far, stats)` runs after each pass."""
+    if checkpoint_path:
+        from gvpm_tpu.utils import checkpoint as ckpt
+    n_passes = passes if passes is not None else cfg.max_passes
+    n_photons = max(cfg.volume_photons, cfg.surface_photons)
+    r_vol_base = sppm.base_volume_radius(scene, cfg)
+    dim = sppm.KERNEL_DIM.get(volume, 3)
+    dev = scene.device
+    H, W = scene.height, scene.width
+    f32 = dict(dtype=torch.float32, device=dev)
+    acc_p = torch.zeros((H, W, 3), **f32)
+    acc_gx = torch.zeros((H, W, 3), **f32)
+    acc_gy = torch.zeros((H, W, 3), **f32)
+    surf_scale, vol_scale = 1.0, 1.0
+    it0 = 0
+    if checkpoint_path:
+        state = ckpt.load(checkpoint_path)
+        if state is not None:
+            it0, bufs, scal = state
+            it0 += 1
+            acc_p, acc_gx, acc_gy = (
+                torch.as_tensor(bufs[k], dtype=torch.float32, device=dev)
+                for k in ("acc_p", "acc_gx", "acc_gy"))
+            surf_scale = scal["surf_scale"]
+            vol_scale = scal["vol_scale"]
+            log.info("resumed from %s at pass %d", checkpoint_path, it0)
+
+    c_visits = StatsCounter.get("gvpm/photon_visits", "value")
+    c_shift = StatsCounter.get("gvpm/shift_success", "percentage")
+    c_drop = StatsCounter.get("gvpm/window_dropped_rows", "value")
+
+    for it in range(it0, n_passes):
+        p, gx, gy, stats = render_pass(scene, cfg, volume, n_photons, seed,
+                                       it, surf_scale, vol_scale,
+                                       r_vol_base, timings=timings)
+        acc_p, acc_gx, acc_gy = acc_p + p, acc_gx + gx, acc_gy + gy
+        v = int(stats["visits"])
+        c_visits.add(v)
+        c_shift.add(int(stats["shift_ok"]), max(4 * v, 1))
+        c_drop.add(int(stats["win_dropped"]))
+        ratio = sppm.radius_ratio(it, cfg.alpha)
+        surf_scale *= ratio ** 0.5
+        if dim > 0:
+            vol_scale *= ratio ** (1.0 / dim)
+        if checkpoint_path and ((it + 1) % checkpoint_every == 0
+                                or it == n_passes - 1):
+            ckpt.save(checkpoint_path, it,
+                      dict(acc_p=acc_p.cpu().numpy(),
+                           acc_gx=acc_gx.cpu().numpy(),
+                           acc_gy=acc_gy.cpu().numpy()),
+                      dict(surf_scale=surf_scale, vol_scale=vol_scale))
+        if callback is not None:
+            callback(it, acc_p / (it + 1), stats)
+
+    inv = 1.0 / n_passes
+    primal = acc_p * inv
+    gx = acc_gx * inv
+    gy = acc_gy * inv
+    recon = poisson.solve(primal, gx, gy, alpha=cfg.recon_alpha,
+                          iters=cfg.recon_iters,
+                          irls_iters=cfg.recon_irls_iters, l1=cfg.recon_l1)
+    return dict(image=recon, primal=primal, gx=gx, gy=gy,
+                passes=n_passes)
