@@ -5,8 +5,8 @@ gather_window, window_q_tile, gather_q_tile, gather_budget,
 pallas_q_tile, pallas_window, beam_dispatch) are dropped: the port
 always gathers with the fused kernel over each query's exact cell
 runs, with no window clipping. So are the fields of parts not ported
-yet (beams, BRE, hash grid, camera sphere, nullShift, ME budgets; see
-ROADMAP.md): they come back with the code that reads them.
+yet (beams, BRE, hash grid, camera sphere; see ROADMAP.md): they come
+back with the code that reads them.
 """
 
 from __future__ import annotations
@@ -49,4 +49,8 @@ class GradientConfig(PhotonConfig):
     recon_l1: bool = True
     recon_iters: int = 50
     recon_irls_iters: int = 4
-    use_manifold: bool = True         # ME shifts: not ported yet, raises
+    shift_null: bool = False          # nullShift MIS debug mode
+    use_manifold: bool = True         # ME shift for delta parent chains
+    max_manifold_iterations: int = 5  # Newton steps of the ME solve
+    me_pair_budget: int = 4096        # compacted (query, photon) ME pairs
+                                      # per gather (overflow -> unilateral)

@@ -10,6 +10,12 @@
 // rounding of expf/powf. The slot layouts below are those of
 // gradient_gather.SLOT / VOL_QSLOTS / SUR_QSLOTS.
 //
+// Each body is `pair<ME>`: with ME it also returns whether the pair is
+// eligible for a manifold (ME) shift -- inside the ball, not
+// reconnectable, parent a delta surface (and, for surface photons, the
+// photon's own BSDF not delta). The mask is the ball test and discrete
+// row slots, so it is exact. pair<false> is the body without that tail.
+//
 // The header also compiles as plain host C++ (with __host__/__device__
 // defined away), which is how the CPU tests exercise this source.
 #pragma once
@@ -24,6 +30,7 @@ constexpr int N_ACC = 29;      // primal 3, S 4x3, W 4x3, visits, shift_ok
 constexpr int VOL_N_OUT = 30;  // N_ACC + dropped (always 0: exact runs)
 constexpr int SUR_N_OUT = 30;
 constexpr int N_RUNS = 9;
+constexpr int ME_NONE = 0x7fffffff;  // ME row key of a query with no ME pair
 
 // photon-row slots (gradient_gather.SLOT)
 enum RowSlot : int {
@@ -32,7 +39,7 @@ enum RowSlot : int {
   R_PM_ALB = 27, R_PM_SPEC = 30, R_PM_ETA3 = 33, R_PM_SIGS = 36,
   R_PDF_DIR_BASE = 39, R_PARENT_TYPE = 40, R_RECONN = 43, R_VTYPE = 44,
   R_DEPTH = 47, R_PM_BTYPE = 48, R_PM_ALPHA = 49, R_PM_ETA1 = 50,
-  R_PM_G = 51, R_PM_PTYPE = 52
+  R_PM_G = 51, R_PM_PTYPE = 52, R_PM_DELTA = 53, R_OWN_DELTA = 54
 };
 // volume query slots (gradient_gather.VOL_QSLOTS); shifted i at +3i / +i
 enum VolSlot : int {
@@ -173,7 +180,7 @@ __host__ __device__ inline float fres_c(float eta, float k, float wi_m) {
   return clip_(0.5f * (r_par2 + r_perp2), 0.0f, 1.0f);
 }
 
-// planar.eval_bsdf_pdf_params: f (3 channels) and pdf of the
+// render/bsdf.py eval_bsdf_pdf_params: f (3 channels) and pdf of the
 // reconnectable reflective lobes; 0 for the others
 __host__ __device__ inline void eval_bsdf_pdf(const BsdfParams& bp, V3 wi, V3 wo,
                                               float f[3], float& pdf) {
@@ -344,6 +351,12 @@ __host__ __device__ inline float mis(float prl, float prc, bool ok) {
   return clip_(ok ? w : 1.0f, 0.0f, 1.0f);
 }
 
+// gradient_gather's ME mask of a pair inside the ball: the photon cannot
+// reconnect and its parent is a delta (conductor / dielectric) surface
+__host__ __device__ inline bool me_eligible(const ShiftCache& c, const RowRef& r) {
+  return (!c.reconn) && (c.ptype == VERT_SURFACE) && (r.f1(R_PM_DELTA) > 0.5f);
+}
+
 // ------------------------------------------------------ the eval bodies
 //
 // A pair that fails the ball test contributes exactly zero in the plain
@@ -354,14 +367,15 @@ __host__ __device__ inline float mis(float prl, float prc, bool ok) {
 struct VolumeEval {
   static constexpr int QW = V_WIDTH;
   static constexpr int N_OUT = VOL_N_OUT;
-  __host__ __device__ static void pair(const float* q, const RowRef& r, int min_depth,
+  template <bool ME>
+  __host__ __device__ static bool pair(const float* q, const RowRef& r, int min_depth,
                                        float r2, float k3, float* acc) {
     V3 rel = sub3(r.f3(R_P), qf3(q, V_X));
     float d2 = dot3(rel, rel);
     bool inside = (r.f1(R_VTYPE) == 2.0f) && (d2 < r2) && (q[V_SOK] > 0.5f);
     if (min_depth > 0)
       inside = inside && (r.f1(R_DEPTH) + q[V_DEPTH] + 1.0f >= (float)min_depth);
-    if (!inside) return;
+    if (!inside) return false;
     float g = q[V_G];
     int pt = (int)q[V_PT];
     float pf = phase_params(-dot3(r.f3(R_WI), qf3(q, V_D)), g, pt);
@@ -385,13 +399,16 @@ struct VolumeEval {
       acc[28] += ok_i ? 1.0f : 0.0f;
     }
     acc[27] += 1.0f;
+    if constexpr (ME) return me_eligible(c, r);
+    return false;
   }
 };
 
 struct SurfaceEval {
   static constexpr int QW = S_WIDTH;
   static constexpr int N_OUT = SUR_N_OUT;
-  __host__ __device__ static void pair(const float* q, const RowRef& r, int min_depth,
+  template <bool ME>
+  __host__ __device__ static bool pair(const float* q, const RowRef& r, int min_depth,
                                        float, float, float* acc) {
     float r2 = q[S_R2];
     V3 ns = qf3(q, S_NS);
@@ -402,7 +419,7 @@ struct SurfaceEval {
     bool inside = (r.f1(R_VTYPE) == 1.0f) && (d2 < r2) && front && (q[S_VALID] > 0.5f);
     if (min_depth > 0)
       inside = inside && (r.f1(R_DEPTH) + q[S_DEPTH] >= (float)min_depth);
-    if (!inside) return;
+    if (!inside) return false;
     V3 wi_l = to_local(ns, qf3(q, S_S), qf3(q, S_T), nwi);
     BsdfParams bp = {(int)q[S_BTYPE], qf3(q, S_ALB), qf3(q, S_SPEC),
                      qf3(q, S_ETA3), q[S_ALPHA_B], q[S_ETA1]};
@@ -432,6 +449,10 @@ struct SurfaceEval {
       acc[28] += ok_i ? 1.0f : 0.0f;
     }
     acc[27] += 1.0f;
+    // a surface photon that sits on a delta BSDF itself contributes
+    // nothing to this gather and takes no ME shift
+    if constexpr (ME) return me_eligible(c, r) && !(r.f1(R_OWN_DELTA) > 0.5f);
+    return false;
   }
 };
 

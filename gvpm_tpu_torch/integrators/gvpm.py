@@ -30,6 +30,7 @@ from ..ops import cellgrid, poisson
 from ..render.bsdf import require_ported
 from ..render.medium import require_homogeneous
 from ..scene.types import Scene
+from ..utils import checkpoint as ckpt
 from . import gatherpoint, gradient_gather, ptracer, sppm
 
 # shift directions: (dx, dy) in image coords (gbdpt_proc.cpp:103)
@@ -72,7 +73,10 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     offsets), surface + volume gathers with shifts. Returns flat
     (primal [n,3], S [4,n,3], W [4,n,3], stats) for the given pixels.
     `timings`, when given, receives each phase's seconds (the phases end
-    in a device synchronize)."""
+    in a device synchronize); with cfg.use_manifold the ME stages of the
+    gathers are phases of their own (surface_me, volume_me) and their
+    parts are listed beside them under "me:..." keys (compact, chains,
+    newton, ratios, occlusion), which the two phases include."""
     if volume != "distance":
         raise NotImplementedError(
             f"volume estimator {volume!r}: ROADMAP queue 1 items 13-14")
@@ -91,6 +95,16 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     cam_groups = [cb5.map(lambda a, i=i: a[:, i * n:(i + 1) * n])
                   for i in range(5)]
     clock.lap("camera_trace")
+
+    # nullShift debug mode (GPMConfig nullShift): force every light
+    # shift to the identity/unilateral branch by clearing the
+    # reconnectable flags end to end
+    if cfg.shift_null:
+        photons = dict(photons, reconnectable=torch.zeros_like(
+            photons["reconnectable"]))
+    me_kw = dict(use_manifold=cfg.use_manifold, pv_chain=photons,
+                 me_budget=cfg.me_pair_budget,
+                 me_iters=cfg.max_manifold_iterations, lap=clock.lap)
 
     pp = photons["p"]
     pix_id = py.to(torch.int64) * scene.width + px.to(torch.int64)
@@ -112,9 +126,10 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
         max_rows=cfg.grid_surface_rows)
     packed_s = pack_rows(sel_s)
     clock.lap("surface_grid")
-    p_s, S_s, W_s, v_s, so_s, dr_s = gradient_gather.surface_gather(
-        scene, base_s, sgps, grid_s, packed_s, n_photons, border,
-        min_depth=cfg.min_depth, use_manifold=cfg.use_manifold)
+    p_s, S_s, W_s, v_s, so_s, dr_s, med_s, mep_s = \
+        gradient_gather.surface_gather(
+            scene, base_s, sgps, grid_s, packed_s, n_photons, border,
+            min_depth=cfg.min_depth, **me_kw)
     clock.lap("surface_gather")
     visits = v_s.sum()
     shift_ok = so_s.sum()
@@ -141,10 +156,11 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     lane = lane_full[order]
     border_lane = torch.stack([border[i][lane] for i in range(4)])
     clock.lap("volume_grid")
-    p_v, S_v, W_v, v_v, so_v, dr_v = gradient_gather.volume_gather(
-        scene, cb, scb_list, grid_v, packed_v, n_photons, r_vol, k_gather,
-        border_lane, n_samples=cfg.volume_samples, min_depth=cfg.min_depth,
-        use_manifold=cfg.use_manifold)
+    p_v, S_v, W_v, v_v, so_v, dr_v, med_v, mep_v = \
+        gradient_gather.volume_gather(
+            scene, cb, scb_list, grid_v, packed_v, n_photons, r_vol,
+            k_gather, border_lane, n_samples=cfg.volume_samples,
+            min_depth=cfg.min_depth, **me_kw)
     clock.lap("volume_gather")
     visits = visits + v_v.sum()
     shift_ok = shift_ok + so_v.sum()
@@ -165,33 +181,42 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
         S_s[i] += w * sgps[i].emission
         W_s[i] += w * base.emission
     clock.lap("splat")
-    stats = dict(visits=visits, shift_ok=shift_ok, win_dropped=dropped)
+    stats = dict(visits=visits, shift_ok=shift_ok, win_dropped=dropped,
+                 me_dropped=med_s + med_v, me_pairs=mep_s + mep_v)
     return p_s, S_s, W_s, stats
 
 
 class _PhaseClock:
     """Host wall-clock per phase, each ending in a device synchronize;
-    a no-op when no timings dict is asked for."""
+    a no-op when no timings dict is asked for. `lap(name)` closes the
+    running phase; `lap(name, part=True)` records a part of it (the time
+    since the last lap of either kind) and leaves the phase running, so
+    a phase's seconds include its parts'."""
 
     def __init__(self, device, timings):
         self.device, self.timings = device, timings
-        self.t0 = time.perf_counter()
+        self.t0 = self.t_part = time.perf_counter()
 
-    def lap(self, name):
+    def lap(self, name, part=False):
         if self.timings is None:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + t - self.t0
-        self.t0 = t
+        since = self.t_part if part else self.t0
+        self.timings[name] = self.timings.get(name, 0.0) + t - since
+        self.t_part = t
+        if not part:
+            self.t0 = t
 
 
 def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
                 seed, it, surf_scale, vol_scale, r_vol_base, timings=None):
     """One gradient pass. Returns (primal, gx, gy, stats): images
-    [H,W,3] plus stats {visits, shift_ok, ...}: real photon visits
-    (pairs passing the kernel test) and successful reconnection shifts.
+    [H,W,3] plus stats {visits, shift_ok, win_dropped, me_dropped,
+    me_pairs}: real photon visits (pairs passing the kernel test),
+    successful shifts (reconnection + ME), and the ME pairs dropped by /
+    taken within the per-gather budget.
     `timings` (optional dict) collects per-phase seconds."""
     require_homogeneous(scene)
     require_ported(scene)
@@ -230,8 +255,6 @@ def render(scene: Scene, cfg: GradientConfig = GradientConfig(),
     every `checkpoint_every` passes and the loop resumes from an existing
     checkpoint. Per-pass visits and shift success feed StatsCounter.
     `callback(it, primal_mean_so_far, stats)` runs after each pass."""
-    if checkpoint_path:
-        from gvpm_tpu.utils import checkpoint as ckpt
     n_passes = passes if passes is not None else cfg.max_passes
     n_photons = max(cfg.volume_photons, cfg.surface_photons)
     r_vol_base = sppm.base_volume_radius(scene, cfg)
@@ -259,6 +282,7 @@ def render(scene: Scene, cfg: GradientConfig = GradientConfig(),
     c_visits = StatsCounter.get("gvpm/photon_visits", "value")
     c_shift = StatsCounter.get("gvpm/shift_success", "percentage")
     c_drop = StatsCounter.get("gvpm/window_dropped_rows", "value")
+    c_medrop = StatsCounter.get("gvpm/me_dropped_pairs", "value")
 
     for it in range(it0, n_passes):
         p, gx, gy, stats = render_pass(scene, cfg, volume, n_photons, seed,
@@ -269,6 +293,7 @@ def render(scene: Scene, cfg: GradientConfig = GradientConfig(),
         c_visits.add(v)
         c_shift.add(int(stats["shift_ok"]), max(4 * v, 1))
         c_drop.add(int(stats["win_dropped"]))
+        c_medrop.add(int(stats["me_dropped"]))
         ratio = sppm.radius_ratio(it, cfg.alpha)
         surf_scale *= ratio ** 0.5
         if dim > 0:

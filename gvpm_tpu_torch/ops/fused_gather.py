@@ -7,11 +7,14 @@ contiguous row runs [r0, r1) of the cell-sorted photon row table; every
 (query, row) pair of those runs goes through an eval body (the ball
 test, the base kernel term and the four reconnection shifts) and the
 per-pair terms are summed per query. Unlike the TPU kernel there is no
-window and no clipping: `scale` is 1 and `dropped` is 0.
+window and no clipping: `scale` is 1 and `dropped` is 0. An eval with
+`me` set also reports, per query, the lowest table row of a pair that is
+eligible for a manifold (ME) shift, as an int32 key (ME_NONE: no such
+pair).
 
   plan = plan_runs(grid, x, q_valid)
-  out  = fused_gather(ev, plan, table_T, qrows, r2, k3, min_depth)
-  res  = unsort(plan, out)
+  out, me_row = fused_gather(ev, plan, table_T, qrows, r2, k3, min_depth)
+  res = unsort(plan, out)
 
 `fused_gather` launches the CUDA kernel (csrc/fused_gather.cu) for CUDA
 tensors and takes the plain PyTorch version (`fused_gather_plain`) only
@@ -36,9 +39,10 @@ N_RUNS = 9
 # 27-stencil: nine (dy, dz) runs of three x-consecutive cells each
 RUN_OFFS_27 = [(dy, dz) for dz in range(3) for dy in range(3)]
 N_ACC = 29      # accumulated columns: primal 3, S 12, W 12, visits, ok
+ME_NONE = 2 ** 31 - 1       # ME row key of a query without an ME pair
 PLAIN_MAX_PAIRS = 1 << 20   # candidate pairs per chunk of the plain version
 # kernel launches per eval, counted by the wrapper where it launches
-LAUNCHES = {"surface": 0, "volume": 0}
+LAUNCHES = {"surface": 0, "volume": 0, "surface_me": 0, "volume_me": 0}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -52,14 +56,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class GatherEval:
     """One eval body of the fused gather: its name (the launch-counter
     key and the C launcher's suffix), its query-row and photon-row slot
-    layouts, its query-row width, its output width and its plain
-    per-pair function."""
+    layouts, its query-row width, its output width, its plain per-pair
+    function and whether it also reports the ME row key."""
     name: str
     q_slots: dict
     q_width: int
     row_slots: dict
     n_out: int
-    pair_fn: object    # (q, r, min_depth, r2, k3) -> N_ACC pair planes
+    pair_fn: object    # (q, r, min_depth, r2, k3, me) -> N_ACC pair
+                       # planes (+ the bool ME-eligibility plane if me)
+    me: bool = False
 
 
 @dataclasses.dataclass
@@ -128,12 +134,16 @@ def fused_gather_plain(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
     """The plain PyTorch version: flatten the (query, row) candidate
     pairs of each query chunk with repeat_interleave over run lengths,
     evaluate them with the planar helpers and index_add_ into [Q, n_out]
-    (sorted order). Chunks hold at most ~PLAIN_MAX_PAIRS pairs."""
+    (sorted order); an ME eval's row key is an amin scatter-reduce of the
+    eligible pairs' rows. Chunks hold whole queries and at most
+    ~PLAIN_MAX_PAIRS pairs. Returns (out, me_row or None)."""
     Q = qrows.shape[0]
     dev = qrows.device
     out = torch.zeros((Q, ev.n_out), dtype=torch.float32, device=dev)
+    me_row = torch.full((Q,), ME_NONE, dtype=torch.int64, device=dev) \
+        if ev.me else None
     if Q == 0:
-        return out
+        return out, _me_key(me_row)
     lens = (plan.r1 - plan.r0).to(torch.int64)             # [Q, 9]
     cum = torch.cumsum(lens.sum(1), 0)
     qT = qrows.t()
@@ -153,10 +163,32 @@ def fused_gather_plain(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
             qi = run // N_RUNS
             q = _Cols(qT, s + qi, ev.q_slots)
             r = _Cols(table_T, row, ev.row_slots)
-            acc = torch.stack(ev.pair_fn(q, r, min_depth, r2, k3), dim=1)
-            out[s:e, :N_ACC].index_add_(0, qi, acc)
+            planes = ev.pair_fn(q, r, min_depth, r2, k3, ev.me)
+            out[s:e, :N_ACC].index_add_(
+                0, qi, torch.stack(planes[:N_ACC], dim=1))
+            if ev.me:
+                me_row[s:e].scatter_reduce_(
+                    0, qi, torch.where(planes[N_ACC], row, ME_NONE), "amin")
         s = e
-    return out
+    return out, _me_key(me_row)
+
+
+def _me_key(me_row):
+    return None if me_row is None else me_row.to(torch.int32)
+
+
+def slots_read(ev: GatherEval, min_depth):
+    """The (photon-row slots, query-row slots) that eval `ev` reads, as
+    two sorted lists of column indices: its pair function is run on one
+    dummy pair and the columns it touched are collected. They follow the
+    body (its `me` tail and the min_depth test included), not the padded
+    row widths; csrc/gather_eval.cuh reads the same slots."""
+    one = torch.zeros((1,), dtype=torch.int64)
+    q = _Cols(torch.zeros((ev.q_width, 1)), one, ev.q_slots)
+    r = _Cols(torch.zeros((max(ev.row_slots.values()) + 1, 1)), one,
+              ev.row_slots)
+    ev.pair_fn(q, r, min_depth, 1.0, 1.0, ev.me)
+    return sorted(r.cache), sorted(q.cache)
 
 
 def fused_gather(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
@@ -165,9 +197,12 @@ def fused_gather(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
 
     table_T [F, P] float32 feature-major photon rows; qrows [Q, FQ]
     float32 per-query fields IN SORTED ORDER; r2/k3: float scalars (the
-    volume eval's ball radius^2 and 3D kernel norm). Returns [Q, n_out]
-    in sorted order: primal 3, S 4x3, W 4x3, visits, shift_ok, dropped.
-    CUDA tensors launch the kernel; CPU tensors take the plain version.
+    volume eval's ball radius^2 and 3D kernel norm). Returns (out, me_row)
+    in sorted order: out [Q, n_out] holds primal 3, S 4x3, W 4x3, visits,
+    shift_ok, dropped; me_row is None unless `ev.me`, then int32 [Q]: the
+    lowest row of table_T among the query's ME-eligible pairs, ME_NONE
+    where it has none. CUDA tensors launch the kernel; CPU tensors take
+    the plain version.
     """
     if table_T.device.type == "cpu":
         return fused_gather_plain(ev, plan, table_T, qrows, r2, k3,
@@ -210,9 +245,10 @@ def build():
         lib = ctypes.CDLL(so)
         vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_float, ctypes.c_int)
-        for name in ("volume", "surface"):
+        for name in LAUNCHES:
             fn = getattr(lib, f"gvpm_fused_gather_{name}")
-            fn.argtypes = [vp, i64, vp, vp, vp, i64, f32, f32, i32, vp, vp]
+            fn.argtypes = [vp, i64, vp, vp, vp, i64, f32, f32, i32, vp] \
+                + [vp] * (1 + name.endswith("_me"))
             fn.restype = ctypes.c_int
         _LIB["lib"] = lib
         return lib
@@ -236,17 +272,25 @@ def launch_kernel(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
                              f"{dt} tensor on {dev}")
     if qrows.shape[1] != ev.q_width or plan.r0.shape != (Q, N_RUNS):
         raise ValueError("fused_gather: query rows / plan shape mismatch")
+    if ev.name not in LAUNCHES or ev.me != ev.name.endswith("_me"):
+        raise ValueError(f"fused_gather: no kernel for eval {ev.name!r}")
+    if table_T.shape[1] >= ME_NONE:
+        raise ValueError("fused_gather: row ids must fit an int32 key")
     out = torch.empty((Q, ev.n_out), dtype=torch.float32, device=dev)
+    me_row = torch.empty((Q,), dtype=torch.int32, device=dev) \
+        if ev.me else None
     if Q == 0:
-        return out
+        return out, me_row
     lib = build()
     fn = getattr(lib, f"gvpm_fused_gather_{ev.name}")
+    outs = (out.data_ptr(), me_row.data_ptr()) if ev.me \
+        else (out.data_ptr(),)
     err = fn(table_T.data_ptr(), table_T.shape[1], qrows.data_ptr(),
              plan.r0.data_ptr(), plan.r1.data_ptr(), Q, float(r2),
-             float(k3), int(min_depth), out.data_ptr(),
+             float(k3), int(min_depth), *outs,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_gather_{ev.name} launch failed: "
                            f"CUDA error {err}")
     LAUNCHES[ev.name] += 1
-    return out
+    return out, me_row

@@ -1,5 +1,5 @@
-"""Phase-function sampling: isotropic, Henyey-Greenstein, Rayleigh
-(mirrors gvpm_tpu/render/phase.py::sample_phase). Value == pdf; `wi`
+"""Phase functions: isotropic, Henyey-Greenstein, Rayleigh (mirrors
+gvpm_tpu/render/phase.py::sample_phase and ::eval_phase). Value == pdf; `wi`
 points toward the previous vertex, `wo` toward the next."""
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ import math
 import torch
 
 from ..core import warp
-from ..core.math import coordinate_system, safe_sqrt, to_world
+from ..core.math import coordinate_system, dot, safe_sqrt, to_world
 from ..scene.types import PHASE_HG, PHASE_RAYLEIGH, Scene
 
 
@@ -50,3 +50,15 @@ def sample_phase(scene: Scene, mi, wi, u2):
                       torch.where(is_ray, rayleigh_pdf(cos_r),
                                   warp.INV_FOURPI))
     return wo, pdf
+
+
+def eval_phase(scene: Scene, mi, wi, wo):
+    """p(wi -> wo); returns [N]. mi: medium index per lane (>= 0)."""
+    idx = torch.clamp(mi, 0, scene.med_g.shape[0] - 1)
+    g = scene.med_g[idx]
+    ptype = scene.med_phase[idx]
+    cos_theta = dot(-wi, wo)
+    return torch.where(ptype == PHASE_HG, warp.hg_pdf(cos_theta, g),
+                       torch.where(ptype == PHASE_RAYLEIGH,
+                                   rayleigh_pdf(cos_theta),
+                                   warp.INV_FOURPI))

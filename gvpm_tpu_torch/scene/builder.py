@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.spectrum import luminance
 from .types import (BSDF_CONDUCTOR, BSDF_DIFFUSE, BSDF_NULL, NO_EMITTER,
                     NO_MEDIUM, PHASE_HG, PHASE_ISOTROPIC, STATIC_FIELDS,
@@ -38,9 +39,11 @@ def look_at(origin, target, up):
     return m
 
 
-def scene_from_numpy(arrays, device="cpu", **static):
+def scene_from_numpy(arrays, device=None, **static):
     """Scene from a dict of numpy arrays (one per tensor field) and the
-    static ints: floating arrays become float32, integer arrays int64."""
+    static ints: floating arrays become float32, integer arrays int64.
+    `device`: None means the CUDA card (core.device.resolve_device)."""
+    device = resolve_device(device)
     fields = {}
     for name, a in arrays.items():
         a = np.asarray(a)
@@ -276,7 +279,8 @@ class SceneBuilder:
             world_lo=world_lo, world_hi=world_hi,
             medium_lo=med_lo, medium_hi=med_hi)
 
-    def build(self, width=256, height=256, device="cpu") -> Scene:
+    def build(self, width=256, height=256, device=None) -> Scene:
+        device = resolve_device(device)
         _, _, focus = self._cam if self._cam else (None, None, 1.0)
         return scene_from_numpy(self.arrays(), device, width=width,
                                 height=height, cam_aperture=0.0,

@@ -19,8 +19,10 @@ def _open_box(b, white=None):
 
 
 def box_medium(width=256, height=256, sigma_s=0.4, sigma_a=0.05, g=0.0,
-               device="cpu"):
-    """Homogeneous-medium box (BASELINE configs 1-2)."""
+               device=None):
+    """Homogeneous-medium box (BASELINE configs 1-2). `device`: None
+    builds on the CUDA card (and raises without one); pass "cpu" to
+    build on the CPU."""
     b = SceneBuilder()
     _open_box(b)
     light = b.area_light([20.0, 17.0, 9.0])

@@ -7,6 +7,11 @@ converted through gvpm_tpu_torch.interop, so that ulp-level exp/log
 differences upstream do not compound. Sizes follow
 tests/test_pallas_gather.py: box_medium(16, 16), 2^10 photons,
 max_depth 4, 16^3 grid, 1024 grid rows, a window >= rows.
+
+The manifold (ME) tests use the mirror-wall box of tests/test_manifold.py
+instead (`jax_mirror_scene`, ME_JAX_CFG / ME_TORCH_CFG): a mirror back
+wall makes ME-eligible photons plentiful at 2^10 paths, and the small
+pair budget forces the compaction.
 """
 
 import dataclasses
@@ -27,6 +32,7 @@ from gvpm_tpu.integrators import ptracer as jpt
 from gvpm_tpu.integrators import sppm as jsppm
 from gvpm_tpu.ops import cellgrid as jcg
 from gvpm_tpu.ops import pallas_gather as jpg
+from gvpm_tpu.scene import SceneBuilder as JaxSceneBuilder
 from gvpm_tpu_torch import interop, scenes
 from gvpm_tpu_torch.core.config import GradientConfig
 
@@ -44,19 +50,43 @@ CFG_KW = dict(max_depth=4, null_bounces=2, max_cam_depth=4,
 JAX_CFG = JaxConfig(gather_driver="pallas", pallas_q_tile=64,
                     pallas_window=1024, **CFG_KW)
 TORCH_CFG = GradientConfig(**CFG_KW)
+# ME configs: one more bounce so mirror-reflected photons get stored, a
+# wide volume radius so enough distance samples see one, and a pair budget
+# below the eligible query counts of both gathers
+ME_KW = dict(CFG_KW, max_depth=5, initial_scale_volume=4.0,
+             use_manifold=True, me_pair_budget=16)
+ME_JAX_CFG = JaxConfig(gather_driver="pallas", pallas_q_tile=64,
+                       pallas_window=1024, **ME_KW)
+ME_TORCH_CFG = GradientConfig(**ME_KW)
 
 
 def jax_scene():
     return jscenes.box_medium(width=SIDE, height=SIDE)
 
 
+def jax_mirror_scene(side=SIDE):
+    """The mirror-wall fog box of tests/test_manifold.py::mirror_scene."""
+    b = JaxSceneBuilder()
+    white = b.diffuse([0.7] * 3)
+    mirror = b.conductor()
+    light = b.area_light([30.0] * 3)
+    b.rectangle([0, 0, 0], [0, 0, 1], [1, 0, 0], white)
+    b.rectangle([0, 0, 1], [0, 1, 0], [1, 0, 0], mirror)
+    b.rectangle([0.35, 0.998, 0.35], [0.3, 0, 0], [0, 0, 0.3], white,
+                emitter=light)
+    m = b.homogeneous(sigma_a=[0.05] * 3, sigma_s=[0.3] * 3, g=0.0)
+    b.medium_box([0.02] * 3, [0.98] * 3, m)
+    b.camera(origin=[0.5, 0.5, -1.2], target=[0.5, 0.5, 0.5], fov=42)
+    return b.build(width=side, height=side)
+
+
 def port_scene_from_jax(js):
     """The port's Scene carried over from the JAX Scene's tables."""
     arrays = {k: np.asarray(getattr(js, k))
-              for k in scenes.box_medium(8, 8).tensors()}
+              for k in scenes.box_medium(8, 8, device="cpu").tensors()}
     return interop.scene_from_arrays(
         arrays, js.width, js.height, cam_aperture=js.cam_aperture,
-        cam_focus=js.cam_focus, het_medium=js.het_medium)
+        cam_focus=js.cam_focus, het_medium=js.het_medium, device="cpu")
 
 
 def to_np(tree):
@@ -65,15 +95,16 @@ def to_np(tree):
 
 def t(a):
     """numpy -> tensor with the port's dtypes (float32 / int64 / bool)."""
-    return interop.tensors_from_arrays({"a": a})["a"]
+    return interop.tensors_from_arrays({"a": a}, device="cpu")["a"]
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
 def _stage_inputs(scene, cfg, surf_scale, vol_scale, r_vol_base):
     """Every input of the two gathers of one pass (pass_buffers on the
     distance branch with the pallas driver), plus the stage outputs."""
-    n = SIDE * SIDE
     W, H = scene.width, scene.height
+    n = W * H
+    n_photons = max(cfg.surface_photons, cfg.volume_photons)
     k_cam = jrng.pass_key(SEED, IT, jrng.STREAM_CAMERA)
     k_light = jrng.pass_key(SEED, IT, jrng.STREAM_LIGHT)
     k_gather = jrng.pass_key(SEED, IT, jrng.STREAM_GATHER)
@@ -82,7 +113,7 @@ def _stage_inputs(scene, cfg, surf_scale, vol_scale, r_vol_base):
     py = py.reshape(-1).astype(jnp.float32)
     xi, yi = px.astype(jnp.int32), py.astype(jnp.int32)
     border = jnp.stack([xi == W - 1, xi == 0, yi == H - 1, yi == 0])
-    photons, _ = jsppm.shoot_photons(scene, cfg, N_PHOTONS, k_light)
+    photons, _ = jsppm.shoot_photons(scene, cfg, n_photons, k_light)
 
     px5 = jnp.concatenate([px] + [px + dx for dx, _ in jgvpm.OFFSETS])
     py5 = jnp.concatenate([py] + [py + dy for _, dy in jgvpm.OFFSETS])
@@ -143,12 +174,39 @@ def _stage_inputs(scene, cfg, surf_scale, vol_scale, r_vol_base):
                             r1=plan_s["r1"]))
 
 
-def jax_stage_inputs():
+def jax_stage_inputs(js=None, cfg=JAX_CFG):
     """(JAX scene, numpy dict of the pass's stage inputs/outputs)."""
-    js = jax_scene()
-    r_vol_base = jsppm.base_volume_radius(js, JAX_CFG)
-    out = _stage_inputs(js, JAX_CFG, 1.0, 1.0, r_vol_base)
+    js = jax_scene() if js is None else js
+    r_vol_base = jsppm.base_volume_radius(js, cfg)
+    out = _stage_inputs(js, cfg, 1.0, 1.0, r_vol_base)
     return js, to_np(out)
+
+
+def render_pass_pair(js, jax_cfg, torch_cfg):
+    """One whole G-VPM distance pass on both sides (same seed and pass
+    index) -> (JAX (primal, gx, gy, stats), the port's)."""
+    from gvpm_tpu_torch.integrators import gvpm, sppm
+    n_photons = max(jax_cfg.surface_photons, jax_cfg.volume_photons)
+    ref = jgvpm.render_pass(js, jax_cfg, "distance", n_photons, SEED, IT,
+                            1.0, 1.0, jsppm.base_volume_radius(js, jax_cfg))
+    scene = port_scene_from_jax(js)
+    got = gvpm.render_pass(scene, torch_cfg, "distance", n_photons, SEED,
+                           IT, 1.0, 1.0,
+                           sppm.base_volume_radius(scene, torch_cfg))
+    return ref, got
+
+
+def assert_pass_matches(ref, got, rtol, atol):
+    """Images at the given tolerance; every counter of the port's stats
+    that the JAX pass also reports equal."""
+    for k, name in enumerate(("primal", "gx", "gy")):
+        g = got[k].numpy()
+        assert g.shape == (SIDE, SIDE, 3) and np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, np.asarray(ref[k]), rtol=rtol,
+                                   atol=atol, err_msg=name)
+    for name in ("visits", "shift_ok", "win_dropped", "me_dropped"):
+        assert int(got[3][name]) == int(ref[3][name]), name
+    assert int(got[3]["visits"]) > 0
 
 
 def split_gather_points(gp5):

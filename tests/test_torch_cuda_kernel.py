@@ -1,7 +1,8 @@
 """The fused-gather CUDA kernel on the card: built from
 gvpm_tpu_torch/csrc, launched by the wrapper for CUDA tensors (never the
 plain version), and equal to the plain version on one small pass's
-inputs — visits and shift_ok exact, sums at rtol 2e-4 / atol 5e-6.
+inputs — visits and shift_ok exact, sums at rtol 2e-4 / atol 5e-6, and
+for the ME variants the int32 row key exactly equal.
 
 Needs a CUDA card and skips without one. It imports no JAX, so it runs
 on a machine without it:
@@ -9,6 +10,8 @@ on a machine without it:
     python -m pytest --noconftest -o addopts="" -m gpu \
         tests/test_torch_cuda_kernel.py
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -20,10 +23,11 @@ from gvpm_tpu_torch.ops import fused_gather as fg
 
 pytestmark = pytest.mark.gpu
 
-CFG = GradientConfig(max_depth=4, null_bounces=2, max_cam_depth=4,
+CFG = GradientConfig(max_depth=6, null_bounces=2, max_cam_depth=4,
                      surface_photons=1 << 12, volume_photons=1 << 12,
                      volume_samples=1, grid_dims=(16, 16, 16),
                      use_manifold=False)
+ME_CFG = dataclasses.replace(CFG, use_manifold=True, me_pair_budget=64)
 
 
 @pytest.fixture(scope="module")
@@ -38,35 +42,48 @@ def captured():
         calls.setdefault(ev.name, (ev,) + args)
         return launch(ev, *args)
 
-    scene = scenes.box_medium(32, 32, device="cuda")
+    scene = scenes.box_medium(32, 32)     # the default device: the card
     before = dict(fg.LAUNCHES)
     fg.fused_gather = capture
     try:
-        out = gvpm.render_pass(scene, CFG, "distance", 1 << 12, 0, 0, 1.0,
-                               1.0, sppm.base_volume_radius(scene, CFG))
+        outs = [gvpm.render_pass(scene, cfg, "distance", 1 << 12, 0, 0, 1.0,
+                                 1.0, sppm.base_volume_radius(scene, cfg))
+                for cfg in (CFG, ME_CFG)]
     finally:
         fg.fused_gather = launch
     torch.cuda.synchronize()
     launched = {k: fg.LAUNCHES[k] - before[k] for k in before}
-    return calls, out, launched
+    return calls, outs, launched
 
 
 def test_main_path_launches_the_kernel(captured):
-    _, out, launched = captured
-    assert launched == {"surface": 1, "volume": CFG.volume_samples}
-    for img in out[:3]:
-        assert img.is_cuda and bool(torch.isfinite(img).all())
+    _, outs, launched = captured
+    assert launched == {"surface": 1, "volume": CFG.volume_samples,
+                        "surface_me": 1, "volume_me": CFG.volume_samples}
+    for out in outs:
+        for img in out[:3]:
+            assert img.is_cuda and bool(torch.isfinite(img).all())
+    no_me, me = outs[0][3], outs[1][3]
+    assert int(me["visits"]) == int(no_me["visits"])
+    assert int(me["shift_ok"]) > int(no_me["shift_ok"])
+    assert int(me["me_pairs"]) > 0 == int(no_me["me_pairs"])
 
 
-@pytest.mark.parametrize("which", ["surface", "volume"])
+@pytest.mark.parametrize("which", ["surface", "volume", "surface_me",
+                                   "volume_me"])
 def test_kernel_matches_plain(captured, which):
     ev, plan, tbl, qrows, r2, k3, md = captured[0][which]
-    got = fg.launch_kernel(ev, plan, tbl, qrows, r2, k3, md)
-    want = fg.fused_gather_plain(ev, plan, tbl, qrows, r2, k3, md)
+    got, got_me = fg.launch_kernel(ev, plan, tbl, qrows, r2, k3, md)
+    want, want_me = fg.fused_gather_plain(ev, plan, tbl, qrows, r2, k3, md)
     torch.cuda.synchronize()
     assert float(want[:, 27].sum()) > 0
     assert torch.equal(got[:, 27:29], want[:, 27:29])
     torch.testing.assert_close(got, want, rtol=2e-4, atol=5e-6)
+    assert (got_me is not None) == ev.me
+    if ev.me:
+        assert got_me.dtype == torch.int32
+        assert int((want_me != fg.ME_NONE).sum()) > 0
+        assert torch.equal(got_me, want_me)
 
 
 def test_wrapper_rejects_bad_inputs(captured):

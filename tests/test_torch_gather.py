@@ -9,7 +9,6 @@ capped row, so the JAX kernel clips nothing either."""
 import jax
 import numpy as np
 import pytest
-import torch
 
 from gvpm_tpu.integrators import gradient_gather as jgg
 from gvpm_tpu_torch import interop
@@ -59,15 +58,15 @@ def gathers():
                               ref["k_gather"], ref["border_lane"]))
 
     groups = split_gather_points(ref["gp5"])
-    base = interop.gather_points_from_arrays(groups[0]).replace(
+    base = interop.gather_points_from_arrays(groups[0], "cpu").replace(
         radius=t(ref["base"].radius))
-    sgps = [interop.gather_points_from_arrays(g) for g in groups[1:]]
+    sgps = [interop.gather_points_from_arrays(g, "cpu") for g in groups[1:]]
     p_surf = gradient_gather.surface_gather(
         scene, base, sgps, _port_grid(ref["grid_s"]), t(ref["packed_s"]),
         N_PHOTONS, t(ref["border"]))
     p_vol = gradient_gather.volume_gather(
-        scene, interop.tensors_from_arrays(ref["cb"]),
-        [interop.tensors_from_arrays(s) for s in ref["scb"]],
+        scene, interop.tensors_from_arrays(ref["cb"], "cpu"),
+        [interop.tensors_from_arrays(s, "cpu") for s in ref["scb"]],
         _port_grid(ref["grid_v"]), t(ref["packed_v"]), N_PHOTONS,
         t(ref["r_vol"]), t(ref["k_gather"]), t(ref["border_lane"]),
         n_samples=JAX_CFG.volume_samples)
@@ -92,10 +91,3 @@ def test_gather_counts_match_jax_kernel(gathers, which):
     assert int(ref[3].sum()) > 0
     assert int(got[5]) == 0 == int(ref[5][0])               # no clipping
 
-
-def test_volume_gather_rejects_manifold(gathers):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gradient_gather.volume_gather(None, {"o": None, "d": None,
-                                             "length": None, "med": None},
-                                      None, None, None, 1, torch.ones(()),
-                                      None, None, use_manifold=True)

@@ -1,9 +1,12 @@
 """The CUDA kernel's own per-pair math (gvpm_tpu_torch/csrc/
 gather_eval.cuh), compiled as host C++ with g++ and driven pair by pair
 from ctypes, against the plain PyTorch version of the fused gather on
-the inputs of a 16x16 pass (the config of tests/test_torch_gather.py).
-This is the only way the CUDA source's math runs before it reaches the
-card. Bar: visits and shift_ok exact, sums at rtol 2e-4 / atol 5e-6."""
+the inputs of a 16x16 pass (the config of tests/test_torch_gather.py;
+for the ME variants the mirror-wall pass of tests/test_torch_gather_me.py,
+where ME-eligible pairs exist). This is the only way the CUDA source's
+math runs before it reaches the card. Bar: visits and shift_ok exact,
+sums at rtol 2e-4 / atol 5e-6; the ME row key (the minimum row over the
+pairs whose `pair<true>` returns the ME mask) exactly equal."""
 
 import ctypes
 import os
@@ -13,9 +16,11 @@ import subprocess
 import pytest
 import torch
 
-from gvpm_tpu_torch.integrators import gvpm, sppm
+from gvpm_tpu_torch.integrators import gradient_gather, gvpm, sppm
 from gvpm_tpu_torch.ops import fused_gather as fg
-from tests.test_torch_common import N_PHOTONS, SIDE, TORCH_CFG
+from tests.test_torch_common import (ME_TORCH_CFG, N_PHOTONS, SIDE,
+                                     TORCH_CFG, jax_mirror_scene,
+                                     port_scene_from_jax)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "gvpm_tpu_torch", "csrc")
@@ -24,29 +29,36 @@ HOST_CPP = r"""
 #define __host__
 #define __device__
 #include "gather_eval.cuh"
-template <class E>
+template <class E, bool ME>
 static void run(const float* tbl, long long P, const float* qrows,
                 const int* r0, const int* r1, long long Q, float r2,
-                float k3, int md, float* out) {
+                float k3, int md, float* out, int* me_row) {
   for (long long q = 0; q < Q; ++q) {
     float acc[gvpm::N_ACC] = {0};
+    int me_min = gvpm::ME_NONE;
     const float* qr = qrows + q * E::QW;
     for (int run = 0; run < gvpm::N_RUNS; ++run)
       for (int row = r0[q * gvpm::N_RUNS + run];
-           row < r1[q * gvpm::N_RUNS + run]; ++row)
-        E::pair(qr, gvpm::RowRef{tbl, P, row}, md, r2, k3, acc);
+           row < r1[q * gvpm::N_RUNS + run]; ++row) {
+        bool me = E::template pair<ME>(qr, gvpm::RowRef{tbl, P, row}, md,
+                                       r2, k3, acc);
+        if (ME && me && row < me_min) me_min = row;
+      }
     for (int c = 0; c < gvpm::N_ACC; ++c) out[q * E::N_OUT + c] = acc[c];
     out[q * E::N_OUT + gvpm::N_ACC] = 0.0f;
+    if (ME) me_row[q] = me_min;
   }
 }
-extern "C" void host_gather(int surface, const float* tbl, long long P,
-                            const float* qrows, const int* r0,
+extern "C" void host_gather(int surface, int me, const float* tbl,
+                            long long P, const float* qrows, const int* r0,
                             const int* r1, long long Q, float r2, float k3,
-                            int md, float* out) {
-  if (surface)
-    run<gvpm::SurfaceEval>(tbl, P, qrows, r0, r1, Q, r2, k3, md, out);
-  else
-    run<gvpm::VolumeEval>(tbl, P, qrows, r0, r1, Q, r2, k3, md, out);
+                            int md, float* out, int* me_row) {
+#define RUN(E, M) run<gvpm::E, M>(tbl, P, qrows, r0, r1, Q, r2, k3, md, \
+                                  out, me_row)
+  if (surface && me) RUN(SurfaceEval, true);
+  else if (surface) RUN(SurfaceEval, false);
+  else if (me) RUN(VolumeEval, true);
+  else RUN(VolumeEval, false);
 }
 """
 
@@ -64,16 +76,18 @@ def host_lib(tmp_path_factory):
                     str(so)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     vp = ctypes.c_void_p
-    lib.host_gather.argtypes = [ctypes.c_int, vp, ctypes.c_longlong, vp,
-                                vp, vp, ctypes.c_longlong, ctypes.c_float,
-                                ctypes.c_float, ctypes.c_int, vp]
+    lib.host_gather.argtypes = [ctypes.c_int, ctypes.c_int, vp,
+                                ctypes.c_longlong, vp, vp, vp,
+                                ctypes.c_longlong, ctypes.c_float,
+                                ctypes.c_float, ctypes.c_int, vp, vp]
     lib.host_gather.restype = None
     return lib
 
 
 @pytest.fixture(scope="module")
 def kernel_inputs():
-    """The fused gather's inputs of one port pass, by eval name."""
+    """The fused gather's inputs of one port pass without ME (the box)
+    and one with ME (the mirror-wall box), by eval name."""
     from gvpm_tpu_torch import scenes
     calls = {}
     orig = fg.fused_gather
@@ -84,27 +98,70 @@ def kernel_inputs():
 
     fg.fused_gather = record
     try:
-        scene = scenes.box_medium(SIDE, SIDE)
-        gvpm.render_pass(scene, TORCH_CFG, "distance", N_PHOTONS, 0, 1,
-                         1.0, 1.0, sppm.base_volume_radius(scene, TORCH_CFG))
+        for scene, cfg in (
+                (scenes.box_medium(SIDE, SIDE, device="cpu"), TORCH_CFG),
+                (port_scene_from_jax(jax_mirror_scene()), ME_TORCH_CFG)):
+            gvpm.render_pass(scene, cfg, "distance", N_PHOTONS, 0, 1, 1.0,
+                             1.0, sppm.base_volume_radius(scene, cfg))
     finally:
         fg.fused_gather = orig
     return calls
 
 
-@pytest.mark.parametrize("which", ["surface", "volume"])
+def _host_gather(host_lib, ev, plan, tbl, qrows, r2, k3, md):
+    out = torch.empty((qrows.shape[0], ev.n_out))
+    me_row = torch.empty((qrows.shape[0],), dtype=torch.int32)
+    host_lib.host_gather(int(ev.name.startswith("surface")), int(ev.me),
+                         tbl.data_ptr(), tbl.shape[1], qrows.data_ptr(),
+                         plan.r0.data_ptr(), plan.r1.data_ptr(),
+                         qrows.shape[0], r2, k3, md, out.data_ptr(),
+                         me_row.data_ptr())
+    return out, me_row
+
+
+EVALS = ["surface", "volume", "surface_me", "volume_me"]
+
+
+@pytest.mark.parametrize("which", EVALS)
 def test_host_compiled_kernel_math_matches_plain(host_lib, kernel_inputs,
                                                  which):
     ev, plan, tbl, qrows, r2, k3, md = kernel_inputs[which]
-    ref = fg.fused_gather_plain(ev, plan, tbl, qrows, r2, k3, md)
-    out = torch.empty_like(ref)
-    host_lib.host_gather(int(which == "surface"), tbl.data_ptr(),
-                         tbl.shape[1], qrows.data_ptr(), plan.r0.data_ptr(),
-                         plan.r1.data_ptr(), qrows.shape[0], r2, k3, md,
-                         out.data_ptr())
+    ref, ref_me = fg.fused_gather_plain(ev, plan, tbl, qrows, r2, k3, md)
+    out, me_row = _host_gather(host_lib, ev, plan, tbl, qrows, r2, k3, md)
     assert float(ref[:, 27].sum()) > 0
     assert torch.equal(out[:, 27:29], ref[:, 27:29])     # visits, shift_ok
     torch.testing.assert_close(out, ref, rtol=2e-4, atol=5e-6)
+    assert (ref_me is not None) == ev.me
+    if ev.me:
+        assert int((ref_me != fg.ME_NONE).sum()) > 0
+        assert torch.equal(me_row, ref_me)
+
+
+@pytest.mark.parametrize("which", EVALS)
+def test_kernel_source_reads_only_the_slots_counted(host_lib, kernel_inputs,
+                                                    which):
+    """`slots_read` (what the kernel's bound counts as bytes that must
+    move) covers every slot csrc/gather_eval.cuh reads: with NaN in every
+    other slot of the photon table and of the query rows, the padding
+    included, the host-compiled source returns the same bits. It counts
+    fewer slots than the rows hold, and more with the min_depth test."""
+    ev, plan, tbl, qrows, r2, k3, _md = kernel_inputs[which]
+    for md in (0, 1):
+        row_slots, q_slots = fg.slots_read(ev, md)
+        assert len(row_slots) < gradient_gather.N_SLOTS
+        assert len(q_slots) < ev.q_width
+        tbl_nan = torch.full_like(tbl, torch.nan)
+        tbl_nan[row_slots] = tbl[row_slots]
+        q_nan = torch.full_like(qrows, torch.nan)
+        q_nan[:, q_slots] = qrows[:, q_slots]
+        want, want_me = _host_gather(host_lib, ev, plan, tbl, qrows, r2, k3,
+                                     md)
+        got, got_me = _host_gather(host_lib, ev, plan, tbl_nan, q_nan, r2,
+                                   k3, md)
+        assert float(want[:, 27].sum()) > 0
+        assert torch.equal(got, want)
+        assert not ev.me or torch.equal(got_me, want_me)
+    assert len(fg.slots_read(ev, 1)[0]) == len(fg.slots_read(ev, 0)[0]) + 1
 
 
 def test_cpu_tensors_take_the_plain_version(kernel_inputs):
@@ -112,10 +169,10 @@ def test_cpu_tensors_take_the_plain_version(kernel_inputs):
     and count no kernel launch."""
     ev, plan, tbl, qrows, r2, k3, md = kernel_inputs["volume"]
     before = dict(fg.LAUNCHES)
-    got = fg.fused_gather(ev, plan, tbl, qrows, r2, k3, md)
-    assert fg.LAUNCHES == before
+    got, me_row = fg.fused_gather(ev, plan, tbl, qrows, r2, k3, md)
+    assert fg.LAUNCHES == before and me_row is None
     assert torch.equal(got, fg.fused_gather_plain(ev, plan, tbl, qrows, r2,
-                                                  k3, md))
+                                                  k3, md)[0])
 
 
 def test_kernel_launch_refuses_cpu_tensors(kernel_inputs):

@@ -26,7 +26,7 @@ def test_box_medium_gvpm_distance_meets_ci_golden_bar():
     ref = imglib.read_pfm(os.path.join(GOLD_CI, "box-medium_ref.pfm"))
     cfg = GradientConfig(surface_photons=1 << 15, volume_photons=1 << 15,
                          max_depth=12, use_manifold=False)
-    out = gvpm.render(scenes.box_medium(size, size), cfg,
+    out = gvpm.render(scenes.box_medium(size, size, device="cpu"), cfg,
                       volume="distance", seed=5, passes=12)
     img, n_bad = imglib.nan_scrub(out["image"].numpy())
     assert n_bad == 0

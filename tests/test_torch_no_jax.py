@@ -1,30 +1,43 @@
-"""gvpm_tpu_torch imports no JAX: a fresh interpreter with jax and flax
-made unimportable imports the port and renders one small pass."""
+"""gvpm_tpu_torch imports no JAX and nothing of the JAX package: a fresh
+interpreter with jax, flax and gvpm_tpu made unimportable imports the
+port, renders with the default manifold shifts, and saves and resumes a
+checkpoint; and no source file of the port, nor chip_smoke.py, holds an
+import of them."""
 
 import os
+import re
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "flax", "gvpm_tpu")
 
 SCRIPT = r"""
-import sys
+import os, sys, tempfile
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["gvpm_tpu"] = None
 import torch
 import gvpm_tpu_torch
 from gvpm_tpu_torch import scenes
 from gvpm_tpu_torch.core.config import GradientConfig
 from gvpm_tpu_torch.integrators import gvpm, sppm
-scene = scenes.box_medium(8, 8)
+scene = scenes.box_medium(8, 8, device="cpu")
 cfg = GradientConfig(max_depth=4, null_bounces=2, max_cam_depth=4,
                      surface_photons=1 << 8, volume_photons=1 << 8,
-                     volume_samples=1, grid_dims=(8, 8, 8),
-                     use_manifold=False)
-out = gvpm.render(scene, cfg, passes=1)
+                     volume_samples=1, grid_dims=(8, 8, 8))
+assert cfg.use_manifold
+with tempfile.TemporaryDirectory() as d:
+    ck = os.path.join(d, "ck.npz")
+    gvpm.render(scene, cfg, passes=1, checkpoint_path=ck)       # save
+    assert os.path.exists(ck)
+    seen = []
+    out = gvpm.render(scene, cfg, passes=2, checkpoint_path=ck,
+                      callback=lambda it, img, st: seen.append(it))
+    assert seen == [1], seen                                    # resumed
 assert torch.isfinite(out["image"]).all()
 loaded = [m for m in sys.modules
-          if m.split(".")[0] in ("jax", "jaxlib", "flax")
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "gvpm_tpu")
           and sys.modules[m] is not None]
 print("LOADED", loaded)
 assert not loaded, loaded
@@ -37,3 +50,46 @@ def test_port_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "LOADED []" in res.stdout
+
+
+def test_port_sources_import_no_jax_package():
+    """No `import` / `from` of jax, flax or gvpm_tpu (whole word, so
+    gvpm_tpu_torch does not match) in any file of the port."""
+    pat = re.compile(
+        r"^\s*(?:import|from)\s+(?:[\w.]+\s*,\s*)*(?:%s)(?![\w])"
+        % "|".join(BLOCKED), re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "gvpm_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, ROOT), m.group(0).strip())
+           for f in files for m in pat.finditer(open(f).read())]
+    assert not bad, bad
+    assert pat.search("from gvpm_tpu.utils import checkpoint")
+    assert pat.search("import os, jax")
+    assert not pat.search("from gvpm_tpu_torch import scenes")
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device argument the scene and interop entry points
+    build on the CUDA card; with no card they raise instead of carrying
+    on on the CPU."""
+    import pytest
+    import torch
+
+    from gvpm_tpu_torch import interop, scenes
+    from gvpm_tpu_torch.scene import SceneBuilder
+    calls = (lambda: scenes.box_medium(8, 8),
+             lambda: scenes.get("box-medium", width=8, height=8),
+             lambda: SceneBuilder().build(),
+             lambda: interop.tensors_from_arrays({"a": [1.0]}),
+             lambda: interop.gather_points_from_arrays({}),
+             lambda: interop.scene_from_arrays({}, 8, 8))
+    if torch.cuda.is_available():
+        assert scenes.box_medium(8, 8).device.type == "cuda"
+        assert interop.tensors_from_arrays({"a": [1.0]})["a"].is_cuda
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            call()
+    assert scenes.box_medium(8, 8, device="cpu").device.type == "cpu"

@@ -27,7 +27,7 @@ def pair():
 
 def test_interop_scene_equals_port_box_medium(pair):
     _, carried = pair
-    own = scenes.box_medium(width=24, height=16)
+    own = scenes.box_medium(width=24, height=16, device="cpu")
     for name, v in own.tensors().items():
         c = getattr(carried, name)
         assert c.dtype == v.dtype and c.shape == v.shape, name
