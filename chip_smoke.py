@@ -16,7 +16,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 agree at rtol 2e-4 / atol 5e-6, the ME row keys must be
                 exactly equal with at least one ME query; prints
                 candidates, visits, ME queries, both times and the
-                kernel's bound (see `bound_ms`).
+                kernel's bound (see `kernel_bound`), the time of the row
+                heads each call first copies out of the table, whether two
+                launches on the same inputs give the same bits (they
+                must: the kernel's sums have a fixed order), and the lane
+                use of a lane-per-row loop and of this kernel's batches
+                on these inputs (`lane_use`).
+  3b. stress  — the four variants against their plain versions on a small
+                seeded input the headline cannot give (`stress_inputs`):
+                a query with more visits than a tile's ring holds, runs
+                longer than 32 x a few and empty ones, a ragged last
+                tile, invalid queries, a lowest ME row in a late run.
   4. main     — gvpm.render at the bench headline size (512^2 box_medium,
                 2^18 light paths, bench.py:347-362 without the TPU knobs):
                 first 3 passes with the default use_manifold=True
@@ -34,7 +44,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   5. goldens  — box-medium gvpm:distance relMSE against the committed
                 goldens at the goldens/ci (32^2) and goldens (128^2)
                 configs with ME off, and at 32^2 with ME on, under the
-                bars recorded in their meta.json.
+                bars recorded in their meta.json; the 32^2 render once
+                more with the gathers' plain version, to show how far a
+                different order of the sums moves the relMSE.
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -64,6 +76,10 @@ HEADLINE_ME_KW = dict(HEADLINE_KW, use_manifold=True, me_pair_budget=4096)
 # cores. The kernels' bounds are stated against these.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+# The same units without fused multiply-adds (the kernels are built with
+# -fmad=false and BODY_OPS counts an add and a multiply as one each):
+# 132 SMs x 128 lanes x 1.98 GHz, one operation a lane a clock.
+PEAK_FP32_UNFUSED_S = 132 * 128 * 1.98e9
 # float operations per pair, counted from csrc/gather_eval.cuh on the path
 # box_medium takes (diffuse parents and gather points; phase_params
 # always evaluates its HG and Rayleigh branches), one operation per add,
@@ -103,9 +119,11 @@ def relmse(img, ref, eps=1e-3):
     return float(np.mean((a - b) ** 2 / (b * b + eps)))
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of `fn` over `reps` runs, by CUDA events."""
-    fn()
+def cuda_ms(fn, reps, warm=1):
+    """Mean milliseconds of `fn` over `reps` runs after `warm` untimed
+    ones, by CUDA events."""
+    for _ in range(warm):
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -126,6 +144,189 @@ def covered_rows(plan, n_rows):
     return int((torch.cumsum(delta, 0)[:n_rows] > 0).sum())
 
 
+def stress_inputs(ev, seed=7, device="cpu"):
+    """A small seeded input of the fused gather that a render cannot be
+    relied on to give. ev: a GatherEval (its slot layouts are used).
+    Returns (r0, r1, table, qrows, r2, k3, min_depth, hot): 777 sorted
+    queries (not a multiple of a tile) over 4096 rows in a 0.25-wide
+    cluster; nine disjoint runs a query, a third of them empty, some
+    over 128 rows; a tenth of the queries invalid but with runs; query
+    `hot` covers 3200 rows from the cluster's centre and visits hundreds
+    of them (more than a tile's ring holds), its run 4 is empty and its
+    lowest ME-eligible row lies in run 7; min_depth 3 cuts some pairs.
+    Parents are emitters, surfaces (diffuse, Phong, plastic) and medium
+    vertices; surface queries also carry rough conductors."""
+    rng = np.random.default_rng(seed)
+    surface = ev.name.startswith("surface")
+    P, Q, side = 4096, 777, 0.25
+    hot, hot_len, me_from = Q // 2, 400, 2800
+    centre = np.full(3, side / 2)
+
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    def frame(n3):
+        a = np.where(np.abs(n3[:, :1]) < 0.9, [[1.0, 0, 0]], [[0, 1.0, 0]])
+        s_ax = np.cross(n3, a)
+        s_ax /= np.linalg.norm(s_ax, axis=1, keepdims=True)
+        return s_ax, np.cross(n3, s_ax)
+
+    def upper(n):
+        v = unit(n)
+        v[:, 2] = np.abs(v[:, 2]) + 0.05
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    def fill(width, slots, fields):
+        n = len(next(iter(fields.values())))
+        a = np.zeros((n, width), np.float32)
+        for name, v in fields.items():
+            v = np.asarray(v, np.float32).reshape(n, -1)
+            a[:, slots[name]:slots[name] + v.shape[1]] = v
+        return a
+
+    def gloss(btype, n):
+        return np.where(btype == 6, rng.uniform(5, 40, n),
+                        rng.uniform(0.1, 0.5, n))
+
+    # ---- photon rows
+    p = rng.uniform(0, side, (P, 3))
+    me = (np.arange(P) >= me_from) & (rng.random(P) < 0.04)
+    me_forced = me_from + 100
+    me[me_forced] = True
+    p[me_forced] = centre + 1e-3
+    wi = unit(P)
+    btype = rng.choice([0, 6, 7], P)
+    rows = dict(
+        p=p, wi=wi, alpha=rng.uniform(0.1, 1, (P, 3)),
+        parent_p=p + unit(P) * rng.uniform(0.3, 1.0, (P, 1)),
+        parent_wi=unit(P), parent_ns=unit(P),
+        scatter_base=rng.uniform(0.05, 1, (P, 3))
+        * (rng.random((P, 1)) > 0.05),
+        ns=unit(P), st=rng.uniform(0.2, 2, (P, 3)),
+        pm_alb=rng.uniform(0.2, 0.9, (P, 3)),
+        pm_spec=rng.uniform(0.1, 0.5, (P, 3)),
+        pm_eta3=rng.uniform(0.2, 1.5, (P, 3)),
+        pm_sigs=rng.uniform(0.1, 1, (P, 3)),
+        pdf_dir_base=rng.uniform(0.05, 1, P),
+        parent_type=np.where(me, 1, rng.choice([0, 1, 2], P)),
+        reconnectable=~me & (rng.random(P) < 0.85),
+        vtype=np.where(rng.random(P) < 0.9, 1 if surface else 2, 0),
+        depth=rng.integers(1, 5, P), pm_btype=btype,
+        pm_alpha=gloss(btype, P), pm_eta1=np.full(P, 1.5),
+        pm_g=rng.uniform(-0.6, 0.6, P), pm_ptype=rng.choice([0, 1, 2], P),
+        pm_delta=me, own_delta=~me & (rng.random(P) < 0.05))
+    rows["vtype"][me_forced] = 1 if surface else 2
+    rows["depth"][me_forced] = 4
+
+    # ---- queries
+    x = rng.uniform(0, side, (Q, 3))
+    x[hot] = centre
+    valid = rng.random(Q) < 0.9
+    valid[hot] = True
+    depth = rng.integers(0, 3, Q)
+    depth[hot] = 2
+    flags = {f"{n}{i}": rng.random(Q) < pr for i in range(4)
+             for n, pr in (("cam_ok" if not surface else "comp", 0.85),
+                           ("border", 0.1))}
+    ratios = {f"{'sens' if surface else 'prc'}{i}": rng.uniform(0.2, 3, Q)
+              for i in range(4)}
+    if surface:
+        ns = unit(Q)
+        ns[hot] = -wi[me_forced]          # the forced ME row faces it
+        s_ax, t_ax = frame(ns)
+        qb = rng.choice([0, 3, 6, 7], Q)
+        r2q = rng.uniform(0.05, 0.09, Q) ** 2
+        r2q[hot] = 0.11 ** 2
+        q = dict(p=x, ns=ns, s=s_ax, t=t_ax, wo=upper(Q),
+                 alb=rng.uniform(0.2, 0.9, (Q, 3)),
+                 spec=rng.uniform(0.1, 0.5, (Q, 3)),
+                 eta3=rng.uniform(0.2, 1.5, (Q, 3)), btype=qb,
+                 alpha_b=gloss(qb, Q), eta1=np.full(Q, 1.5), r2=r2q,
+                 valid=valid, depth=depth, **flags, **ratios)
+        for i in range(4):
+            ns_i = ns + 0.05 * unit(Q)
+            ns_i /= np.linalg.norm(ns_i, axis=1, keepdims=True)
+            s_i, t_i = frame(ns_i)
+            q.update({f"p{i}": x + 0.01 * unit(Q), f"ns{i}": ns_i,
+                      f"s{i}": s_i, f"t{i}": t_i, f"wo{i}": upper(Q)})
+        r2, k3 = 0.0, 0.0
+    else:
+        d = unit(Q)
+        q = dict(x=x, d=d, g=rng.uniform(-0.5, 0.5, Q),
+                 pt=rng.choice([0, 1, 2], Q), sok=valid, depth=depth,
+                 **flags, **ratios)
+        for i in range(4):
+            sd = d + 0.05 * unit(Q)
+            q.update({f"xs{i}": x + 0.01 * unit(Q),
+                      f"sd{i}": sd / np.linalg.norm(sd, axis=1,
+                                                    keepdims=True)})
+        r2 = 0.08 ** 2
+        k3 = 3.0 / (4.0 * np.pi * 0.08 ** 3)
+
+    # ---- runs: disjoint and ascending within a query
+    lens = rng.integers(1, 41, (Q, 9))
+    long_q = rng.random(Q) < 0.05
+    lens[long_q] = rng.integers(100, 201, (int(long_q.sum()), 9))
+    lens[rng.random((Q, 9)) < 0.35] = 0
+    gaps = rng.integers(0, 8, (Q, 9))
+    gaps[:, 0] = rng.integers(0, P - (lens + gaps).sum(1))
+    r1 = np.cumsum(lens + gaps, axis=1)
+    r0 = r1 - lens
+    r0[hot] = np.arange(9) * hot_len
+    r1[hot] = r0[hot] + hot_len
+    r1[hot, 4] = r0[hot, 4]
+    assert r0.min() >= 0 and r1.max() <= P and me_from == r0[hot, 7]
+
+    def t(a, dtype):
+        return torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                            device=device)
+    return (t(r0, torch.int32), t(r1, torch.int32),
+            t(fill(128, ev.row_slots, rows), torch.float32),
+            t(fill(ev.q_width, ev.q_slots, q), torch.float32),
+            r2, k3, 3, hot)
+
+
+def lane_use(ev, plan, tbl, qrows, r2, k3, md):
+    """Measured lane use on these inputs, in tensor code. A lane-per-row
+    loop (one warp a query, 32 lanes striding over each run) makes
+    `trips` = sum over queries and runs of ceil(len / 32) trips; those
+    with a visit run the shift body with only the visiting lanes busy.
+    The queued kernel runs the body in batches of 32 pairs per tile of
+    fused_gather.TILE_Q queries, so `batches` = sum over tiles of
+    ceil(visits / 32), and sweeps ceil(candidates of a tile / 32) slots
+    a tile."""
+    from gvpm_tpu_torch.ops import fused_gather as fg
+    tile_q = fg.TILE_Q
+    lens = (plan.r1 - plan.r0).to(torch.int64)
+    trips = int(((lens + 31) // 32).sum())
+    per_q = torch.zeros(qrows.shape[0], dtype=torch.int64,
+                        device=qrows.device)
+    trips_hit = 0
+    for s, e, run, row in fg.candidate_chunks(plan):
+        q = fg._Cols(qrows, s + run // fg.N_RUNS, ev.q_slots)
+        r = fg._Cols(tbl, row, ev.row_slots)
+        inside = ev.pair_fn(q, r, md, r2, k3, False)[27] > 0.5
+        pos = row - plan.r0[s:e].reshape(-1).to(torch.int64)[run]
+        trips_hit += int(torch.unique(
+            (run * (1 << 26) + pos // 32)[inside]).numel())
+        per_q[s:e].index_add_(0, run // fg.N_RUNS, inside.to(torch.int64))
+    visits = int(per_q.sum())
+    def per_tile(a):
+        pad = (-a.numel()) % tile_q
+        return torch.nn.functional.pad(a, (0, pad)).reshape(
+            -1, tile_q).sum(1)
+    batches = int(((per_tile(per_q) + 31) // 32).sum())
+    slots = int(((per_tile(lens.sum(1)) + 31) // 32).sum())
+    return dict(trips=trips, trips_with_visit=trips_hit,
+                visits_per_such_trip=visits / max(trips_hit, 1),
+                lanes_busy_in_such_trip=visits / max(trips_hit, 1) / 32,
+                batches=batches,
+                lanes_busy_in_batch=visits / max(batches, 1) / 32,
+                sweep_slots=slots,
+                lanes_busy_in_sweep=int(lens.sum()) / max(slots, 1) / 32)
+
+
 def kernel_bound(ev, slots, plan, tbl, qrows, candidates, visits):
     """The least time the card could take for this launch: the larger of
     the bytes that must move over the memory rate (once each: the slots
@@ -133,9 +334,12 @@ def kernel_bound(ev, slots, plan, tbl, qrows, candidates, visits):
     that some run covers and of each query row, not the rows' padded
     widths; the run bounds; the outputs) and the float operations these
     inputs need (every candidate's ball test, every visit's shift body)
-    over the float32 rate. Returns (ms, "bytes" | "operations", detail)."""
+    over the float32 rate (67 TFLOP/s, which counts a fused multiply-add
+    as two; `operations_unfused_ms` in the detail is the same count over
+    the rate the card reaches without fusing, the second reading).
+    Returns (ms, "bytes" | "operations", detail)."""
     Q = qrows.shape[0]
-    rows = covered_rows(plan, tbl.shape[1])
+    rows = covered_rows(plan, tbl.shape[0])
     row_slots, q_slots = (len(s) for s in slots)
     n_bytes = 4 * (rows * row_slots + Q * q_slots + 2 * plan.r0.numel()
                    + Q * ev.n_out + (Q if ev.me else 0))
@@ -146,7 +350,8 @@ def kernel_bound(ev, slots, plan, tbl, qrows, candidates, visits):
     t_ops = ops / PEAK_FP32_S * 1e3
     detail = dict(covered_rows=rows, row_slots=row_slots, q_slots=q_slots,
                   bytes=n_bytes, operations=ops,
-                  bytes_ms=t_bytes, operations_ms=t_ops)
+                  bytes_ms=t_bytes, operations_ms=t_ops,
+                  operations_unfused_ms=ops / PEAK_FP32_UNFUSED_S * 1e3)
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", detail)
 
@@ -174,7 +379,9 @@ def main():
     t0 = time.perf_counter()
     fg.build()
     phase("build", f"fused_gather kernels built in "
-                   f"{time.perf_counter() - t0:.2f} s")
+                   f"{time.perf_counter() - t0:.2f} s; ptxas per "
+                   f"instantiation (registers a thread, bytes): "
+                   f"{json.dumps(fg.build_report())}")
 
     # ---- 3. kernel vs plain on one headline ME pass's inputs ----
     scene = scenes.box_medium(512, 512)          # default device: the card
@@ -195,14 +402,12 @@ def main():
                          1.0, r_vol_base)
     finally:
         fg.fused_gather = launch
-    evals = {"surface": (gradient_gather.SURFACE_EVAL, "surface_me"),
-             "volume": (gradient_gather.VOLUME_EVAL, "volume_me"),
-             "surface_me": (gradient_gather.SURFACE_ME_EVAL, "surface_me"),
-             "volume_me": (gradient_gather.VOLUME_ME_EVAL, "volume_me")}
-    kernels = {}
-    for name, (ev, inputs) in evals.items():
-        plan, tbl, qrows, r2, k3, md = args = captured[inputs]
+    def against_plain(name, ev, args):
+        """The kernel twice and the plain version once on `args`:
+        visits, shift_ok and ME keys equal, sums within TOL, the two
+        launches bitwise equal. Returns (plain out, ME queries, err)."""
         got, got_me = fg.fused_gather(ev, *args)
+        again, again_me = fg.fused_gather(ev, *args)
         want, want_me = fg.fused_gather_plain(ev, *args)
         torch.cuda.synchronize()
         if not torch.equal(got[:, 27:29], want[:, 27:29]):
@@ -220,24 +425,58 @@ def main():
                 raise AssertionError(f"{name}: no query has an ME pair")
         elif got_me is not None or want_me is not None:
             raise AssertionError(f"{name}: unexpected ME output")
-        err = float((got - want).abs().max())
+        # the sums' order is fixed (segmented warp reductions, no atomics)
+        if not (torch.equal(got.view(torch.int32), again.view(torch.int32))
+                and (not ev.me or torch.equal(got_me, again_me))):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 "differ")
+        return want, me_queries, float((got - want).abs().max())
+
+    kernels = {}
+    for name, ev in gradient_gather.EVALS.items():
+        inputs = name if name.endswith("_me") else name + "_me"
+        plan, tbl, qrows, r2, k3, md = args = captured[inputs]
+        want, me_queries, err = against_plain(name, ev, args)
         candidates = int((plan.r1 - plan.r0).sum())
         visits = int(want[:, 27].sum())
         bound_ms, bound_by, detail = kernel_bound(
             ev, fg.slots_read(ev, md), plan, tbl, qrows, candidates, visits)
-        ms = cuda_ms(lambda: fg.fused_gather(ev, *args), 10)
+        # with one warm-up run the first kernel timed read up to 10%
+        # apart between calls (0.84 and 0.94 ms): warm up longer
+        ms = cuda_ms(lambda: fg.fused_gather(ev, *args), 20, warm=20)
         plain_ms = cuda_ms(lambda: fg.fused_gather_plain(ev, *args), 1)
+        head_ms = cuda_ms(lambda: fg.row_heads(ev, tbl), 10)
         kernels[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
         phase("kernels", f"{name}: {qrows.shape[0]} queries x "
-                         f"{tbl.shape[1]} rows, candidates {candidates}, "
+                         f"{tbl.shape[0]} rows, candidates {candidates}, "
                          f"visits {visits} equal, ME queries {me_queries}"
                          f"{' (row keys equal)' if ev.me else ''}, max|err| "
-                         f"{err:.3g} (rtol 2e-4 atol 5e-6), kernel "
-                         f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-                         f"{bound_ms:.4f} ms by {bound_by} "
-                         f"{json.dumps(detail)}")
-    del captured, args, plan, tbl, qrows, got, want, got_me, want_me
+                         f"{err:.3g} (rtol 2e-4 atol 5e-6), two launches "
+                         f"bitwise equal, kernel {ms:.3f} ms (of which "
+                         f"row heads {head_ms:.3f} ms), plain "
+                         f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms by "
+                         f"{bound_by} {json.dumps(detail)}")
+        if not ev.me:
+            phase("kernels", f"{name} lane use: "
+                             f"{json.dumps(lane_use(ev, *args))}")
+    del captured, args, plan, tbl, qrows, want
+
+    # ---- 3b. the stress input ----
+    for name, ev in gradient_gather.EVALS.items():
+        r0, r1, *rest, hot = stress_inputs(ev, device="cuda")
+        plan = fg.Plan(torch.arange(r0.shape[0], device="cuda"), r0, r1)
+        want, me_queries, err = against_plain(name, ev, (plan, *rest))
+        if not int(want[hot, 27]) > 256:
+            raise AssertionError(f"{name}: the stress input's hot query "
+                                 f"has {int(want[hot, 27])} visits")
+        phase("stress", f"{name}: {r0.shape[0]} queries, candidates "
+                        f"{int((r1 - r0).sum())}, visits "
+                        f"{int(want[:, 27].sum())} equal ({int(want[hot, 27])}"
+                        f" of them one query's), shift_ok "
+                        f"{int(want[:, 28].sum())} equal, ME queries "
+                        f"{me_queries}, max|err| {err:.3g}, two launches "
+                        f"bitwise equal")
 
     # ---- 4. the main paths at the headline size ----
     def drive(label, cfg, passes, expect):
@@ -373,6 +612,28 @@ def main():
     phase("goldens", "32^2 relMSE ME off / ME on: "
                      f"{seen[(32, 'ME off')]:.5f} / "
                      f"{seen[(32, 'ME on')]:.5f}")
+    # how far rounding alone moves a golden: the same 32^2 render with
+    # the gathers' plain version (same pairs, sums in another order)
+    kw = dict(ci)
+    passes = kw.pop("passes")
+    kernel = gvpm.render(scenes.box_medium(32, 32), GradientConfig(**kw),
+                         volume="distance", seed=5, passes=passes)
+    fg.fused_gather = fg.fused_gather_plain
+    try:
+        plain = gvpm.render(scenes.box_medium(32, 32), GradientConfig(**kw),
+                            volume="distance", seed=5, passes=passes)
+    finally:
+        fg.fused_gather = launch
+    ref = read_pfm(os.path.join(ROOT, "goldens", "ci", "box-medium_ref.pfm"))
+    phase("goldens", "32^2 ME off, gathers through the plain version on the "
+                     "card: relMSE "
+                     f"{relmse(plain['image'].cpu().numpy(), ref):.5f} "
+                     "against the kernel's "
+                     f"{relmse(kernel['image'].cpu().numpy(), ref):.5f}; "
+                     "kernel vs plain max relative difference, primal "
+                     f"{float(((kernel['primal'] - plain['primal']).abs() / plain['primal'].abs().clamp(min=1e-3)).max()):.3g}"
+                     ", reconstruction "
+                     f"{float(((kernel['image'] - plain['image']).abs() / plain['image'].abs().clamp(min=1e-3)).max()):.3g}")
 
     src = "gvpm_tpu_torch/csrc/fused_gather.cu"
     print(json.dumps({"kernels": [

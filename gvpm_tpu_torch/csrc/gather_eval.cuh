@@ -10,11 +10,19 @@
 // rounding of expf/powf. The slot layouts below are those of
 // gradient_gather.SLOT / VOL_QSLOTS / SUR_QSLOTS.
 //
-// Each body is `pair<ME>`: with ME it also returns whether the pair is
-// eligible for a manifold (ME) shift -- inside the ball, not
-// reconnectable, parent a delta surface (and, for surface photons, the
-// photon's own BSDF not delta). The mask is the ball test and discrete
-// row slots, so it is exact. pair<false> is the body without that tail.
+// Each eval is two functions. `inside` is the ball test of a candidate
+// pair: it reads the query row and the 8-float head of the photon row
+// (HeadSlot: position, vertex type, incoming direction, depth) and says
+// whether the pair is a visit. `body<ME>` is everything after it, for a
+// pair that passed: the base term and the four reconnection shifts. It
+// reads the query row and the whole photon row and hands each of the
+// pair's N_ACC terms to a sink (`sink.add(column, value)`; every pair
+// calls it for the same columns in the same order, so a sink may reduce
+// across the lanes of a warp). With ME it also returns whether the pair
+// is eligible for a manifold (ME) shift -- not reconnectable, parent a
+// delta surface (and, for surface photons, the photon's own BSDF not
+// delta). The mask is discrete row slots, so it is exact; body<false> is
+// the body without that tail.
 //
 // The header also compiles as plain host C++ (with __host__/__device__
 // defined away), which is how the CPU tests exercise this source.
@@ -32,27 +40,36 @@ constexpr int SUR_N_OUT = 30;
 constexpr int N_RUNS = 9;
 constexpr int ME_NONE = 0x7fffffff;  // ME row key of a query with no ME pair
 
-// photon-row slots (gradient_gather.SLOT)
+// photon-row slots (gradient_gather.SLOT); rows are row-major, R_LOAD
+// floats of each are read (the 55 slots rounded up to whole float4s)
 enum RowSlot : int {
   R_P = 0, R_WI = 3, R_ALPHA = 6, R_PARENT_P = 9, R_PARENT_WI = 12,
   R_PARENT_NS = 15, R_SCATTER_BASE = 18, R_NS = 21, R_ST = 24,
   R_PM_ALB = 27, R_PM_SPEC = 30, R_PM_ETA3 = 33, R_PM_SIGS = 36,
   R_PDF_DIR_BASE = 39, R_PARENT_TYPE = 40, R_RECONN = 43, R_VTYPE = 44,
   R_DEPTH = 47, R_PM_BTYPE = 48, R_PM_ALPHA = 49, R_PM_ETA1 = 50,
-  R_PM_G = 51, R_PM_PTYPE = 52, R_PM_DELTA = 53, R_OWN_DELTA = 54
+  R_PM_G = 51, R_PM_PTYPE = 52, R_PM_DELTA = 53, R_OWN_DELTA = 54,
+  R_LOAD = 56
 };
-// volume query slots (gradient_gather.VOL_QSLOTS); shifted i at +3i / +i
+// head of a photon row: what the ball tests read. fused_gather.row_heads
+// keeps it as two planes of four floats a row, [2, P, 4]: (position,
+// vertex type) and (incoming direction, depth)
+enum HeadSlot : int { H_P = 0, H_VTYPE = 3, H_WI = 4, H_DEPTH = 7, H_WIDTH = 8 };
+// volume query slots (gradient_gather.VOL_QSLOTS); shifted i at +3i / +i;
+// the first V_USED floats of the V_WIDTH-wide row are read
 enum VolSlot : int {
   V_X = 0, V_D = 3, V_XS = 6, V_SD = 18, V_G = 30, V_PT = 31, V_SOK = 32,
-  V_DEPTH = 33, V_CAM_OK = 34, V_PRC = 38, V_BORDER = 42, V_WIDTH = 64
+  V_DEPTH = 33, V_CAM_OK = 34, V_PRC = 38, V_BORDER = 42, V_USED = 46,
+  V_WIDTH = 64
 };
 // surface query slots (gradient_gather.SUR_QSLOTS); shifted gather
-// point i: p, ns, s, t, wo at S_SH + 15i + {0, 3, 6, 9, 12}
+// point i: p, ns, s, t, wo at S_SH + 15i + {0, 3, 6, 9, 12}; the first
+// S_USED floats of the S_WIDTH-wide row are read
 enum SurSlot : int {
   S_P = 0, S_NS = 3, S_S = 6, S_T = 9, S_WO = 12, S_ALB = 15, S_SPEC = 18,
   S_ETA3 = 21, S_SH = 24, S_BTYPE = 84, S_ALPHA_B = 85, S_ETA1 = 86,
   S_R2 = 87, S_VALID = 88, S_DEPTH = 89, S_COMP = 90, S_SENS = 94,
-  S_BORDER = 98, S_WIDTH = 128
+  S_BORDER = 98, S_USED = 102, S_WIDTH = 128
 };
 
 // scene type ids (scene/types.py)
@@ -103,13 +120,18 @@ __host__ __device__ inline float sign_(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
 }
 
-// one photon row of the feature-major table [F, P]
+// one photon row of the row-major table [P, F] (or a copy of its first
+// R_LOAD floats)
 struct RowRef {
-  const float* t;
-  long long P;
-  long long i;
-  __host__ __device__ float f1(int k) const { return t[(long long)k * P + i]; }
-  __host__ __device__ V3 f3(int k) const { return {f1(k), f1(k + 1), f1(k + 2)}; }
+  const float* r;
+  __host__ __device__ float f1(int k) const { return r[k]; }
+  __host__ __device__ V3 f3(int k) const { return {r[k], r[k + 1], r[k + 2]}; }
+};
+
+// the sink of a sequential caller: one query's accumulators
+struct AccSink {
+  float* acc;
+  __host__ __device__ void add(int c, float v) { acc[c] += v; }
 };
 
 __host__ __device__ inline V3 qf3(const float* q, int k) {
@@ -360,22 +382,33 @@ __host__ __device__ inline bool me_eligible(const ShiftCache& c, const RowRef& r
 // ------------------------------------------------------ the eval bodies
 //
 // A pair that fails the ball test contributes exactly zero in the plain
-// version (every term is multiplied by a zeroed kernel weight), so both
-// bodies return before the shift math for it. Rows that could turn that
-// zero into NaN (dead lanes holding inf) are scrubbed by pack_photons.
+// version (every term is multiplied by a zeroed kernel weight), so only
+// pairs that pass `inside` reach `body`. Rows that could turn that zero
+// into NaN (dead lanes holding inf) are scrubbed by pack_photons.
+//
+// Per eval: QW the query-row width, QUSED the leading floats of it that
+// are read, HEAD_FLOATS the leading floats of a row head that `inside`
+// reads when min_depth is 0 (with min_depth > 0 it reads all H_WIDTH).
 
 struct VolumeEval {
   static constexpr int QW = V_WIDTH;
+  static constexpr int QUSED = V_USED;
   static constexpr int N_OUT = VOL_N_OUT;
-  template <bool ME>
-  __host__ __device__ static bool pair(const float* q, const RowRef& r, int min_depth,
-                                       float r2, float k3, float* acc) {
-    V3 rel = sub3(r.f3(R_P), qf3(q, V_X));
+  static constexpr int HEAD_FLOATS = 4;
+
+  __host__ __device__ static bool inside(const float* q, const float* h, int min_depth,
+                                         float r2) {
+    V3 rel = sub3(qf3(h, H_P), qf3(q, V_X));
     float d2 = dot3(rel, rel);
-    bool inside = (r.f1(R_VTYPE) == 2.0f) && (d2 < r2) && (q[V_SOK] > 0.5f);
-    if (min_depth > 0)
-      inside = inside && (r.f1(R_DEPTH) + q[V_DEPTH] + 1.0f >= (float)min_depth);
-    if (!inside) return false;
+    bool in = (h[H_VTYPE] == 2.0f) && (d2 < r2) && (q[V_SOK] > 0.5f);
+    if (min_depth > 0) in = in && (h[H_DEPTH] + q[V_DEPTH] + 1.0f >= (float)min_depth);
+    return in;
+  }
+
+  template <bool ME, class Sink>
+  __host__ __device__ static bool body(const float* q, const RowRef& r, float,
+                                       float k3, Sink& sink) {
+    V3 rel = sub3(r.f3(R_P), qf3(q, V_X));
     float g = q[V_G];
     int pt = (int)q[V_PT];
     float pf = phase_params(-dot3(r.f3(R_WI), qf3(q, V_D)), g, pt);
@@ -383,7 +416,8 @@ struct VolumeEval {
     V3 a = r.f3(R_ALPHA);
     const float cb[3] = {a.x * kw, a.y * kw, a.z * kw};
     ShiftCache c = shift_caches(r, false);
-    for (int k = 0; k < 3; ++k) acc[k] += cb[k];
+    for (int k = 0; k < 3; ++k) sink.add(k, cb[k]);
+    float n_ok = 0.0f;
     for (int i = 0; i < 4; ++i) {
       V3 new_p = add3(qf3(q, V_XS + 3 * i), rel);
       float a_sh[3], pr_l;
@@ -394,11 +428,12 @@ struct VolumeEval {
       float w = mis(pr_l, q[V_PRC + i], ok_i);
       w = q[V_BORDER + i] > 0.5f ? 1.0f : w;
       float kwi = (ok_i ? pf_s * k3 : 0.0f) * w;
-      for (int k = 0; k < 3; ++k) acc[3 + 3 * i + k] += a_sh[k] * kwi;
-      for (int k = 0; k < 3; ++k) acc[15 + 3 * i + k] += w * cb[k];
-      acc[28] += ok_i ? 1.0f : 0.0f;
+      for (int k = 0; k < 3; ++k) sink.add(3 + 3 * i + k, a_sh[k] * kwi);
+      for (int k = 0; k < 3; ++k) sink.add(15 + 3 * i + k, w * cb[k]);
+      n_ok += ok_i ? 1.0f : 0.0f;
     }
-    acc[27] += 1.0f;
+    sink.add(27, 1.0f);
+    sink.add(28, n_ok);
     if constexpr (ME) return me_eligible(c, r);
     return false;
   }
@@ -406,20 +441,28 @@ struct VolumeEval {
 
 struct SurfaceEval {
   static constexpr int QW = S_WIDTH;
+  static constexpr int QUSED = S_USED;
   static constexpr int N_OUT = SUR_N_OUT;
-  template <bool ME>
-  __host__ __device__ static bool pair(const float* q, const RowRef& r, int min_depth,
-                                       float, float, float* acc) {
+  static constexpr int HEAD_FLOATS = 8;
+
+  __host__ __device__ static bool inside(const float* q, const float* h, int min_depth,
+                                         float) {
+    V3 rel = sub3(qf3(h, H_P), qf3(q, S_P));
+    float d2 = dot3(rel, rel);
+    V3 nwi = neg3(qf3(h, H_WI));
+    bool front = dot3(qf3(q, S_NS), nwi) > 1e-4f;
+    bool in = (h[H_VTYPE] == 1.0f) && (d2 < q[S_R2]) && front && (q[S_VALID] > 0.5f);
+    if (min_depth > 0) in = in && (h[H_DEPTH] + q[S_DEPTH] >= (float)min_depth);
+    return in;
+  }
+
+  template <bool ME, class Sink>
+  __host__ __device__ static bool body(const float* q, const RowRef& r, float, float,
+                                       Sink& sink) {
     float r2 = q[S_R2];
     V3 ns = qf3(q, S_NS);
     V3 rel = sub3(r.f3(R_P), qf3(q, S_P));
-    float d2 = dot3(rel, rel);
     V3 nwi = neg3(r.f3(R_WI));
-    bool front = dot3(ns, nwi) > 1e-4f;
-    bool inside = (r.f1(R_VTYPE) == 1.0f) && (d2 < r2) && front && (q[S_VALID] > 0.5f);
-    if (min_depth > 0)
-      inside = inside && (r.f1(R_DEPTH) + q[S_DEPTH] >= (float)min_depth);
-    if (!inside) return false;
     V3 wi_l = to_local(ns, qf3(q, S_S), qf3(q, S_T), nwi);
     BsdfParams bp = {(int)q[S_BTYPE], qf3(q, S_ALB), qf3(q, S_SPEC),
                      qf3(q, S_ETA3), q[S_ALPHA_B], q[S_ETA1]};
@@ -430,7 +473,8 @@ struct SurfaceEval {
     V3 a = r.f3(R_ALPHA);
     const float cb[3] = {a.x * f[0] * kw, a.y * f[1] * kw, a.z * f[2] * kw};
     ShiftCache c = shift_caches(r, true);
-    for (int k = 0; k < 3; ++k) acc[k] += cb[k];
+    for (int k = 0; k < 3; ++k) sink.add(k, cb[k]);
+    float n_ok = 0.0f;
     for (int i = 0; i < 4; ++i) {
       const int sh = S_SH + 15 * i;
       V3 new_p = add3(qf3(q, sh), rel);
@@ -444,11 +488,12 @@ struct SurfaceEval {
       float w = mis(pr_l, q[S_SENS + i], ok_i);
       w = q[S_BORDER + i] > 0.5f ? 1.0f : w;
       float kwi = (ok_i ? k2 : 0.0f) * w;
-      for (int k = 0; k < 3; ++k) acc[3 + 3 * i + k] += a_sh[k] * fs[k] * kwi;
-      for (int k = 0; k < 3; ++k) acc[15 + 3 * i + k] += w * cb[k];
-      acc[28] += ok_i ? 1.0f : 0.0f;
+      for (int k = 0; k < 3; ++k) sink.add(3 + 3 * i + k, a_sh[k] * fs[k] * kwi);
+      for (int k = 0; k < 3; ++k) sink.add(15 + 3 * i + k, w * cb[k]);
+      n_ok += ok_i ? 1.0f : 0.0f;
     }
-    acc[27] += 1.0f;
+    sink.add(27, 1.0f);
+    sink.add(28, n_ok);
     // a surface photon that sits on a delta BSDF itself contributes
     // nothing to this gather and takes no ME shift
     if constexpr (ME) return me_eligible(c, r) && !(r.f1(R_OWN_DELTA) > 0.5f);

@@ -351,6 +351,8 @@ VOLUME_ME_EVAL = fg.GatherEval("volume_me", VOL_QSLOTS, VOL_QROW_F, SLOT,
                                VOL_N_OUT, _volume_pairs, me=True)
 SURFACE_ME_EVAL = fg.GatherEval("surface_me", SUR_QSLOTS, SUR_QROW_F, SLOT,
                                 SUR_N_OUT, _surface_pairs, me=True)
+EVALS = {ev.name: ev for ev in (SURFACE_EVAL, VOLUME_EVAL, SURFACE_ME_EVAL,
+                                VOLUME_ME_EVAL)}
 
 
 def _qrows(cols3, cols1, width, order):
@@ -448,7 +450,7 @@ def surface_gather(scene: Scene, base, sgps, grid, packed, n_emitted,
     qrows = _qrows(cols3, cols1, SUR_QROW_F, plan.order)
     out, me_sorted = fg.fused_gather(
         SURFACE_ME_EVAL if use_manifold else SURFACE_EVAL, plan,
-        packed.t().contiguous(), qrows, 0.0, 0.0, min_depth)
+        packed, qrows, 0.0, 0.0, min_depth)
     primal, S, W, visits, shift_ok, dropped = _unpack(plan, out)
     inv = 1.0 / n_emitted
     primal = base.thr * primal * inv
@@ -540,7 +542,6 @@ def volume_gather(scene: Scene, cb, scb_list, grid, packed, n_emitted,
     sens = [torch.clamp(scb_list[i]["pdf_prod"]
                         / torch.clamp(cb["pdf_prod"], min=1e-20), 1e-4, 1e4)
             for i in range(4)]
-    tbl_T = packed.t().contiguous()
     mic = torch.clamp(mi, 0, scene.med_g.shape[0] - 1)
     ev = VOLUME_ME_EVAL if use_manifold else VOLUME_EVAL
 
@@ -569,7 +570,7 @@ def volume_gather(scene: Scene, cb, scb_list, grid, packed, n_emitted,
                  cb["depth"]] + cam_ok + prc \
             + [border_lane[i] for i in range(4)]
         qrows = _qrows(cols3, cols1, VOL_QROW_F, plan.order)
-        out, me_sorted = fg.fused_gather(ev, plan, tbl_T, qrows, r2, k3,
+        out, me_sorted = fg.fused_gather(ev, plan, packed, qrows, r2, k3,
                                          min_depth)
         p_, S_, W_, v_, so_, dr_ = _unpack(plan, out)
         p_ = w_cam * p_

@@ -13,13 +13,18 @@ eligible for a manifold (ME) shift, as an int32 key (ME_NONE: no such
 pair).
 
   plan = plan_runs(grid, x, q_valid)
-  out, me_row = fused_gather(ev, plan, table_T, qrows, r2, k3, min_depth)
+  out, me_row = fused_gather(ev, plan, table, qrows, r2, k3, min_depth)
   res = unsort(plan, out)
 
+`table` is the row-major [P, F] row table as `pack_photons` makes it.
 `fused_gather` launches the CUDA kernel (csrc/fused_gather.cu) for CUDA
 tensors and takes the plain PyTorch version (`fused_gather_plain`) only
-for CPU tensors. The kernel is built with nvcc at first use into
-gvpm_tpu_torch/_build/, keyed by a hash of its sources.
+for CPU tensors. The kernel's ball tests read an 8-float head of each
+row (`row_heads`), which each launch first copies out of the table; its
+shift bodies read the rows themselves. The kernel is built
+with nvcc at first use into gvpm_tpu_torch/_build/, keyed by a hash of
+its sources, and ptxas's resource report is kept beside it
+(`build_report`).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import subprocess
 import threading
 
@@ -39,6 +45,10 @@ N_RUNS = 9
 # 27-stencil: nine (dy, dz) runs of three x-consecutive cells each
 RUN_OFFS_27 = [(dy, dz) for dz in range(3) for dy in range(3)]
 N_ACC = 29      # accumulated columns: primal 3, S 12, W 12, visits, ok
+ROW_LOAD = 56   # floats of each table row the kernel loads (R_LOAD)
+TILE_Q = 8      # sorted queries per warp tile of the kernel (Shape::TQ)
+# a row's head: (field, floats, slot the kernel's row_heads_kernel reads)
+HEAD_FIELDS = (("p", 3, 0), ("vtype", 1, 44), ("wi", 3, 3), ("depth", 1, 47))
 ME_NONE = 2 ** 31 - 1       # ME row key of a query without an ME pair
 PLAIN_MAX_PAIRS = 1 << 20   # candidate pairs per chunk of the plain version
 # kernel launches per eval, counted by the wrapper where it launches
@@ -49,7 +59,8 @@ _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
 SOURCES = ("fused_gather.cu", "gather_eval.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
 
 
 @dataclasses.dataclass
@@ -103,8 +114,8 @@ def unsort(plan: Plan, flat):
 
 
 class _Cols:
-    """Named pair-plane access: column `slot + j` of `table` (an
-    [F, ...] feature-major tensor) gathered at `idx`, memoised."""
+    """Named pair-plane access: column `slot + j` of `table` (a row-major
+    [N, F] tensor) gathered at rows `idx`, memoised."""
 
     def __init__(self, table, idx, slots):
         self.table, self.idx, self.slots = table, idx, slots
@@ -112,7 +123,7 @@ class _Cols:
 
     def col(self, k):
         if k not in self.cache:
-            self.cache[k] = self.table[k][self.idx]
+            self.cache[k] = self.table[self.idx, k]
         return self.cache[k]
 
     def f3(self, name):
@@ -129,7 +140,7 @@ class _Cols:
         return self.f1(name) > 0.5
 
 
-def fused_gather_plain(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
+def fused_gather_plain(ev: GatherEval, plan: Plan, table, qrows, r2, k3,
                        min_depth):
     """The plain PyTorch version: flatten the (query, row) candidate
     pairs of each query chunk with repeat_interleave over run lengths,
@@ -142,11 +153,29 @@ def fused_gather_plain(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
     out = torch.zeros((Q, ev.n_out), dtype=torch.float32, device=dev)
     me_row = torch.full((Q,), ME_NONE, dtype=torch.int64, device=dev) \
         if ev.me else None
-    if Q == 0:
-        return out, _me_key(me_row)
+    for s, e, run, row in candidate_chunks(plan):
+        qi = run // N_RUNS
+        q = _Cols(qrows, s + qi, ev.q_slots)
+        r = _Cols(table, row, ev.row_slots)
+        planes = ev.pair_fn(q, r, min_depth, r2, k3, ev.me)
+        out[s:e, :N_ACC].index_add_(
+            0, qi, torch.stack(planes[:N_ACC], dim=1))
+        if ev.me:
+            me_row[s:e].scatter_reduce_(
+                0, qi, torch.where(planes[N_ACC], row, ME_NONE), "amin")
+    return out, _me_key(me_row)
+
+
+def candidate_chunks(plan: Plan):
+    """The candidate (query, row) pairs of a plan, in chunks of whole
+    queries that hold at most ~PLAIN_MAX_PAIRS pairs: yields (s, e, run,
+    row) with [s, e) the chunk's sorted queries, run [n] each pair's run
+    counted from run 0 of query s (so its query is s + run // 9) and
+    row [n] its table row, run by run in row order."""
+    Q = plan.r0.shape[0]
+    dev = plan.r0.device
     lens = (plan.r1 - plan.r0).to(torch.int64)             # [Q, 9]
     cum = torch.cumsum(lens.sum(1), 0)
-    qT = qrows.t()
     s = 0
     while s < Q:
         base = int(cum[s - 1]) if s else 0
@@ -160,17 +189,8 @@ def fused_gather_plain(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
             first = torch.cumsum(ln, 0) - ln
             pos = torch.arange(run.shape[0], device=dev) - first[run]
             row = plan.r0[s:e].reshape(-1).to(torch.int64)[run] + pos
-            qi = run // N_RUNS
-            q = _Cols(qT, s + qi, ev.q_slots)
-            r = _Cols(table_T, row, ev.row_slots)
-            planes = ev.pair_fn(q, r, min_depth, r2, k3, ev.me)
-            out[s:e, :N_ACC].index_add_(
-                0, qi, torch.stack(planes[:N_ACC], dim=1))
-            if ev.me:
-                me_row[s:e].scatter_reduce_(
-                    0, qi, torch.where(planes[N_ACC], row, ME_NONE), "amin")
+            yield s, e, run, row
         s = e
-    return out, _me_key(me_row)
 
 
 def _me_key(me_row):
@@ -184,30 +204,51 @@ def slots_read(ev: GatherEval, min_depth):
     body (its `me` tail and the min_depth test included), not the padded
     row widths; csrc/gather_eval.cuh reads the same slots."""
     one = torch.zeros((1,), dtype=torch.int64)
-    q = _Cols(torch.zeros((ev.q_width, 1)), one, ev.q_slots)
-    r = _Cols(torch.zeros((max(ev.row_slots.values()) + 1, 1)), one,
+    q = _Cols(torch.zeros((1, ev.q_width)), one, ev.q_slots)
+    r = _Cols(torch.zeros((1, max(ev.row_slots.values()) + 1)), one,
               ev.row_slots)
     ev.pair_fn(q, r, min_depth, 1.0, 1.0, ev.me)
     return sorted(r.cache), sorted(q.cache)
 
 
-def fused_gather(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
+def row_heads(ev: GatherEval, table):
+    """[2, P, 4] float32: what the kernel's ball tests read of each row,
+    bit for bit the table's slots, as two planes: (position, vertex
+    type) and (incoming direction, depth) -- HeadSlot in
+    csrc/gather_eval.cuh. Every kernel launch fills its own copy on the
+    card; this function is that step alone (the plain version for CPU
+    tensors, the launch's row_heads_kernel for CUDA tensors)."""
+    if table.device.type == "cpu":
+        cols = [table[:, ev.row_slots[n]:ev.row_slots[n] + w]
+                for n, w, _ in HEAD_FIELDS]
+        return torch.stack((torch.cat(cols[:2], 1), torch.cat(cols[2:], 1)))
+    _check_table(ev, table)
+    head = torch.empty((2, table.shape[0], 4), dtype=torch.float32,
+                       device=table.device)
+    err = build().gvpm_row_heads(
+        table.data_ptr(), head.data_ptr(), *table.shape,
+        torch.cuda.current_stream(table.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"row_heads launch failed: CUDA error {err}")
+    return head
+
+
+def fused_gather(ev: GatherEval, plan: Plan, table, qrows, r2, k3,
                  min_depth):
     """Run eval `ev` over every (query, row) pair of the planned runs.
 
-    table_T [F, P] float32 feature-major photon rows; qrows [Q, FQ]
-    float32 per-query fields IN SORTED ORDER; r2/k3: float scalars (the
-    volume eval's ball radius^2 and 3D kernel norm). Returns (out, me_row)
-    in sorted order: out [Q, n_out] holds primal 3, S 4x3, W 4x3, visits,
+    table [P, F] float32 row-major photon rows; qrows [Q, FQ] float32
+    per-query fields IN SORTED ORDER; r2/k3: float scalars (the volume
+    eval's ball radius^2 and 3D kernel norm). Returns (out, me_row) in
+    sorted order: out [Q, n_out] holds primal 3, S 4x3, W 4x3, visits,
     shift_ok, dropped; me_row is None unless `ev.me`, then int32 [Q]: the
-    lowest row of table_T among the query's ME-eligible pairs, ME_NONE
+    lowest row of `table` among the query's ME-eligible pairs, ME_NONE
     where it has none. CUDA tensors launch the kernel; CPU tensors take
     the plain version.
     """
-    if table_T.device.type == "cpu":
-        return fused_gather_plain(ev, plan, table_T, qrows, r2, k3,
-                                  min_depth)
-    return launch_kernel(ev, plan, table_T, qrows, r2, k3, min_depth)
+    if table.device.type == "cpu":
+        return fused_gather_plain(ev, plan, table, qrows, r2, k3, min_depth)
+    return launch_kernel(ev, plan, table, qrows, r2, k3, min_depth)
 
 
 # ---------------------------------------------------------------------------
@@ -218,17 +259,22 @@ _LIB = {}
 _LOCK = threading.Lock()
 
 
+def _source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def build():
-    """Compile csrc/ with nvcc into _build/<source hash>/ (once) and load
-    it; returns the ctypes library."""
+    """Compile csrc/ with nvcc into _build/<source hash>/ (once), keep
+    ptxas's report beside the library, and load it; returns the ctypes
+    library."""
     with _LOCK:
         if "lib" in _LIB:
             return _LIB["lib"]
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for name in SOURCES:
-            with open(os.path.join(_CSRC, name), "rb") as f:
-                h.update(f.read())
-        out_dir = os.path.join(_BUILD, h.hexdigest()[:16])
+        out_dir = os.path.join(_BUILD, _source_hash())
         so = os.path.join(out_dir, "libfused_gather.so")
         if not os.path.exists(so):
             os.makedirs(out_dir, exist_ok=True)
@@ -241,41 +287,102 @@ def build():
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError("nvcc failed:\n" + res.stderr)
+            with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
+                f.write(res.stderr)
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_float, ctypes.c_int)
         for name in LAUNCHES:
             fn = getattr(lib, f"gvpm_fused_gather_{name}")
-            fn.argtypes = [vp, i64, vp, vp, vp, i64, f32, f32, i32, vp] \
-                + [vp] * (1 + name.endswith("_me"))
+            fn.argtypes = [vp, vp, i64, i64, vp, vp, vp, i64, f32, f32, i32,
+                           vp] + [vp] * (1 + name.endswith("_me"))
             fn.restype = ctypes.c_int
+        lib.gvpm_row_heads.argtypes = [vp, vp, i64, i64, vp]
+        lib.gvpm_row_heads.restype = ctypes.c_int
         _LIB["lib"] = lib
         return lib
 
 
-def launch_kernel(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
+def build_report():
+    """ptxas's resources of each kernel instantiation of the built
+    library: {eval name: dict(registers, spill_stores, spill_loads,
+    stack, smem)}, bytes but for the registers per thread."""
+    build()
+    with open(os.path.join(_BUILD, _source_hash(), "ptxas.txt")) as f:
+        return parse_ptxas(f.read())
+
+
+def parse_ptxas(text):
+    """`nvcc -Xptxas -v` output -> the resources of the four
+    fused_gather_kernel<Eval, ME> entry functions, by eval name."""
+    report = {}
+    entry = re.compile(
+        r"Compiling entry function '(\w*fused_gather_kernel\w*)'(.*?)"
+        r"(?=Compiling entry function|\Z)", re.S)
+    for name, block in entry.findall(text):
+        ev = ("volume" if "VolumeEval" in name else "surface") \
+            + ("_me" if "Lb1" in name else "")
+        stack, st, ld = map(int, re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads", block).groups())
+        smem = re.search(r"(\d+) bytes smem", block)
+        report[ev] = dict(
+            registers=int(re.search(r"Used (\d+) registers",
+                                    block).group(1)),
+            spill_stores=st, spill_loads=ld, stack=stack,
+            smem=int(smem.group(1)) if smem else 0)
+    return report
+
+
+def _check_table(ev: GatherEval, table):
+    """Raises unless `table` is what the kernels index: contiguous 2-d
+    float32 on a CUDA device, rows of at least ROW_LOAD floats (the body
+    loads that many as float4s, and the eval's highest slot lies below
+    it), a multiple of 4 wide and 16-byte aligned."""
+    if table.device.type != "cuda" or table.dtype != torch.float32 \
+            or table.dim() != 2 or not table.is_contiguous():
+        raise ValueError("fused_gather: table must be a contiguous 2-d "
+                         "float32 tensor on a CUDA device")
+    if table.shape[1] < ROW_LOAD or table.shape[1] % 4 \
+            or table.data_ptr() % 16 \
+            or max(ev.row_slots.values()) >= ROW_LOAD:
+        raise ValueError(f"fused_gather: table rows must hold at least "
+                         f"{ROW_LOAD} floats, a multiple of 4, 16-byte "
+                         f"aligned; got width {table.shape[1]}")
+    if any(ev.row_slots[n] != k for n, _, k in HEAD_FIELDS):
+        raise ValueError("fused_gather: the kernel reads the row heads at "
+                         "the slots of csrc/gather_eval.cuh")
+
+
+def launch_kernel(ev: GatherEval, plan: Plan, table, qrows, r2, k3,
                   min_depth):
-    """Launch the CUDA kernel for eval `ev` on PyTorch's current stream;
-    raises on bad inputs or a refused launch."""
-    dev = table_T.device
+    """Launch the CUDA kernel for eval `ev` on PyTorch's current stream
+    (no synchronize); raises on inputs the kernel does not take or a
+    refused launch."""
+    dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"fused_gather: the kernel runs on CUDA tensors, "
                          f"not on {dev}")
-    Q = qrows.shape[0]
-    for name, t, dt in (("table_T", table_T, torch.float32),
-                        ("qrows", qrows, torch.float32),
-                        ("r0", plan.r0, torch.int32),
-                        ("r1", plan.r1, torch.int32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"fused_gather: {name} must be a contiguous "
-                             f"{dt} tensor on {dev}")
-    if qrows.shape[1] != ev.q_width or plan.r0.shape != (Q, N_RUNS):
-        raise ValueError("fused_gather: query rows / plan shape mismatch")
     if ev.name not in LAUNCHES or ev.me != ev.name.endswith("_me"):
         raise ValueError(f"fused_gather: no kernel for eval {ev.name!r}")
-    if table_T.shape[1] >= ME_NONE:
-        raise ValueError("fused_gather: row ids must fit an int32 key")
+    _check_table(ev, table)
+    for name, t, dt in (("qrows", qrows, torch.float32),
+                        ("r0", plan.r0, torch.int32),
+                        ("r1", plan.r1, torch.int32)):
+        if t.device != dev or t.dtype != dt or t.dim() != 2 \
+                or not t.is_contiguous():
+            raise ValueError(f"fused_gather: {name} must be a contiguous "
+                             f"2-d {dt} tensor on {dev}")
+    P, row_w = table.shape
+    Q = qrows.shape[0]
+    if qrows.shape[1] != ev.q_width:
+        raise ValueError(f"fused_gather: query rows must be {ev.q_width} "
+                         f"wide for eval {ev.name!r}, got {qrows.shape[1]}")
+    if plan.r0.shape != (Q, N_RUNS) or plan.r1.shape != (Q, N_RUNS):
+        raise ValueError(f"fused_gather: run bounds must be [{Q}, {N_RUNS}]")
+    if P >= ME_NONE or Q >= ME_NONE:
+        raise ValueError("fused_gather: row and query ids must fit int32")
     out = torch.empty((Q, ev.n_out), dtype=torch.float32, device=dev)
     me_row = torch.empty((Q,), dtype=torch.int32, device=dev) \
         if ev.me else None
@@ -283,9 +390,10 @@ def launch_kernel(ev: GatherEval, plan: Plan, table_T, qrows, r2, k3,
         return out, me_row
     lib = build()
     fn = getattr(lib, f"gvpm_fused_gather_{ev.name}")
+    head = torch.empty((2, P, 4), dtype=torch.float32, device=dev)
     outs = (out.data_ptr(), me_row.data_ptr()) if ev.me \
         else (out.data_ptr(),)
-    err = fn(table_T.data_ptr(), table_T.shape[1], qrows.data_ptr(),
+    err = fn(table.data_ptr(), head.data_ptr(), P, row_w, qrows.data_ptr(),
              plan.r0.data_ptr(), plan.r1.data_ptr(), Q, float(r2),
              float(k3), int(min_depth), *outs,
              torch.cuda.current_stream(dev).cuda_stream)

@@ -3,10 +3,13 @@ gather_eval.cuh), compiled as host C++ with g++ and driven pair by pair
 from ctypes, against the plain PyTorch version of the fused gather on
 the inputs of a 16x16 pass (the config of tests/test_torch_gather.py;
 for the ME variants the mirror-wall pass of tests/test_torch_gather_me.py,
-where ME-eligible pairs exist). This is the only way the CUDA source's
-math runs before it reaches the card. Bar: visits and shift_ok exact,
-sums at rtol 2e-4 / atol 5e-6; the ME row key (the minimum row over the
-pairs whose `pair<true>` returns the ME mask) exactly equal."""
+where ME-eligible pairs exist), and on the stress input that
+chip_smoke.py runs on the card. The host loop calls the split functions as
+the kernel does: `inside` on the row's head, then `body` on the row for
+the pairs that pass. This is the only way the CUDA source's math runs
+before it reaches the card. Bar: visits and shift_ok exact, sums at rtol
+2e-4 / atol 5e-6; the ME row key (the minimum row over the pairs whose
+`body<true>` returns the ME mask) exactly equal."""
 
 import ctypes
 import os
@@ -16,6 +19,7 @@ import subprocess
 import pytest
 import torch
 
+from chip_smoke import stress_inputs
 from gvpm_tpu_torch.integrators import gradient_gather, gvpm, sppm
 from gvpm_tpu_torch.ops import fused_gather as fg
 from tests.test_torch_common import (ME_TORCH_CFG, N_PHOTONS, SIDE,
@@ -30,19 +34,28 @@ HOST_CPP = r"""
 #define __device__
 #include "gather_eval.cuh"
 template <class E, bool ME>
-static void run(const float* tbl, long long P, const float* qrows,
-                const int* r0, const int* r1, long long Q, float r2,
-                float k3, int md, float* out, int* me_row) {
+static void run(const float* tbl, const float* head, long long P,
+                long long row_w,
+                const float* qrows, const int* r0, const int* r1,
+                long long Q, float r2, float k3, int md, float* out,
+                int* me_row) {
   for (long long q = 0; q < Q; ++q) {
     float acc[gvpm::N_ACC] = {0};
+    gvpm::AccSink sink{acc};
     int me_min = gvpm::ME_NONE;
     const float* qr = qrows + q * E::QW;
     for (int run = 0; run < gvpm::N_RUNS; ++run)
-      for (int row = r0[q * gvpm::N_RUNS + run];
+      for (long long row = r0[q * gvpm::N_RUNS + run];
            row < r1[q * gvpm::N_RUNS + run]; ++row) {
-        bool me = E::template pair<ME>(qr, gvpm::RowRef{tbl, P, row}, md,
-                                       r2, k3, acc);
-        if (ME && me && row < me_min) me_min = row;
+        float h[gvpm::H_WIDTH];
+        for (int k = 0; k < 4; ++k) {
+          h[k] = head[row * 4 + k];
+          h[4 + k] = head[(P + row) * 4 + k];
+        }
+        if (!E::inside(qr, h, md, r2)) continue;
+        bool me = E::template body<ME>(
+            qr, gvpm::RowRef{tbl + row * row_w}, r2, k3, sink);
+        if (ME && me && row < me_min) me_min = (int)row;
       }
     for (int c = 0; c < gvpm::N_ACC; ++c) out[q * E::N_OUT + c] = acc[c];
     out[q * E::N_OUT + gvpm::N_ACC] = 0.0f;
@@ -50,11 +63,12 @@ static void run(const float* tbl, long long P, const float* qrows,
   }
 }
 extern "C" void host_gather(int surface, int me, const float* tbl,
-                            long long P, const float* qrows, const int* r0,
+                            const float* head, long long P, long long row_w,
+                            const float* qrows, const int* r0,
                             const int* r1, long long Q, float r2, float k3,
                             int md, float* out, int* me_row) {
-#define RUN(E, M) run<gvpm::E, M>(tbl, P, qrows, r0, r1, Q, r2, k3, md, \
-                                  out, me_row)
+#define RUN(E, M) run<gvpm::E, M>(tbl, head, P, row_w, qrows, r0, r1, Q, \
+                                  r2, k3, md, out, me_row)
   if (surface && me) RUN(SurfaceEval, true);
   else if (surface) RUN(SurfaceEval, false);
   else if (me) RUN(VolumeEval, true);
@@ -76,8 +90,9 @@ def host_lib(tmp_path_factory):
                     str(so)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     vp = ctypes.c_void_p
-    lib.host_gather.argtypes = [ctypes.c_int, ctypes.c_int, vp,
-                                ctypes.c_longlong, vp, vp, vp,
+    lib.host_gather.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp,
+                                ctypes.c_longlong, ctypes.c_longlong, vp,
+                                vp, vp,
                                 ctypes.c_longlong, ctypes.c_float,
                                 ctypes.c_float, ctypes.c_int, vp, vp]
     lib.host_gather.restype = None
@@ -111,8 +126,11 @@ def kernel_inputs():
 def _host_gather(host_lib, ev, plan, tbl, qrows, r2, k3, md):
     out = torch.empty((qrows.shape[0], ev.n_out))
     me_row = torch.empty((qrows.shape[0],), dtype=torch.int32)
+    head = fg.row_heads(ev, tbl)
+    assert tbl.is_contiguous() and qrows.is_contiguous()
     host_lib.host_gather(int(ev.name.startswith("surface")), int(ev.me),
-                         tbl.data_ptr(), tbl.shape[1], qrows.data_ptr(),
+                         tbl.data_ptr(), head.data_ptr(), *tbl.shape,
+                         qrows.data_ptr(),
                          plan.r0.data_ptr(), plan.r1.data_ptr(),
                          qrows.shape[0], r2, k3, md, out.data_ptr(),
                          me_row.data_ptr())
@@ -151,7 +169,7 @@ def test_kernel_source_reads_only_the_slots_counted(host_lib, kernel_inputs,
         assert len(row_slots) < gradient_gather.N_SLOTS
         assert len(q_slots) < ev.q_width
         tbl_nan = torch.full_like(tbl, torch.nan)
-        tbl_nan[row_slots] = tbl[row_slots]
+        tbl_nan[:, row_slots] = tbl[:, row_slots]
         q_nan = torch.full_like(qrows, torch.nan)
         q_nan[:, q_slots] = qrows[:, q_slots]
         want, want_me = _host_gather(host_lib, ev, plan, tbl, qrows, r2, k3,
@@ -162,6 +180,34 @@ def test_kernel_source_reads_only_the_slots_counted(host_lib, kernel_inputs,
         assert torch.equal(got, want)
         assert not ev.me or torch.equal(got_me, want_me)
     assert len(fg.slots_read(ev, 1)[0]) == len(fg.slots_read(ev, 0)[0]) + 1
+
+
+@pytest.mark.parametrize("which", EVALS)
+def test_stress_input_host_source_matches_plain(host_lib, which):
+    """The stress input of chip_smoke.py (one query with hundreds of
+    visits, long and empty runs, a ragged last tile, invalid queries, a
+    lowest ME row in a late run) through the plain version and the
+    host-compiled source."""
+    ev = gradient_gather.EVALS[which]
+    r0, r1, tbl, qrows, r2, k3, md, hot = stress_inputs(ev)
+    plan = fg.Plan(torch.arange(r0.shape[0]), r0, r1)
+    ref, ref_me = fg.fused_gather_plain(ev, plan, tbl, qrows, r2, k3, md)
+    out, me_row = _host_gather(host_lib, ev, plan, tbl, qrows, r2, k3, md)
+    lens = plan.r1 - plan.r0
+    assert qrows.shape[0] % 64 and int(lens.max()) > 128
+    assert int((lens == 0).sum()) > 0 and int(ref[hot, 27]) > 256
+    valid = qrows[:, ev.q_slots["valid" if "valid" in ev.q_slots
+                                else "sok"]] > 0.5
+    assert 0 < int(valid.sum()) < valid.numel()
+    assert float(ref[~valid].abs().sum()) == 0.0
+    assert torch.equal(out[:, 27:29], ref[:, 27:29])
+    assert int(ref[:, 28].sum()) > 0
+    torch.testing.assert_close(out, ref, rtol=2e-4, atol=5e-6)
+    if ev.me:
+        assert torch.equal(me_row, ref_me)
+        assert int((ref_me != fg.ME_NONE).sum()) > 0
+        # the hot query's lowest ME row lies in one of its last runs
+        assert int(plan.r0[hot, 7]) <= int(ref_me[hot]) < fg.ME_NONE
 
 
 def test_cpu_tensors_take_the_plain_version(kernel_inputs):
