@@ -41,12 +41,27 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 within 25% of the primal mean, and shift_ok with ME above
                 shift_ok without at the same seed and pass. Last, the
                 device kernel launches of one pass of each kind.
+  4b. sppm    — the SPPM primal pass (sppm.render_pass, `distance`) at
+                the same size (SPPM_KW: bench.py's base_kw without its TPU
+                knobs): a warm-up pass, then 3 timed passes with their
+                phase split; both hash grids' occupancy (cell_histogram);
+                one profiled pass: device kernel launches, device-busy
+                share and the share of device time inside the hash-grid
+                gather (gather_dense). The image must be finite with a
+                mean above 0.
   5. goldens  — box-medium gvpm:distance relMSE against the committed
                 goldens at the goldens/ci (32^2) and goldens (128^2)
-                configs with ME off, and at 32^2 with ME on, under the
-                bars recorded in their meta.json; the 32^2 render once
+                configs with ME off, and at 32^2 with ME on, and
+                sppm:distance at both (SPPM_GOLD), under the bars
+                recorded in their meta.json; the 32^2 gvpm render once
                 more with the gathers' plain version, to show how far a
                 different order of the sums moves the relMSE.
+  6. entry    — the port's entry() (one SPPM pass of a 32^2 tiny scene)
+                on the card: a finite image.
+     volpath  — volpath.render of box-medium at each golden's generation
+                config (1024 spp, max_depth 12, seed 101; 32^2 and 128^2):
+                seconds, and relMSE against the golden under the
+                agreement bar it was accepted at (agree_relmse).
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -70,6 +85,25 @@ HEADLINE_KW = dict(
     grid_dims=(64, 64, 64), grid_surface_rows=1 << 20,
     grid_volume_rows=1 << 20, use_manifold=False)
 HEADLINE_ME_KW = dict(HEADLINE_KW, use_manifold=True, me_pair_budget=4096)
+# the SPPM primal pass at the same size: bench.py:347-362's base_kw
+# without its TPU knobs (the hash grid's budget and size are the JAX
+# package's own)
+SPPM_KW = dict(
+    max_depth=12, null_bounces=6, max_cam_depth=6,
+    surface_photons=1 << 18, volume_photons=1 << 18, volume_samples=2,
+    initial_scale_volume=0.8, vol_segments_per_pixel=2,
+    grid_max_photons_per_cell=32, grid_hash_size=1 << 20)
+# the goldens' SPPM check configs (tools/goldens.py::_check_kw; the 128^2
+# one without its beam count), passes as tests/test_goldens.py and
+# tools/goldens.py run them
+SPPM_GOLD = (
+    ("ci", dict(surface_photons=1 << 15, volume_photons=1 << 15,
+                max_depth=12, grid_hash_size=1 << 15), 12),
+    (".", dict(max_depth=12, null_bounces=6, max_cam_depth=6,
+               surface_photons=1 << 16, volume_photons=1 << 16,
+               grid_hash_size=1 << 18, initial_scale_volume=0.5,
+               volume_samples=2, vol_segments_per_pixel=2,
+               grid_dims=(64, 64, 64)), 10))
 
 # Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
 # data sheet): device memory rate and float32 rate outside the tensor
@@ -101,22 +135,53 @@ def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
 
-def read_pfm(path):
-    """PFM reader (same format as gvpm_tpu/utils/image.py::write_pfm)."""
-    with open(path, "rb") as f:
-        assert f.readline().strip() == b"PF"
-        W, H = (int(v) for v in f.readline().split())
-        scale = float(f.readline())
-        data = np.frombuffer(f.read(W * H * 12),
-                             dtype="<f4" if scale < 0 else ">f4")
-    return np.flipud(data.reshape(H, W, 3)).copy()
-
-
-def relmse(img, ref, eps=1e-3):
-    """mean((a-b)^2/(ref^2+eps)), the repo's golden metric."""
-    a = np.asarray(img, np.float64)
-    b = np.asarray(ref, np.float64)
-    return float(np.mean((a - b) ** 2 / (b * b + eps)))
+def profile_pass(run):
+    """One call of `run` under torch.profiler (CPU + CUDA): returns
+    (device kernel launches, device-busy share of the profiled wall
+    time, share of device kernel time inside record_function ranges named
+    "gather_dense" or None where none was attributed, how it was
+    attributed, profiled wall seconds). Busy time is the union of the
+    kernels' intervals; the profiler slows the host, so the busy share
+    reads low against an unprofiled pass."""
+    act = torch.profiler.ProfilerActivity
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    launches = sum(1 for e in events if e.name == "cudaLaunchKernel")
+    cuda = torch.autograd.DeviceType.CUDA
+    on_card = [e for e in events if e.device_type == cuda]
+    # device-side ranges of the "gather_dense" annotation, where the
+    # profiler reports them; every other device event is work
+    ann = [(e.time_range.start, e.time_range.end) for e in on_card
+           if e.name == "gather_dense"]
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in on_card
+                     if e.name != "gather_dense"
+                     and not getattr(e, "is_user_annotation", False))
+    total = sum(b - a for a, b in kernels)
+    busy, lo, hi = 0.0, None, None
+    for a, b in kernels:
+        if hi is None or a > hi:
+            busy += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    if hi is not None:
+        busy += hi - lo
+    if ann:
+        in_gather = sum(max(0.0, min(b, d) - max(a, c))
+                        for a, b in kernels for c, d in ann)
+        how = "device annotation ranges"
+    else:
+        in_gather = sum(e.device_time_total if hasattr(e, "device_time_total")
+                        else e.cuda_time_total for e in events
+                        if e.name == "gather_dense" and e.device_type != cuda)
+        how = "kernels launched inside the host ranges"
+    share = in_gather / total if total and in_gather else None
+    return launches, busy * 1e-6 / wall, share, how, wall
 
 
 def cuda_ms(fn, reps, warm=1):
@@ -369,6 +434,7 @@ def main():
     from gvpm_tpu_torch.core.config import GradientConfig
     from gvpm_tpu_torch.integrators import gradient_gather, gvpm, sppm
     from gvpm_tpu_torch.ops import fused_gather as fg
+    from gvpm_tpu_torch.utils import image as imglib
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -569,7 +635,72 @@ def main():
     phase("main", f"device kernel launches in one pass (torch.profiler): "
                   f"{count_launches(cfg_me)} with ME, "
                   f"{count_launches(cfg)} without")
-    del scene
+
+    # ---- 4b. the SPPM primal pass at the headline size ----
+    from gvpm_tpu_torch.core.config import PhotonConfig
+    from gvpm_tpu_torch.ops import hashgrid
+    scfg = PhotonConfig(**SPPM_KW)
+    s_r_vol = sppm.base_volume_radius(scene, scfg)
+    s_photons = max(scfg.surface_photons, scfg.volume_photons)
+    grids, build = [], hashgrid.build
+
+    def keep_build(*a, **k):
+        grids.append(build(*a, **k))
+        return grids[-1]
+
+    hashgrid.build = keep_build
+    try:                                            # the warm-up pass
+        sppm.render_pass(scene, scfg, "distance", s_photons, 5, 0, 1.0, 1.0,
+                         s_r_vol)
+    finally:
+        hashgrid.build = build
+    hists = [hashgrid.cell_histogram(g) for g in grids]
+    del grids
+    phase("sppm", f"hash grids (max, mean nonzero) photons per bucket: "
+                  f"surface {hists[0]}, volume {hists[1]} "
+                  f"(grid_max_photons_per_cell {scfg.grid_max_photons_per_cell}"
+                  f", budget {2 * scfg.grid_max_photons_per_cell} rows)")
+    marks, timings = [], {}
+
+    def on_sppm_pass(it, _img):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sppm.render(scene, scfg, volume="distance", seed=5, passes=3,
+                      callback=on_sppm_pass, timings=timings)
+    pass_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+    img = out["image"]
+    if img.shape != (512, 512, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"sppm: image {tuple(img.shape)} not finite")
+    if not float(img.mean()) > 0:
+        raise AssertionError("sppm: image mean not above 0")
+    phase("sppm", f"512x512, {s_photons} paths, 3 passes after a warm-up: "
+                  f"pass s {[round(x, 4) for x in pass_s]}, image mean "
+                  f"{float(img.mean()):.5g}, finite")
+    phase("sppm", "phase split s per pass: " + json.dumps(
+        {k: round(v / 3, 4) for k, v in timings.items()}))
+    gd = hashgrid.gather_dense
+
+    def traced_gather_dense(*a, **k):
+        with torch.profiler.record_function("gather_dense"):
+            return gd(*a, **k)
+
+    hashgrid.gather_dense = traced_gather_dense
+    try:
+        n_launch, busy, gd_share, how, wall = profile_pass(
+            lambda: sppm.render_pass(scene, scfg, "distance", s_photons, 5,
+                                     3, 1.0, 1.0, s_r_vol))
+    finally:
+        hashgrid.gather_dense = gd
+    phase("sppm", f"one profiled pass (torch.profiler, {wall:.4f} s): "
+                  f"{n_launch} device kernel launches, device busy "
+                  f"{busy:.1%} of the pass, gather_dense "
+                  + (f"{gd_share:.1%} of device kernel time ({how})"
+                     if gd_share is not None else "not measured (no device "
+                     "time attributed to it)"))
+    del scene, out, img
 
     # ---- 5. golden bars ----
     ci = dict(surface_photons=1 << 15, volume_photons=1 << 15, max_depth=12,
@@ -600,8 +731,8 @@ def main():
         img = res["image"].cpu().numpy()
         if not np.isfinite(img).all():
             raise AssertionError(f"golden {size} {label}: non-finite image")
-        r = relmse(img, read_pfm(os.path.join(gdir,
-                                              "box-medium_ref.pfm")))
+        r = imglib.relmse(img, imglib.read_pfm(
+            os.path.join(gdir, "box-medium_ref.pfm")))
         seen[(size, label)] = r
         phase("goldens", f"box-medium gvpm:distance {size}^2 {passes} "
                          f"passes, {label}: relMSE {r:.5f} (bar {bar}) in "
@@ -609,6 +740,25 @@ def main():
         if not r <= bar:
             raise AssertionError(f"golden {size} {label}: relMSE {r} > "
                                  f"{bar}")
+    for sub, kw, passes in SPPM_GOLD:
+        gdir = os.path.normpath(os.path.join(ROOT, "goldens", sub))
+        with open(os.path.join(gdir, "meta.json")) as f:
+            meta = json.load(f)
+        size = meta["size"]
+        bar = meta["scenes"]["box-medium"]["thresholds"]["sppm:distance"]
+        t0 = time.perf_counter()
+        res = sppm.render(scenes.box_medium(size, size), PhotonConfig(**kw),
+                          volume="distance", seed=5, passes=passes)
+        img = res["image"].cpu().numpy()
+        if not np.isfinite(img).all():
+            raise AssertionError(f"sppm golden {size}: non-finite image")
+        r = imglib.relmse(img, imglib.read_pfm(
+            os.path.join(gdir, "box-medium_ref.pfm")))
+        phase("goldens", f"box-medium sppm:distance {size}^2 {passes} "
+                         f"passes: relMSE {r:.5f} (bar {bar}) in "
+                         f"{time.perf_counter() - t0:.2f} s")
+        if not r <= bar:
+            raise AssertionError(f"sppm golden {size}: relMSE {r} > {bar}")
     phase("goldens", "32^2 relMSE ME off / ME on: "
                      f"{seen[(32, 'ME off')]:.5f} / "
                      f"{seen[(32, 'ME on')]:.5f}")
@@ -624,16 +774,54 @@ def main():
                             volume="distance", seed=5, passes=passes)
     finally:
         fg.fused_gather = launch
-    ref = read_pfm(os.path.join(ROOT, "goldens", "ci", "box-medium_ref.pfm"))
+    ref = imglib.read_pfm(os.path.join(ROOT, "goldens", "ci",
+                                       "box-medium_ref.pfm"))
     phase("goldens", "32^2 ME off, gathers through the plain version on the "
                      "card: relMSE "
-                     f"{relmse(plain['image'].cpu().numpy(), ref):.5f} "
+                     f"{imglib.relmse(plain['image'].cpu().numpy(), ref):.5f} "
                      "against the kernel's "
-                     f"{relmse(kernel['image'].cpu().numpy(), ref):.5f}; "
+                     f"{imglib.relmse(kernel['image'].cpu().numpy(), ref):.5f}; "
                      "kernel vs plain max relative difference, primal "
                      f"{float(((kernel['primal'] - plain['primal']).abs() / plain['primal'].abs().clamp(min=1e-3)).max()):.3g}"
                      ", reconstruction "
                      f"{float(((kernel['image'] - plain['image']).abs() / plain['image'].abs().clamp(min=1e-3)).max()):.3g}")
+
+    # ---- 6. the single-device entry point, and the goldens' integrator ----
+    from gvpm_tpu_torch import entry
+    from gvpm_tpu_torch.core.config import VolPathConfig
+    from gvpm_tpu_torch.integrators import volpath
+    fn, args = entry.entry()                       # default device: the card
+    t0 = time.perf_counter()
+    img = fn(*args)
+    torch.cuda.synchronize()
+    if img.shape != (32, 32, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"entry: image {tuple(img.shape)} not finite")
+    phase("entry", f"entry() fn on {img.device}: one SPPM pass of the "
+                   f"32x32 tiny scene in {time.perf_counter() - t0:.3f} s, "
+                   f"image mean {float(img.mean()):.5g}, finite")
+    for sub in ("ci", "."):
+        gdir = os.path.normpath(os.path.join(ROOT, "goldens", sub))
+        with open(os.path.join(gdir, "meta.json")) as f:
+            meta = json.load(f)
+        size, spp = meta["size"], meta["gen_spp"]
+        agree = meta["scenes"]["box-medium"]["agree_relmse"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = volpath.render(scenes.box_medium(size, size),
+                             VolPathConfig(spp=spp, max_depth=12), seed=101)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        img = img.cpu().numpy()
+        if not np.isfinite(img).all():
+            raise AssertionError(f"volpath {size}: non-finite image")
+        r = imglib.relmse(img, imglib.read_pfm(
+            os.path.join(gdir, "box-medium_ref.pfm")))
+        phase("volpath", f"box-medium {size}^2, {spp} spp, max_depth 12, "
+                         f"seed 101 (the golden's generation config): "
+                         f"{secs:.2f} s, relMSE against the golden {r:.5f} "
+                         f"(agree_relmse {agree})")
+        if not r < agree:
+            raise AssertionError(f"volpath {size}: relMSE {r} >= {agree}")
 
     src = "gvpm_tpu_torch/csrc/fused_gather.cu"
     print(json.dumps({"kernels": [

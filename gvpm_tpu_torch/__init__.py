@@ -2,7 +2,9 @@
 
 The G-VPM `distance` gradient pass and its screened-Poisson
 reconstruction, with the photon gathers as a hand-written CUDA kernel
-for Hopper (csrc/). The JAX package gvpm_tpu is the reference it is held
+for Hopper (csrc/); the SPPM primal pass over a hash grid, the
+volumetric path tracer and the single-device entry point (entry.py), in
+plain PyTorch. The JAX package gvpm_tpu is the reference it is held
 against; this package imports no JAX.
 """
 

@@ -2,11 +2,12 @@
 
 The TPU-only gather knobs of the JAX package (gather_driver, cull_k,
 gather_window, window_q_tile, gather_q_tile, gather_budget,
-pallas_q_tile, pallas_window, beam_dispatch) are dropped: the port
-always gathers with the fused kernel over each query's exact cell
-runs, with no window clipping. So are the fields of parts not ported
-yet (beams, BRE, hash grid, camera sphere; see ROADMAP.md): they come
-back with the code that reads them.
+pallas_q_tile, pallas_window, beam_dispatch) are dropped: the gradient
+pass always gathers with the fused kernel over each query's exact cell
+runs, with no window clipping, and the SPPM hash-grid gather chunks its
+queries by a module constant (ops/hashgrid.Q_CHUNK). So are the fields
+of parts not ported yet (beams, BRE, camera sphere, cam_rays_per_pixel;
+see ROADMAP.md): they come back with the code that reads them.
 """
 
 from __future__ import annotations
@@ -18,8 +19,18 @@ import dataclasses
 class PathConfig:
     """Shared path-tracing options."""
     max_depth: int = 12
+    rr_depth: int = 5                 # Russian roulette from this depth
     rr_clamp: float = 0.95
     null_bounces: int = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class VolPathConfig(PathConfig):
+    """Primal volumetric path tracer (reference: integrators/volpath)."""
+    spp: int = 16
+    nee: bool = True                  # next-event estimation + MIS
+    sampler: str = "independent"      # pixel sampler (core/qmc.py)
+    rfilter: str = "box"              # reconstruction filter (render/film)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +48,8 @@ class PhotonConfig(PathConfig):
     min_depth: int = 0
     max_cam_depth: int = 8
     vol_segments_per_pixel: int = 2
+    grid_max_photons_per_cell: int = 32   # SPPM hash grid: budget 2x this
+    grid_hash_size: int = 1 << 18         # SPPM hash grid buckets
     grid_surface_rows: int = 0        # photon-map row cap (0 = all slots)
     grid_volume_rows: int = 0
     grid_dims: tuple = (64, 64, 64)   # static cell-grid dims

@@ -1,4 +1,5 @@
-"""Logger and statistics counters (mirrors gvpm_tpu/core/logging.py).
+"""Logger, statistics counters and the per-phase clock of the passes
+(mirrors gvpm_tpu/core/logging.py).
 
 Counters are host-side: the pass returns metric tensors that `render`
 feeds into counters between passes (shift success percentages, the
@@ -8,6 +9,9 @@ reference's behavioral regression signal, shift_volume_photon.cpp:40-47).
 from __future__ import annotations
 
 import logging
+import time
+
+import torch
 
 log = logging.getLogger("gvpm_tpu_torch")
 if not log.handlers:
@@ -47,3 +51,27 @@ class StatsCounter:
         if self.kind == "percentage":
             return 100.0 * self.num / self.den
         return self.num / self.den
+
+
+class PhaseClock:
+    """Host wall-clock per phase, each ending in a device synchronize;
+    a no-op when no timings dict is asked for. `lap(name)` closes the
+    running phase; `lap(name, part=True)` records a part of it (the time
+    since the last lap of either kind) and leaves the phase running, so
+    a phase's seconds include its parts'."""
+
+    def __init__(self, device, timings):
+        self.device, self.timings = device, timings
+        self.t0 = self.t_part = time.perf_counter()
+
+    def lap(self, name, part=False):
+        if self.timings is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        since = self.t_part if part else self.t0
+        self.timings[name] = self.timings.get(name, 0.0) + t - since
+        self.t_part = t
+        if not part:
+            self.t0 = t

@@ -19,13 +19,11 @@ of the averaged primal + gradients.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from ..core import rng
 from ..core.config import GradientConfig
-from ..core.logging import StatsCounter, log
+from ..core.logging import PhaseClock, StatsCounter, log
 from ..ops import cellgrid, poisson
 from ..render.bsdf import require_ported
 from ..render.medium import require_homogeneous
@@ -82,7 +80,7 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
             f"volume estimator {volume!r}: ROADMAP queue 1 items 13-14")
     dev = scene.device
     n = px.shape[0]
-    clock = _PhaseClock(dev, timings)
+    clock = PhaseClock(dev, timings)
 
     # base + 4 offset camera paths with the SAME random numbers, traced
     # as one [5n]-ray wavefront
@@ -186,30 +184,6 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     return p_s, S_s, W_s, stats
 
 
-class _PhaseClock:
-    """Host wall-clock per phase, each ending in a device synchronize;
-    a no-op when no timings dict is asked for. `lap(name)` closes the
-    running phase; `lap(name, part=True)` records a part of it (the time
-    since the last lap of either kind) and leaves the phase running, so
-    a phase's seconds include its parts'."""
-
-    def __init__(self, device, timings):
-        self.device, self.timings = device, timings
-        self.t0 = self.t_part = time.perf_counter()
-
-    def lap(self, name, part=False):
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        since = self.t_part if part else self.t0
-        self.timings[name] = self.timings.get(name, 0.0) + t - since
-        self.t_part = t
-        if not part:
-            self.t0 = t
-
-
 def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
                 seed, it, surf_scale, vol_scale, r_vol_base, timings=None):
     """One gradient pass. Returns (primal, gx, gy, stats): images
@@ -236,7 +210,7 @@ def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
     xi, yi = px.to(torch.int64), py.to(torch.int64)
     border = torch.stack([xi == W - 1, xi == 0, yi == H - 1, yi == 0])
 
-    clock = _PhaseClock(dev, timings)
+    clock = PhaseClock(dev, timings)
     photons = sppm.shoot_photons(scene, cfg, n_photons, k_light)
     clock.lap("light_trace")
     p_s, S_s, W_s, stats = pass_buffers(

@@ -1,9 +1,12 @@
-"""Emitters: flux-weighted photon emission and emitted radiance
-(mirrors gvpm_tpu/render/emitter.py::sample_photon / eval_radiance).
+"""Emitters: flux-weighted photon emission, emitted radiance and
+next-event sampling (mirrors gvpm_tpu/render/emitter.py: sample_photon,
+eval_radiance, pdf_direct_area, env_le, pdf_env_sa, sample_env_dir,
+sample_direct).
 
 Emitters group as (area | delta | env) with a static group-probability
-table (scene.light_group_p). The port emits from area lights and a
-constant environment; delta lights and environment maps are rejected.
+table (scene.light_group_p). The port emits from and samples area lights
+and a constant environment; delta lights and environment maps are
+rejected (ROADMAP queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -75,10 +78,112 @@ def eval_radiance(scene: Scene, prim, n, wo):
     return torch.where(ok[..., None], rad, 0.0)
 
 
-def _world_center_radius(scene: Scene):
+def pdf_direct_area(scene: Scene, prim):
+    """Area pdf that NEE (`sample_direct`) lands on this specific prim
+    point, including the area-group pick probability."""
+    match = scene.em_prim[None, :] == prim[..., None]
+    k = torch.argmax(match.to(torch.int8), dim=-1)
+    prev = scene.em_cdf[torch.clamp(k - 1, min=0)]
+    pmf = scene.em_cdf[k] - torch.where(k > 0, prev, 0.0)
+    pdf = pmf / torch.clamp(scene.em_prim_area[k], min=1e-20)
+    return torch.where(match.any(-1), pdf * scene.light_group_p[0], 0.0)
+
+
+def world_center_radius(scene: Scene):
     c = 0.5 * (scene.world_lo + scene.world_hi)
     r = torch.linalg.vector_norm(scene.world_hi - c) + 1e-6
     return c, r
+
+
+def _require_constant_env(scene: Scene):
+    if scene.env_map.shape[0] * scene.env_map.shape[1] > 1:
+        raise NotImplementedError(
+            "environment-map emitters: ROADMAP queue 1 item 16")
+
+
+def env_le(scene: Scene, d):
+    """Environment radiance for escaped rays in direction d [N,3]."""
+    _require_constant_env(scene)
+    return scene.env_radiance.expand(d.shape[:-1] + (3,))
+
+
+def pdf_env_sa(scene: Scene, d=None):
+    """Solid-angle NEE pdf of the (constant, uniform-sphere) environment
+    strategy, including the env-group pick probability."""
+    _require_constant_env(scene)
+    return scene.light_group_p[2] * warp.INV_FOURPI
+
+
+def sample_env_dir(scene: Scene, u2):
+    """Sample a direction TOWARD the environment; returns (d, pdf_sa)
+    where pdf_sa excludes the group pick probability."""
+    _require_constant_env(scene)
+    d = warp.square_to_uniform_sphere(u2)
+    return d, torch.full(u2.shape[:-1], warp.INV_FOURPI,
+                         dtype=torch.float32, device=u2.device)
+
+
+@dataclasses.dataclass
+class DirectSample:
+    """One next-event sample toward a light: contribution at the shading
+    point = throughput * f(wl) * Tr * li_over_pdf * mis_weight, the MIS
+    weight from pdf_sa."""
+    wl: torch.Tensor           # [N,3] unit direction to the light
+    p_light: torch.Tensor      # [N,3] shadow-ray target
+    li_over_pdf: torch.Tensor  # [N,3] radiance / pdf, all factors folded
+    pdf_sa: torch.Tensor       # [N] solid-angle pdf
+    valid: torch.Tensor        # [N] bool
+
+
+def sample_direct(scene: Scene, p_from, u3) -> DirectSample:
+    """NEE sample from points p_from [N,3]; u3: [N,3] uniforms. Picks the
+    emitter group by power (light_group_p), then an emitter within it;
+    li_over_pdf folds every pdf factor except the scatter function and
+    the transmittance at the shading point."""
+    if scene.de_type.shape[0] > 0:
+        raise NotImplementedError(
+            "delta (point/spot/directional) emitters: ROADMAP queue 1 "
+            "item 16")
+    gp = scene.light_group_p
+    n = p_from.shape[0]
+    grp = torch.where(u3[..., 0] < gp[0], 0,
+                      torch.where(u3[..., 0] < gp[0] + gp[1], 1, 2))
+    # re-stretch the pick uniform within its group
+    u_area = torch.clamp(u3[..., 0] / torch.clamp(gp[0], min=1e-12),
+                         0.0, 1.0)
+
+    # --- area branch (cosine-emitting prim sample) ---
+    es = sample_position(
+        scene, torch.stack([u_area, u3[..., 1], u3[..., 2]], dim=-1))
+    seg = es.p - p_from
+    d2 = torch.clamp(dot(seg, seg), min=1e-12)
+    wl_a = seg / torch.sqrt(d2)[..., None]
+    cos_l = dot(es.n, -wl_a)
+    pdf_a_sa = es.pdf_area * gp[0] * d2 / torch.clamp(cos_l, min=1e-6)
+    ok_a = es.valid & (cos_l > 1e-6) & (es.pdf_area > 0) & (gp[0] > 0)
+    li_a = es.radiance / torch.clamp(pdf_a_sa, min=1e-20)[..., None]
+
+    # --- env branch (constant: uniform sphere) ---
+    _, wr = world_center_radius(scene)
+    wl_e, pdf_e = sample_env_dir(scene, u3[..., 1:3])
+    dist_e = torch.full((n,), 2.0, dtype=torch.float32,
+                        device=p_from.device) * wr
+    pdf_e_sa = gp[2] * pdf_e
+    li_e = env_le(scene, wl_e) / torch.clamp(pdf_e_sa, min=1e-20)[..., None]
+
+    # the delta group (grp 1) is empty: zero sample, invalid
+    is_a = (grp == 0)[..., None]
+    is_d = (grp == 1)[..., None]
+    zero3 = torch.zeros_like(wl_a)
+    return DirectSample(
+        wl=torch.where(is_a, wl_a, torch.where(is_d, zero3, wl_e)),
+        p_light=torch.where(is_a, es.p, torch.where(
+            is_d, zero3, p_from + wl_e * dist_e[..., None])),
+        li_over_pdf=torch.where(is_a, li_a, torch.where(is_d, zero3, li_e)),
+        pdf_sa=torch.where(grp == 0, pdf_a_sa,
+                           torch.where(grp == 1, 0.0, pdf_e_sa)),
+        valid=torch.where(grp == 0, ok_a,
+                          torch.where(grp == 1, False, gp[2] > 0)))
 
 
 def sample_photon(scene: Scene, key, n, lanes=None):
@@ -110,7 +215,7 @@ def sample_photon(scene: Scene, key, n, lanes=None):
     gp = scene.light_group_p
     grp = torch.where(u_pick < gp[0], 0,
                       torch.where(u_pick < gp[0] + gp[1], 1, 2))
-    wc, wr = _world_center_radius(scene)
+    wc, wr = world_center_radius(scene)
 
     # --- area: flux-weighted prim + cosine direction ---
     es = sample_position(scene, u3)

@@ -20,6 +20,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gvpm_tpu import scenes as jscenes
@@ -50,6 +51,8 @@ CFG_KW = dict(max_depth=4, null_bounces=2, max_cam_depth=4,
 JAX_CFG = JaxConfig(gather_driver="pallas", pallas_q_tile=64,
                     pallas_window=1024, **CFG_KW)
 TORCH_CFG = GradientConfig(**CFG_KW)
+# the SPPM primal pass at the same sizes (PhotonConfig fields only)
+SPPM_KW = {k: v for k, v in CFG_KW.items() if k != "use_manifold"}
 # ME configs: one more bounce so mirror-reflected photons get stored, a
 # wide volume radius so enough distance samples see one, and a pair budget
 # below the eligible query counts of both gathers
@@ -58,6 +61,21 @@ ME_KW = dict(CFG_KW, max_depth=5, initial_scale_volume=4.0,
 ME_JAX_CFG = JaxConfig(gather_driver="pallas", pallas_q_tile=64,
                        pallas_window=1024, **ME_KW)
 ME_TORCH_CFG = GradientConfig(**ME_KW)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads():
+    """The SPPM / volpath parity modules run PyTorch on few threads: the
+    tier-1 run puts 6 test processes on the machine's cores, and the
+    intra-op thread pools of all of them together oversubscribe it
+    (test modules import this fixture to use it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(n)
+
+
+TORCH_THREADS = 1
 
 
 def jax_scene():

@@ -14,7 +14,8 @@ from gvpm_tpu.integrators import gradient_gather as jgg
 from gvpm_tpu_torch import interop
 from gvpm_tpu_torch.integrators import gradient_gather
 from gvpm_tpu_torch.ops import cellgrid
-from tests.test_torch_common import (JAX_CFG, N_PHOTONS, jax_stage_inputs,
+from tests.test_torch_common import (torch_threads,  # noqa: F401
+                                     JAX_CFG, N_PHOTONS, jax_stage_inputs,
                                      port_scene_from_jax,
                                      split_gather_points, t, to_np)
 

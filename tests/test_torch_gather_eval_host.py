@@ -22,7 +22,8 @@ import torch
 from chip_smoke import stress_inputs
 from gvpm_tpu_torch.integrators import gradient_gather, gvpm, sppm
 from gvpm_tpu_torch.ops import fused_gather as fg
-from tests.test_torch_common import (ME_TORCH_CFG, N_PHOTONS, SIDE,
+from tests.test_torch_common import (torch_threads,  # noqa: F401
+                                     ME_TORCH_CFG, N_PHOTONS, SIDE,
                                      TORCH_CFG, jax_mirror_scene,
                                      port_scene_from_jax)
 

@@ -15,6 +15,7 @@ from gvpm_tpu_torch import scenes
 from gvpm_tpu_torch.integrators import gradient_gather, gvpm, sppm
 from gvpm_tpu_torch.ops import fused_gather as fg
 from tests.test_torch_common import N_PHOTONS, SIDE, TORCH_CFG
+from tests.test_torch_common import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

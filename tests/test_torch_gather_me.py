@@ -20,7 +20,8 @@ from gvpm_tpu_torch import interop
 from gvpm_tpu_torch.integrators import gradient_gather
 from gvpm_tpu_torch.ops import cellgrid
 from gvpm_tpu_torch.ops import fused_gather as fg
-from tests.test_torch_common import (ME_JAX_CFG, N_PHOTONS, jax_mirror_scene,
+from tests.test_torch_common import (torch_threads,  # noqa: F401
+                                     ME_JAX_CFG, N_PHOTONS, jax_mirror_scene,
                                      jax_stage_inputs, port_scene_from_jax,
                                      split_gather_points, t, to_np)
 

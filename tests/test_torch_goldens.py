@@ -13,6 +13,7 @@ from gvpm_tpu.utils import image as imglib
 from gvpm_tpu_torch import scenes
 from gvpm_tpu_torch.core.config import GradientConfig
 from gvpm_tpu_torch.integrators import gvpm
+from tests.test_torch_common import torch_threads  # noqa: F401
 
 GOLD_CI = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "goldens", "ci")

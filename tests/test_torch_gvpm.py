@@ -17,7 +17,8 @@ from gvpm_tpu.integrators import sppm as jsppm
 from gvpm_tpu.ops import poisson as jpoisson
 from gvpm_tpu_torch.integrators import gvpm, sppm
 from gvpm_tpu_torch.ops import poisson
-from tests.test_torch_common import (IT, JAX_CFG, N_PHOTONS, SEED,
+from tests.test_torch_common import (torch_threads,  # noqa: F401
+                                     IT, JAX_CFG, N_PHOTONS, SEED,
                                      TORCH_CFG, jax_scene,
                                      port_scene_from_jax)
 

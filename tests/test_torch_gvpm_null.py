@@ -12,7 +12,8 @@ import dataclasses
 
 import pytest
 
-from tests.test_torch_common import (ME_JAX_CFG, ME_TORCH_CFG,
+from tests.test_torch_common import (torch_threads,  # noqa: F401
+                                     ME_JAX_CFG, ME_TORCH_CFG,
                                      assert_pass_matches, jax_mirror_scene,
                                      render_pass_pair)
 

@@ -35,6 +35,7 @@ from gvpm_tpu_torch.integrators import manifold
 from gvpm_tpu_torch.scene import SceneBuilder
 from gvpm_tpu_torch.scene import types as st
 from tests.test_torch_common import jax_mirror_scene, port_scene_from_jax
+from tests.test_torch_common import torch_threads  # noqa: F401
 
 LANES = 128
 FOOTPRINT = 0.01     # ~ one pixel's footprint in this unit box

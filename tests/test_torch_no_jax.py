@@ -1,8 +1,9 @@
 """gvpm_tpu_torch imports no JAX and nothing of the JAX package: a fresh
-interpreter with jax, flax and gvpm_tpu made unimportable imports the
-port, renders with the default manifold shifts, and saves and resumes a
-checkpoint; and no source file of the port, nor chip_smoke.py, holds an
-import of them."""
+interpreter with jax, flax and gvpm_tpu made unimportable imports every
+module of the port, renders with the default manifold shifts, renders
+SPPM and volpath, round-trips a PFM, and saves and resumes a checkpoint
+of both progressive loops; and no source file of the port, nor
+chip_smoke.py, holds an import of them."""
 
 import os
 import re
@@ -36,6 +37,29 @@ with tempfile.TemporaryDirectory() as d:
                       callback=lambda it, img, st: seen.append(it))
     assert seen == [1], seen                                    # resumed
 assert torch.isfinite(out["image"]).all()
+import pkgutil, importlib
+for m in pkgutil.walk_packages(gvpm_tpu_torch.__path__, "gvpm_tpu_torch."):
+    importlib.import_module(m.name)
+from gvpm_tpu_torch import entry
+from gvpm_tpu_torch.core.config import PhotonConfig, VolPathConfig
+from gvpm_tpu_torch.integrators import volpath
+from gvpm_tpu_torch.utils import image
+pcfg = PhotonConfig(max_depth=4, null_bounces=2, max_cam_depth=4,
+                    surface_photons=1 << 8, volume_photons=1 << 8,
+                    volume_samples=1, grid_hash_size=1 << 10)
+with tempfile.TemporaryDirectory() as d:
+    ck = os.path.join(d, "ck.npz")
+    sppm.render(scene, pcfg, passes=1, checkpoint_path=ck)
+    seen = []
+    res = sppm.render(scene, pcfg, passes=2, checkpoint_path=ck,
+                      callback=lambda it, img: seen.append(it))
+    assert seen == [1], seen
+    img = volpath.render(scene, VolPathConfig(spp=1, max_depth=4))
+    pfm = os.path.join(d, "v.pfm")
+    image.write_pfm(pfm, img.numpy())
+    assert (image.read_pfm(pfm) == img.numpy()).all()
+assert torch.isfinite(res["image"]).all() and torch.isfinite(img).all()
+assert callable(entry.entry)
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "gvpm_tpu")
           and sys.modules[m] is not None]
@@ -77,9 +101,11 @@ def test_entry_points_default_to_the_card():
     import pytest
     import torch
 
-    from gvpm_tpu_torch import interop, scenes
+    from gvpm_tpu_torch import entry, interop, scenes
     from gvpm_tpu_torch.scene import SceneBuilder
     calls = (lambda: scenes.box_medium(8, 8),
+             lambda: entry.entry(),
+             lambda: entry.tiny_scene(),
              lambda: scenes.get("box-medium", width=8, height=8),
              lambda: SceneBuilder().build(),
              lambda: interop.tensors_from_arrays({"a": [1.0]}),

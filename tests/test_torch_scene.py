@@ -17,6 +17,7 @@ from gvpm_tpu_torch import scenes
 from gvpm_tpu_torch.render import medium
 from gvpm_tpu_torch.scene import camera, intersect
 from tests.test_torch_common import port_scene_from_jax
+from tests.test_torch_common import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,8 @@ import torch
 from gvpm_tpu_torch.core import rng
 from gvpm_tpu_torch.integrators import gatherpoint, gradient_gather, sppm
 from gvpm_tpu_torch.ops import cellgrid, fused_gather
-from tests.test_torch_common import (JAX_CFG, N_PHOTONS, SEED, IT, SIDE,
+from tests.test_torch_common import (torch_threads,  # noqa: F401
+                                     JAX_CFG, N_PHOTONS, SEED, IT, SIDE,
                                      TORCH_CFG, jax_stage_inputs,
                                      port_scene_from_jax, t)
 
