@@ -6,8 +6,10 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 
   1. device   — a CUDA card is required (never falls back to the CPU);
                 prints its name and power limit from nvidia-smi.
-  2. build    — compiles the fused-gather kernels from the sources in
-                gvpm_tpu_torch/csrc into gvpm_tpu_torch/_build/.
+  2. build    — compiles the fused-gather and the beam-sweep kernels
+                from the sources in gvpm_tpu_torch/csrc into
+                gvpm_tpu_torch/_build/, one nvcc for each, started
+                together.
   3. kernels  — captures the gather inputs of one headline pass with
                 manifold (ME) shifts and runs each kernel variant
                 (surface, volume, surface_me, volume_me) through the CUDA
@@ -27,6 +29,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 a query with more visits than a tile's ring holds, runs
                 longer than 32 x a few and empty ones, a ragged last
                 tile, invalid queries, a lowest ME row in a late run.
+  3c. beams  — the beam / plane pair sweeps (ops/beam_sweep.py: beam1d,
+                beam3d, plane0d) on the inputs of one pass of each at the
+                goldens' 128^2 check config: the kernel twice and the
+                plain version once, accepted-pair counts exactly equal,
+                sums at rtol 2e-4 / atol 5e-6, two launches bitwise equal;
+                kernel and plain ms and the bound (`beam_bound`).
   4. main     — gvpm.render at the bench headline size (512^2 box_medium,
                 2^18 light paths, bench.py:347-362 without the TPU knobs):
                 first 3 passes with the default use_manifold=True
@@ -49,11 +57,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 share and the share of device time inside the hash-grid
                 gather (gather_dense). The image must be finite with a
                 mean above 0.
+  4c. sppm-128 — one SPPM pass of bre, beam1d, beam3d and plane0d at the
+                128^2 check config (after the warm-up of 3c): seconds,
+                phase split, and the sweep launches (1, 2, 1 a pass),
+                counted from 0.
+  4d. bre     — one gvpm `bre` pass at the headline size with the
+                default ME (the surface through K2-ME, launches counted
+                from 0): seconds and phase split. Its profile (the plain
+                gradient bre_gather's share of device time) is
+                gvpm_tpu_torch/tools/profile_bre.py: the profiler's
+                processing of the pass's ~600k launches takes minutes.
   5. goldens  — box-medium gvpm:distance relMSE against the committed
                 goldens at the goldens/ci (32^2) and goldens (128^2)
                 configs with ME off, and at 32^2 with ME on, and
-                sppm:distance at both (SPPM_GOLD), under the bars
-                recorded in their meta.json; the 32^2 gvpm render once
+                sppm:distance at both (SPPM_GOLD), sppm:beam1d at 32^2
+                and sppm:bre / beam1d / beam3d / plane0d at 128^2
+                (SPPM_BEAM_GOLD), under the bars recorded in their
+                meta.json; gvpm:bre at 128^2 (no bar: relMSE, finite,
+                reconstruction mean within 25% of the primal's); the 32^2
+                gvpm render once
                 more with the gathers' plain version, to show how far a
                 different order of the sums moves the relMSE.
   6. entry    — the port's entry() (one SPPM pass of a 32^2 tiny scene)
@@ -71,6 +93,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -105,6 +128,11 @@ SPPM_GOLD = (
                volume_samples=2, vol_segments_per_pixel=2,
                grid_dims=(64, 64, 64)), 10))
 
+# the beam estimators' golden bars (tools/goldens.py CHECKS: 10 passes,
+# 30 for plane0d; the 32^2 artifact records sppm:beam1d only)
+SPPM_BEAM_GOLD = (("ci", "beam1d", 10), (".", "bre", 10), (".", "beam1d", 10),
+                  (".", "beam3d", 10), (".", "plane0d", 30))
+
 # Published peaks of one H100 SXM at its full 700 W power limit (NVIDIA's
 # data sheet): device memory rate and float32 rate outside the tensor
 # cores. The kernels' bounds are stated against these.
@@ -125,24 +153,56 @@ PEAK_FP32_UNFUSED_S = 132 * 128 * 1.98e9
 #                112, distances / transmittance / pdf ratios 86 volume,
 #                104 surface) and the shifted phase or BSDF, MIS and the
 #                27 accumulations (volume 49, surface 56).
+# the beam / plane sweeps (ops/beam_sweep.py): their main path is the
+# SPPM pass at the goldens' 128^2 check config (tools/goldens.py::
+# _check_kw(128), beams=1 << 12 as it sets them), one pass of each beam
+# estimator; the 32^2 check config (_check_kw(32)) for sppm:beam1d
+BEAM_GOLD_KW = dict(SPPM_GOLD[1][1], beams=1 << 12)
+BEAM_REPLACES = {"beam1d": "gvpm_tpu/integrators/estimators.py:481",
+                 "beam3d": "gvpm_tpu/integrators/estimators.py:262",
+                 "plane0d": "gvpm_tpu/integrators/estimators.py:401"}
+# launches of each sweep kernel per SPPM pass (beam3d: one per distance
+# sample, volume_samples = 2)
+BEAM_LAUNCHES = {"beam1d": 1, "beam3d": 2, "plane0d": 1}
+# operations per pair counted from csrc/beam_eval.cuh, one per add,
+# multiply, divide, compare, select, clamp, sqrtf and expf: (every pair
+# of a valid query and a beam in its medium; each pair of the second
+# stage; each accepted pair, its accumulation included). Stage 2: beam1d
+# past the parameter-range tests (12 of the closest points, their
+# distance and test 21); beam3d past the chord test (the sample and its
+# distance test 17, floats); plane0d past the determinant test (32).
+BEAM_OPS = {"beam1d": (36, 21, 68), "beam3d": (30, 17, 57),
+            "plane0d": (23, 32, 109)}
+# beam3d's integer operations per drawn word: threefry2x32's 20 rounds of
+# add, two shifts, or and xor, its 5 key injections of 3 adds, the key
+# schedule's 2 xors and 2 adds, and the float conversion's 4
+BEAM_INT_OPS = 20 * 5 + 5 * 3 + 4 + 4
+# 132 SMs x 64 INT32 lanes x 1.98 GHz (the Hopper SM holds half as many
+# INT32 as FP32 units; NVIDIA's Hopper architecture white paper)
+PEAK_INT32_S = 132 * 64 * 1.98e9
 BALL_OPS = {"volume": 11, "surface": 20}
 BODY_OPS = {"volume": 46 + 4 * (112 + 86 + 49),
             "surface": 51 + 4 * (112 + 104 + 56)}
 ME_OPS = 4          # per visit: three mask terms and the integer min
 
 
+START = time.perf_counter()
+
+
 def phase(name, msg):
-    print(f"[{name}] {msg}", flush=True)
+    """One result line, with the seconds since the script started."""
+    print(f"[{name}] (t={time.perf_counter() - START:.0f} s) {msg}",
+          flush=True)
 
 
-def profile_pass(run):
+def profile_pass(run, name="gather_dense"):
     """One call of `run` under torch.profiler (CPU + CUDA): returns
     (device kernel launches, device-busy share of the profiled wall
     time, share of device kernel time inside record_function ranges named
-    "gather_dense" or None where none was attributed, how it was
-    attributed, profiled wall seconds). Busy time is the union of the
-    kernels' intervals; the profiler slows the host, so the busy share
-    reads low against an unprofiled pass."""
+    `name` or None where none was attributed, how it was attributed,
+    profiled wall seconds). Busy time is the union of the kernels'
+    intervals; the profiler slows the host, so the busy share reads low
+    against an unprofiled pass."""
     act = torch.profiler.ProfilerActivity
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
@@ -154,12 +214,12 @@ def profile_pass(run):
     launches = sum(1 for e in events if e.name == "cudaLaunchKernel")
     cuda = torch.autograd.DeviceType.CUDA
     on_card = [e for e in events if e.device_type == cuda]
-    # device-side ranges of the "gather_dense" annotation, where the
-    # profiler reports them; every other device event is work
+    # device-side ranges of the `name` annotation, where the profiler
+    # reports them; every other device event is work
     ann = [(e.time_range.start, e.time_range.end) for e in on_card
-           if e.name == "gather_dense"]
+           if e.name == name]
     kernels = sorted((e.time_range.start, e.time_range.end) for e in on_card
-                     if e.name != "gather_dense"
+                     if e.name != name
                      and not getattr(e, "is_user_annotation", False))
     total = sum(b - a for a, b in kernels)
     busy, lo, hi = 0.0, None, None
@@ -178,7 +238,7 @@ def profile_pass(run):
     else:
         in_gather = sum(e.device_time_total if hasattr(e, "device_time_total")
                         else e.cuda_time_total for e in events
-                        if e.name == "gather_dense" and e.device_type != cuda)
+                        if e.name == name and e.device_type != cuda)
         how = "kernels launched inside the host ranges"
     share = in_gather / total if total and in_gather else None
     return launches, busy * 1e-6 / wall, share, how, wall
@@ -421,6 +481,79 @@ def kernel_bound(ev, slots, plan, tbl, qrows, candidates, visits):
             "bytes" if t_bytes >= t_ops else "operations", detail)
 
 
+def beam_bound(kind, q, rows, stats, accepted):
+    """The least time the card could take for one sweep on these inputs:
+    the larger of the bytes that must move over the memory rate (each
+    query row, beam row, beam key and output once) and the operations
+    these inputs need (BEAM_OPS: every pair of a valid query and a beam
+    in its medium, the pairs of the second stage, the accepted pairs) at
+    the float32 rate, beam3d's threefry words at the INT32 rate.
+    Returns (ms, "bytes" | "operations", detail)."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    M, N = q.shape[0], rows.shape[0]
+    valid = q[:, bs.QSLOT["valid"]] > 0.5
+    q_med = q[valid, bs.QSLOT["med"]].to(torch.int64)
+    b_med = rows[:, bs.BSLOT["med"]].to(torch.int64)
+    n_med = int(max(q_med.max(), b_med.max())) + 1 if q_med.numel() else 1
+    pairs = int(torch.bincount(b_med, minlength=n_med)[q_med].sum())
+    n_bytes = 4 * (M * bs.QW + N * bs.BW + M * 4) \
+        + (16 * N if kind == "beam3d" else 0)
+    a, b, c = BEAM_OPS[kind]
+    fops = pairs * a + stats["stage2"] * b + accepted * c
+    iops = stats["stage2"] * BEAM_INT_OPS if kind == "beam3d" else 0
+    t = dict(bytes=n_bytes / PEAK_BYTES_S * 1e3,
+             operations=max(fops / PEAK_FP32_S, iops / PEAK_INT32_S) * 1e3)
+    by = max(t, key=t.get)
+    return t[by], by, dict(
+        queries=M, valid_queries=int(valid.sum()), beams=N, pairs=pairs,
+        stage2=stats["stage2"], accepted=accepted, bytes=n_bytes,
+        float_ops=fops, int_ops=iops, float_ms=fops / PEAK_FP32_S * 1e3,
+        int_ms=iops / PEAK_INT32_S * 1e3,
+        float_unfused_ms=fops / PEAK_FP32_UNFUSED_S * 1e3)
+
+
+def capture_sweeps(scene, cfg, passes_kw):
+    """One SPPM pass of each beam estimator on `scene`; returns {kind:
+    the (q, rows, params) of its first sweep call}."""
+    from gvpm_tpu_torch.integrators import sppm
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    calls, orig = {}, bs.sweep
+
+    def record(kind, *args):
+        calls.setdefault(kind, args)
+        return orig(kind, *args)
+
+    bs.sweep = record
+    try:
+        for kind in bs.KINDS:
+            sppm.render_pass(scene, cfg, kind, **passes_kw)
+    finally:
+        bs.sweep = orig
+    return calls
+
+
+def beams_against_plain(kind, q, rows, p):
+    """The sweep kernel twice and its plain version once on the same
+    inputs: accepted-pair counts exactly equal, sums within TOL, the two
+    launches bitwise equal. Returns (plain sums, plain counts, plain
+    stats, max abs error)."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    got, got_n = bs.sweep(kind, q, rows, p)
+    again, again_n = bs.sweep(kind, q, rows, p)
+    stats = {}
+    want, want_n = bs.sweep_plain(kind, q, rows, p, stats=stats)
+    torch.cuda.synchronize()
+    if got_n.dtype != torch.int32 or not torch.equal(got_n, want_n):
+        raise AssertionError(f"beam_sweep_{kind}: accepted-pair counts "
+                             "differ from the plain version")
+    torch.testing.assert_close(got, want, **TOL)
+    if not (torch.equal(got.view(torch.int32), again.view(torch.int32))
+            and torch.equal(got_n, again_n)):
+        raise AssertionError(f"beam_sweep_{kind}: two launches on the same "
+                             "inputs differ")
+    return want, want_n, stats, float((got - want).abs().max())
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device — this smoke run "
@@ -431,7 +564,7 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     sys.path.insert(0, ROOT)
     from gvpm_tpu_torch import scenes
-    from gvpm_tpu_torch.core.config import GradientConfig
+    from gvpm_tpu_torch.core.config import GradientConfig, PhotonConfig
     from gvpm_tpu_torch.integrators import gradient_gather, gvpm, sppm
     from gvpm_tpu_torch.ops import fused_gather as fg
     from gvpm_tpu_torch.utils import image as imglib
@@ -442,12 +575,30 @@ def main():
     phase("device", f"torch {torch.__version__} cuda {torch.version.cuda}, "
                     f"{torch.cuda.device_count()} device(s)")
 
+    from gvpm_tpu_torch.ops import beam_sweep as bs
     t0 = time.perf_counter()
-    fg.build()
-    phase("build", f"fused_gather kernels built in "
+    # one nvcc for each kernel source, started together
+    errors = []
+
+    def build(lib):
+        try:
+            lib.build()
+        except Exception as e:              # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(lib,))
+               for lib in (fg, bs)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    phase("build", f"fused_gather and beam_sweep kernels built in "
                    f"{time.perf_counter() - t0:.2f} s; ptxas per "
                    f"instantiation (registers a thread, bytes): "
-                   f"{json.dumps(fg.build_report())}")
+                   f"{json.dumps(fg.build_report())}; beam_sweep "
+                   f"{json.dumps(bs.build_report())}")
 
     # ---- 3. kernel vs plain on one headline ME pass's inputs ----
     scene = scenes.box_medium(512, 512)          # default device: the card
@@ -510,7 +661,9 @@ def main():
         # with one warm-up run the first kernel timed read up to 10%
         # apart between calls (0.84 and 0.94 ms): warm up longer
         ms = cuda_ms(lambda: fg.fused_gather(ev, *args), 20, warm=20)
-        plain_ms = cuda_ms(lambda: fg.fused_gather_plain(ev, *args), 1)
+        # against_plain's call of the plain version was its warm-up
+        plain_ms = cuda_ms(lambda: fg.fused_gather_plain(ev, *args), 1,
+                           warm=0)
         head_ms = cuda_ms(lambda: fg.row_heads(ev, tbl), 10)
         kernels[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
@@ -543,6 +696,32 @@ def main():
                         f"{int(want[:, 28].sum())} equal, ME queries "
                         f"{me_queries}, max|err| {err:.3g}, two launches "
                         f"bitwise equal")
+
+    # ---- 3c. the beam / plane sweeps on one 128^2 check-config pass ----
+    bscene = scenes.box_medium(128, 128)
+    bcfg = PhotonConfig(**BEAM_GOLD_KW)
+    b_pass = dict(n_photons=max(bcfg.surface_photons, bcfg.volume_photons),
+                  seed=5, it=0, surf_scale=1.0, vol_scale=1.0,
+                  r_vol_base=sppm.base_volume_radius(bscene, bcfg))
+    beam_kernels = {}
+    for kind, (q, rows, p) in capture_sweeps(bscene, bcfg, b_pass).items():
+        want, n_acc, st, err = beams_against_plain(kind, q, rows, p)
+        accepted = int(n_acc.sum())
+        bound_ms, bound_by, detail = beam_bound(kind, q, rows, st, accepted)
+        ms = cuda_ms(lambda: bs.sweep(kind, q, rows, p), 5)
+        plain_ms = cuda_ms(lambda: bs.sweep_plain(kind, q, rows, p), 1,
+                           warm=0)
+        beam_kernels[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+        phase("beams", f"{kind}: {q.shape[0]} camera queries x "
+                       f"{rows.shape[0]} beams (valid of "
+                       f"{bscene.width}^2 x {BEAM_GOLD_KW['surface_photons']}"
+                       f" paths), accepted pairs {accepted} equal, max|err| "
+                       f"{err:.3g} (rtol 2e-4 atol 5e-6), two launches "
+                       f"bitwise equal, kernel {ms:.3f} ms, plain "
+                       f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms by "
+                       f"{bound_by} {json.dumps(detail)}")
+    del q, rows, p, want, n_acc
 
     # ---- 4. the main paths at the headline size ----
     def drive(label, cfg, passes, expect):
@@ -637,7 +816,6 @@ def main():
                   f"{count_launches(cfg)} without")
 
     # ---- 4b. the SPPM primal pass at the headline size ----
-    from gvpm_tpu_torch.core.config import PhotonConfig
     from gvpm_tpu_torch.ops import hashgrid
     scfg = PhotonConfig(**SPPM_KW)
     s_r_vol = sppm.base_volume_radius(scene, scfg)
@@ -700,7 +878,62 @@ def main():
                   + (f"{gd_share:.1%} of device kernel time ({how})"
                      if gd_share is not None else "not measured (no device "
                      "time attributed to it)"))
-    del scene, out, img
+    # ---- 4c. the SPPM pass of each new volume estimator at 128^2 ----
+    main_launches = {}
+    for volume in ("bre", "beam1d", "beam3d", "plane0d"):
+        for k in bs.LAUNCHES:
+            bs.LAUNCHES[k] = 0
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = sppm.render_pass(bscene, bcfg, volume, **dict(b_pass, it=1),
+                               timings=timings)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        swept = dict(bs.LAUNCHES)
+        expect = dict.fromkeys(bs.KINDS, 0)
+        expect.update({volume: BEAM_LAUNCHES[volume]}
+                      if volume in BEAM_LAUNCHES else {})
+        if swept != expect:
+            raise AssertionError(f"sppm {volume}: beam_sweep launches "
+                                 f"{swept}, expected {expect}")
+        main_launches.update({volume: swept[volume]}
+                             if volume in BEAM_LAUNCHES else {})
+        if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0):
+            raise AssertionError(f"sppm {volume}: image not finite / dark")
+        phase("sppm-128", f"{volume}: one pass of 128x128, "
+                          f"{b_pass['n_photons']} paths (after a warm-up "
+                          f"pass) {secs:.4f} s, image mean "
+                          f"{float(img.mean()):.5g}; phase split s "
+                          + json.dumps({k: round(v, 4)
+                                        for k, v in timings.items()})
+                          + f"; beam_sweep launches {swept}")
+
+    # ---- 4d. the G-VPM bre pass at the headline size (default ME) ----
+    for k in fg.LAUNCHES:
+        fg.LAUNCHES[k] = 0
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_bre, gx_bre, gy_bre, st_bre = gvpm.render_pass(
+        scene, cfg_me, "bre", n_photons, 5, 1, 1.0, 1.0, r_vol_base,
+        timings=timings)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bre_launches = dict(fg.LAUNCHES)
+    if bre_launches != dict(none, surface_me=1):
+        raise AssertionError(f"gvpm bre: fused_gather launches "
+                             f"{bre_launches}")
+    if not all(bool(torch.isfinite(a).all()) for a in (p_bre, gx_bre, gy_bre)):
+        raise AssertionError("gvpm bre: non-finite pass buffers")
+    phase("bre", f"gvpm bre, 512x512, {n_photons} paths, default ME: one "
+                 f"pass {secs:.4f} s, visits {int(st_bre['visits'])}, "
+                 f"shift_ok {int(st_bre['shift_ok'])}, ME pairs "
+                 f"{int(st_bre['me_pairs'])}; fused_gather launches "
+                 f"{bre_launches}; phase split s " + json.dumps(
+                     {k: round(v, 4) for k, v in timings.items()
+                      if not k.startswith("me:")}))
+    del scene, out, img, p_bre, gx_bre, gy_bre
 
     # ---- 5. golden bars ----
     ci = dict(surface_photons=1 << 15, volume_photons=1 << 15, max_depth=12,
@@ -759,6 +992,46 @@ def main():
                          f"{time.perf_counter() - t0:.2f} s")
         if not r <= bar:
             raise AssertionError(f"sppm golden {size}: relMSE {r} > {bar}")
+    for sub, volume, passes in SPPM_BEAM_GOLD:
+        gdir = os.path.normpath(os.path.join(ROOT, "goldens", sub))
+        with open(os.path.join(gdir, "meta.json")) as f:
+            meta = json.load(f)
+        size = meta["size"]
+        bar = meta["scenes"]["box-medium"]["thresholds"][f"sppm:{volume}"]
+        t0 = time.perf_counter()
+        res = sppm.render(scenes.box_medium(size, size), PhotonConfig(
+            **(SPPM_GOLD[0][1] if sub == "ci" else BEAM_GOLD_KW)),
+            volume=volume, seed=5, passes=passes)
+        img = res["image"].cpu().numpy()
+        if not np.isfinite(img).all():
+            raise AssertionError(f"sppm:{volume} golden {size}: non-finite")
+        r = imglib.relmse(img, imglib.read_pfm(
+            os.path.join(gdir, "box-medium_ref.pfm")))
+        phase("goldens", f"box-medium sppm:{volume} {size}^2 {passes} "
+                         f"passes: relMSE {r:.5f} (bar {bar}) in "
+                         f"{time.perf_counter() - t0:.2f} s")
+        if not r <= bar:
+            raise AssertionError(f"sppm:{volume} golden {size}: relMSE {r} "
+                                 f"> {bar}")
+    # gvpm:bre has no recorded bar: its relMSE is reported, the images
+    # must be finite and the reconstruction's mean near the primal's
+    kw = dict(gold_cfgs[2][2])
+    passes = kw.pop("passes")
+    t0 = time.perf_counter()
+    res = gvpm.render(scenes.box_medium(128, 128), GradientConfig(**kw),
+                      volume="bre", seed=5, passes=passes)
+    for k in ("primal", "gx", "gy", "image"):
+        if not bool(torch.isfinite(res[k]).all()):
+            raise AssertionError(f"gvpm:bre 128: non-finite {k}")
+    mp, mr = float(res["primal"].mean()), float(res["image"].mean())
+    if not abs(mr / mp - 1.0) < 0.25:
+        raise AssertionError(f"gvpm:bre 128: recon mean {mr} vs primal {mp}")
+    r = imglib.relmse(res["image"].cpu().numpy(), imglib.read_pfm(
+        os.path.join(ROOT, "goldens", "box-medium_ref.pfm")))
+    phase("goldens", f"box-medium gvpm:bre 128^2 {passes} passes, ME off: "
+                     f"relMSE {r:.5f} (no recorded bar), primal mean "
+                     f"{mp:.5g}, recon mean {mr:.5g}, finite, in "
+                     f"{time.perf_counter() - t0:.2f} s")
     phase("goldens", "32^2 relMSE ME off / ME on: "
                      f"{seen[(32, 'ME off')]:.5f} / "
                      f"{seen[(32, 'ME on')]:.5f}")
@@ -833,7 +1106,16 @@ def main():
              # no single PyTorch call computes a stencil-restricted
              # pairwise gather with the shift body
              library_ms=None)
-        for n, k in kernels.items()]}))
+        for n, k in kernels.items()] + [
+        dict(name=f"beam_sweep_{n}", route="cuda",
+             source="gvpm_tpu_torch/csrc/beam_sweep.cu",
+             replaces=BEAM_REPLACES[n], launches=main_launches[n],
+             max_abs_err=k["max_abs_err"], ms=k["ms"],
+             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+             bound_by=k["bound_by"],
+             # no PyTorch call computes a pairwise sweep with this body
+             library_ms=None)
+        for n, k in beam_kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

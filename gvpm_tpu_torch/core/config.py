@@ -6,8 +6,11 @@ pallas_q_tile, pallas_window, beam_dispatch) are dropped: the gradient
 pass always gathers with the fused kernel over each query's exact cell
 runs, with no window clipping, and the SPPM hash-grid gather chunks its
 queries by a module constant (ops/hashgrid.Q_CHUNK). So are the fields
-of parts not ported yet (beams, BRE, camera sphere, cam_rays_per_pixel;
-see ROADMAP.md): they come back with the code that reads them.
+of parts not ported yet (cam_rays_per_pixel; see ROADMAP.md): they
+come back with the code that reads them. Two fields are carried ahead
+of their readers: `beams`, read by nothing in either package, so that
+the goldens' check configs build, and `beam_seg_tile`, which the
+gradient beam and plane gathers (ROADMAP item 14b) will read.
 """
 
 from __future__ import annotations
@@ -38,16 +41,24 @@ class PhotonConfig(PathConfig):
     """Photon shooting + progressive estimation (GPMConfig analog)."""
     surface_photons: int = 65536
     volume_photons: int = 65536
+    beams: int = 4096                 # carried, read by nothing
     max_passes: int = 16
     alpha: float = 0.7                # radius reduction (gvpm.cpp:181)
     initial_scale: float = 1.0
     initial_scale_volume: float = 1.0
     rr_depth_photon: int = 10
     bounce_roughness: float = 0.05
+    camera_sphere: float = 0.0        # photon skip radius near the sensor
     volume_samples: int = 2
     min_depth: int = 0
     max_cam_depth: int = 8
+    beam_tile: int = 256              # beam tile of the beam/plane
+                                      # sweeps: beam3d's random layout
+    beam_seg_tile: int = 32768        # camera segments per gradient
+                                      # beam/plane chunk (ROADMAP item 14b)
     vol_segments_per_pixel: int = 2
+    bre_knn: int = 0                  # per-photon BRE radii from local
+                                      # density (bre.cpp:29); 0 = global
     grid_max_photons_per_cell: int = 32   # SPPM hash grid: budget 2x this
     grid_hash_size: int = 1 << 18         # SPPM hash grid buckets
     grid_surface_rows: int = 0        # photon-map row cap (0 = all slots)

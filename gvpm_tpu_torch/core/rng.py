@@ -89,6 +89,14 @@ def uniform(k, shape=()):
     return _to_unit(_bits(k, shape))
 
 
+def counter_uniform(k1, k2, ctr):
+    """The uniform float that jax.random.uniform(key, shape) draws at
+    flat position `ctr` of its shape (< 2^32): words b0 ^ b1 of
+    threefry2x32(key, (0, ctr)). k1, k2, ctr: broadcastable int64."""
+    b0, b1 = threefry2x32(k1, k2, torch.zeros_like(ctr), ctr)
+    return _to_unit(b0 ^ b1)
+
+
 def pass_key(seed, it, stream, device="cpu"):
     """Key for (global seed, progressive pass index, consumer stream)."""
     return fold_in(fold_in(key(seed, device), it), stream)

@@ -26,6 +26,7 @@ import torch
 from ..core import rng
 from ..core.math import coordinate_system, dot, normalize, to_local
 from ..ops import fused_gather as fg
+from ..ops import hashgrid
 from ..render import medium as med
 from ..render import phase as ph
 from ..render.bsdf import eval_bsdf, eval_bsdf_pdf_params
@@ -35,6 +36,9 @@ from . import manifold
 from . import planar as pl
 
 INV_PI = 1.0 / math.pi
+# gradient BRE march: steps of 2 r_vol per camera segment (the JAX
+# package's max_steps)
+BRE_STEPS = 24
 
 # ---------------------------------------------------------------------------
 # packed photon rows
@@ -112,12 +116,6 @@ def _gp_compatible(base, sgp):
     (ShiftGatherPoint::generate validity, shift_cameraPath.h:29-170)."""
     return (sgp.valid & base.valid & (sgp.depth == base.depth)
             & (sgp.bsdf == base.bsdf))
-
-
-def _rdiv(c, x):
-    """c / x as a true division (torch's scalar / tensor multiplies by
-    the reciprocal)."""
-    return x.new_full((), c) / x
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +314,7 @@ def _surface_pairs(q, r, min_depth, r2_unused, k3_unused, me=False):
                    spec=q.f3("spec"), eta3=q.f3("eta3"),
                    alpha=q.f1("alpha_b"), eta1=q.f1("eta1"))
     fr, fg, fb, _ = eval_bsdf_pdf_params(bparams, q.f3("wo"), wi_l)
-    k2 = _rdiv(INV_PI, torch.clamp(r2, min=1e-12))
+    k2 = pl.rdiv(INV_PI, torch.clamp(r2, min=1e-12))
     kw = torch.where(inside, k2, 0.0)
     a = r.f3("alpha")
     cb = (a[0] * fr * kw, a[1] * fg * kw, a[2] * fb * kw)
@@ -535,7 +533,7 @@ def volume_gather(scene: Scene, cb, scb_list, grid, packed, n_emitted,
     taken)."""
     o, d, length, mi = cb["o"], cb["d"], cb["length"], cb["med"]
     r2 = float(r_vol * r_vol)
-    k3 = float(_rdiv(3.0, 4.0 * math.pi * torch.clamp(
+    k3 = float(pl.rdiv(3.0, 4.0 * math.pi * torch.clamp(
         r_vol * r_vol * r_vol, min=1e-18)))
     svalid = [scb_list[i]["valid"] & (scb_list[i]["med"] == mi)
               for i in range(4)]
@@ -625,3 +623,114 @@ def volume_gather(scene: Scene, cb, scb_list, grid, packed, n_emitted,
     inv = 1.0 / (n_samples * n_emitted)
     return (primal * inv, S * inv, W * inv, visits, shift_ok, dropped,
             me_drop, me_pairs)
+
+
+# ---------------------------------------------------------------------------
+# gradient BRE (2D kernel, deterministic foot point)
+# ---------------------------------------------------------------------------
+
+def bre_gather(scene: Scene, cb, scb_list, grid, packed, n_emitted, r_vol,
+               border_lane, max_per_cell=16, min_depth=0):
+    """Gradient BRE with 4-direction shifts (gvpm_tpu's
+    gradient_gather.bre_gather, as plain PyTorch on the hash grid).
+
+    The camera segments are marched in BRE_STEPS steps of 2 r_vol; grid:
+    hashgrid.build_sorted of pack_photons rows with cell 2 r_vol, so the
+    27-stencil around a step's midpoint covers every photon whose foot
+    point lies in the step (exact cell fingerprints: the step test is no
+    ball). A photon's disc term is the base; each shift moves the foot
+    point to the offset segment at the same t and reconnects the
+    photon's last segment to keep its offset (_reconnect_planar), with
+    pairwise MIS; the camera-side pdf ratio is 1. Returns (primal [M,3],
+    S [4,M,3], W [4,M,3], visits [M], shift_ok [M])."""
+    o, d, length, mi = cb["o"], cb["d"], cb["length"], cb["med"]
+    valid = cb["valid"]
+    m = o.shape[0]
+    dev = o.device
+    _, sigma_s, st_cam = med._tables(scene, mi)
+    step = 2.0 * r_vol
+    k2 = pl.rdiv(INV_PI, torch.clamp(r_vol * r_vol, min=1e-12))
+    r2 = r_vol * r_vol
+    svalid = [scb_list[i]["valid"] & (scb_list[i]["med"] == mi)
+              for i in range(4)]
+    # sensorMIS: offset / base camera-subpath pdf ratio
+    # (gvpm_struct.h:608-631)
+    sens = [torch.clamp(scb_list[i]["pdf_prod"]
+                        / torch.clamp(cb["pdf_prod"], min=1e-20), 1e-4, 1e4)
+            for i in range(4)]
+    f32 = dict(dtype=torch.float32, device=dev)
+    primal = torch.zeros((m, 3), **f32)
+    S = torch.zeros((4, m, 3), **f32)
+    W = torch.zeros((4, m, 3), **f32)
+    visits = torch.zeros((m,), dtype=torch.int64, device=dev)
+    shift_ok = torch.zeros((m,), dtype=torch.int64, device=dev)
+    for kstep in range(BRE_STEPS):
+        t_mid = step * (kstep + 0.5)
+        x = o + d * t_mid
+        live = valid & (t_mid - 0.5 * step < length)
+        t_lo, t_hi = step * float(kstep), step * float(kstep + 1)
+
+        def eval_fn(qi, idx, ok, scale):
+            oq, dq = pl.expand(o[qi]), pl.expand(d[qi])
+            v = fg._Cols(packed, idx, SLOT)
+            ph_p = v.f3("p")
+            t_proj = pl.dot3(pl.sub3(ph_p, oq), dq)
+            in_step = (t_proj >= t_lo) & (t_proj < t_hi) & (t_proj >= 0.0) \
+                & (t_proj <= length[qi][:, None])
+            rel = pl.sub3(ph_p, oq)
+            perp = tuple(rel[c] - dq[c] * t_proj for c in range(3))
+            inside = ok & (v.i1("vtype") == pl.VERT_MEDIUM) & in_step \
+                & (pl.dot3(perp, perp) < r2) & live[qi][:, None]
+            if min_depth > 0:
+                inside = inside & (v.i1("depth") + cb["depth"][qi][:, None]
+                                   + 1 >= min_depth)
+            miq = mi[qi][:, None]
+            pf = pl.eval_phase_planar(scene, miq, -pl.dot3(v.f3("wi"), dq))
+            stq, ssq = st_cam[qi], sigma_s[qi]
+            a = v.f3("alpha")
+            kw = torch.where(inside, pf * k2 * scale, 0.0)
+            cb_pl = tuple(a[c] * ssq[:, c:c + 1]
+                          * torch.exp(-stq[:, c:c + 1] * t_proj) * kw
+                          for c in range(3))
+            foot = tuple(oq[c] + dq[c] * t_proj for c in range(3))
+            pre = _shift_caches(v, surface_target=False)
+            S_, W_ = [], []
+            ok_count = torch.zeros(idx.shape[0], dtype=torch.int64,
+                                   device=idx.device)
+            for i in range(4):
+                s = scb_list[i]
+                soq, sdq = pl.expand(s["o"][qi]), pl.expand(s["d"][qi])
+                ok_cam = svalid[i][qi][:, None] \
+                    & (s["length"][qi][:, None] >= t_proj)
+                new_p = tuple(soq[c] + sdq[c] * t_proj + ph_p[c] - foot[c]
+                              for c in range(3))
+                a_sh, pr_l, ok_s, w_new = _reconnect_planar(
+                    pre, new_p, target_is_volume=True)
+                pf_s = pl.eval_phase_planar(scene, miq,
+                                            -pl.dot3(w_new, sdq))
+                ok_i = inside & ok_cam & ok_s
+                w = _mis_planar(pr_l, sens[i][qi][:, None], ok_i)
+                w = torch.where(border_lane[i][qi][:, None], 1.0, w)
+                kwi = torch.where(ok_i, pf_s * k2 * scale, 0.0) * w
+                sthr = s["thr"][qi]
+                S_.append(torch.stack(
+                    [(a_sh[c] * ssq[:, c:c + 1]
+                      * torch.exp(-stq[:, c:c + 1] * t_proj) * kwi).sum(1)
+                     * sthr[:, c] for c in range(3)], dim=-1))
+                W_.append(torch.stack([(w * c).sum(1) for c in cb_pl],
+                                      dim=-1))
+                ok_count = ok_count + ok_i.sum(1)
+            return (torch.stack([c.sum(1) for c in cb_pl], dim=-1),
+                    torch.stack(S_, dim=1), torch.stack(W_, dim=1),
+                    inside.sum(1), ok_count)
+
+        p_, S_, W_, v_, so_ = hashgrid.gather_dense(
+            grid, x, eval_fn, max_per_cell=max_per_cell, stencil=27,
+            exact_cells=True)
+        primal = primal + cb["thr"] * p_
+        S = S + S_.movedim(1, 0)
+        W = W + W_.movedim(1, 0) * cb["thr"][None]
+        visits = visits + v_
+        shift_ok = shift_ok + so_
+    inv = 1.0 / n_emitted
+    return primal * inv, S * inv, W * inv, visits, shift_ok

@@ -1,5 +1,6 @@
 """G-VPM: gradient-domain volumetric photon density estimation
-(mirrors gvpm_tpu/integrators/gvpm.py on the `distance` volume path).
+(mirrors gvpm_tpu/integrators/gvpm.py on the `distance` and `bre` volume
+paths; the gradient beams and planes are ROADMAP queue 1 item 14b).
 
 Each progressive pass computes, besides the primal photon-density
 estimate, finite-difference gradients to the 4 neighbour pixels by
@@ -24,7 +25,7 @@ import torch
 from ..core import rng
 from ..core.config import GradientConfig
 from ..core.logging import PhaseClock, StatsCounter, log
-from ..ops import cellgrid, poisson
+from ..ops import cellgrid, hashgrid, poisson
 from ..render.bsdf import require_ported
 from ..render.medium import require_homogeneous
 from ..scene.types import Scene
@@ -65,19 +66,26 @@ def _flat_segments(cbeams, scene: Scene, pix_id):
 
 
 def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
-                 photons, k_cam, k_gather, px, py, border, surf_scale,
+                 photons, beams, k_cam, k_gather, px, py, border, surf_scale,
                  vol_scale, r_vol_base, timings=None):
     """The per-pixel gradient pass core: camera traces (base + 4
     offsets), surface + volume gathers with shifts. Returns flat
     (primal [n,3], S [4,n,3], W [4,n,3], stats) for the given pixels.
-    `timings`, when given, receives each phase's seconds (the phases end
-    in a device synchronize); with cfg.use_manifold the ME stages of the
-    gathers are phases of their own (surface_me, volume_me) and their
-    parts are listed beside them under "me:..." keys (compact, chains,
-    newton, ratios, occlusion), which the two phases include."""
-    if volume != "distance":
+    photons, beams: the dicts of sppm.shoot_photons (beams, read only
+    by the camera_sphere cull, may be None when it is 0). `timings`, when
+    given, receives each phase's seconds (the phases end in a device
+    synchronize); with cfg.use_manifold the ME stages of the gathers are
+    phases of their own (surface_me, volume_me) and their parts are
+    listed beside them under "me:..." keys (compact, chains, newton,
+    ratios, occlusion), which the two phases include. The volume
+    estimator is `distance` or `bre`; the gradient beams and planes
+    raise."""
+    if volume in sppm.BEAM_VOLUMES:
         raise NotImplementedError(
-            f"volume estimator {volume!r}: ROADMAP queue 1 items 13-14")
+            f"gradient volume estimator {volume!r}: ROADMAP queue 1 item "
+            "14b")
+    if volume not in ("distance", "bre"):
+        raise ValueError(volume)
     dev = scene.device
     n = px.shape[0]
     clock = PhaseClock(dev, timings)
@@ -94,17 +102,35 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
                   for i in range(5)]
     clock.lap("camera_trace")
 
+    pp = photons["p"]
+    # cameraSphere: drop photons stored within a sensor-centred sphere
+    # (gvpm_accel.h:221 isValidPhoton) and beams whose segment crosses it
+    # (gvpm_beams.h:90)
+    surf_valid = photons["vtype"] == ptracer.VERT_SURFACE
+    med_valid = photons["vtype"] == ptracer.VERT_MEDIUM
+    if cfg.camera_sphere > 0.0:
+        cam_o = scene.cam_to_world[:3, 3]
+        keep = ((pp - cam_o[None]) ** 2).sum(-1) > cfg.camera_sphere ** 2
+        surf_valid, med_valid = surf_valid & keep, med_valid & keep
+        t_cl = torch.clamp(((cam_o[None] - beams["o"]) * beams["d"]).sum(-1),
+                           torch.zeros_like(beams["length"]),
+                           beams["length"])
+        cl = beams["o"] + beams["d"] * t_cl[..., None]
+        beams = dict(beams, valid=beams["valid"] & (
+            ((cl - cam_o[None]) ** 2).sum(-1) > cfg.camera_sphere ** 2))
     # nullShift debug mode (GPMConfig nullShift): force every light
     # shift to the identity/unilateral branch by clearing the
     # reconnectable flags end to end
     if cfg.shift_null:
         photons = dict(photons, reconnectable=torch.zeros_like(
             photons["reconnectable"]))
+        if beams is not None:
+            beams = dict(beams, reconnectable=torch.zeros_like(
+                beams["reconnectable"]))
     me_kw = dict(use_manifold=cfg.use_manifold, pv_chain=photons,
                  me_budget=cfg.me_pair_budget,
                  me_iters=cfg.max_manifold_iterations, lap=clock.lap)
 
-    pp = photons["p"]
     pix_id = py.to(torch.int64) * scene.width + px.to(torch.int64)
 
     def pack_rows(sel):
@@ -116,7 +142,6 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     f32 = dict(dtype=torch.float32, device=dev)
     r_surf = base.radius * torch.tensor(surf_scale, **f32)
     base_s = base.replace(radius=r_surf)
-    surf_valid = photons["vtype"] == ptracer.VERT_SURFACE
     cell = torch.clamp(torch.where(base.valid, r_surf, 0.0).amax(),
                        min=1e-5)
     grid_s, sel_s = cellgrid.build_cells(
@@ -133,13 +158,23 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     shift_ok = so_s.sum()
     dropped = dr_s
 
-    # ---- volume (VPM distance) ----
+    # ---- volume (VPM distance | BRE) ----
     r_vol = torch.tensor(r_vol_base, **f32) * torch.tensor(vol_scale, **f32)
-    med_valid = photons["vtype"] == ptracer.VERT_MEDIUM
-    grid_v, sel_v = cellgrid.build_cells(
-        pp, med_valid, scene.medium_lo, scene.medium_hi, r_vol,
-        cfg.grid_dims, max_rows=cfg.grid_volume_rows)
-    packed_v = pack_rows(sel_v)
+    if volume == "distance":
+        grid_v, sel_v = cellgrid.build_cells(
+            pp, med_valid, scene.medium_lo, scene.medium_hi, r_vol,
+            cfg.grid_dims, max_rows=cfg.grid_volume_rows)
+        packed_v = pack_rows(sel_v)
+    else:
+        # BRE stays on the hash grid: its step membership is no ball, so
+        # it needs the 27-stencil's exact cell fingerprints
+        grid_v, packed_v = hashgrid.build_sorted(
+            pp, med_valid, scene.medium_lo, 2.0 * r_vol,
+            dict(rows=gradient_gather.pack_photons(
+                scene, photons,
+                valid=photons["vtype"] != ptracer.VERT_NONE)),
+            hash_size=cfg.grid_hash_size, max_rows=cfg.grid_volume_rows)
+        packed_v = packed_v["rows"]
     cb = _flat_segments(cam_groups[0], scene, pix_id)
     scb_list = [_flat_segments(c, scene, pix_id) for c in cam_groups[1:]]
     n_steps = cam_groups[0].valid.shape[0]
@@ -154,11 +189,19 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     lane = lane_full[order]
     border_lane = torch.stack([border[i][lane] for i in range(4)])
     clock.lap("volume_grid")
-    p_v, S_v, W_v, v_v, so_v, dr_v, med_v, mep_v = \
-        gradient_gather.volume_gather(
+    if volume == "distance":
+        p_v, S_v, W_v, v_v, so_v, dr_v, med_v, mep_v = \
+            gradient_gather.volume_gather(
+                scene, cb, scb_list, grid_v, packed_v, n_photons, r_vol,
+                k_gather, border_lane, n_samples=cfg.volume_samples,
+                min_depth=cfg.min_depth, **me_kw)
+    else:
+        p_v, S_v, W_v, v_v, so_v = gradient_gather.bre_gather(
             scene, cb, scb_list, grid_v, packed_v, n_photons, r_vol,
-            k_gather, border_lane, n_samples=cfg.volume_samples,
-            min_depth=cfg.min_depth, **me_kw)
+            border_lane, max_per_cell=cfg.grid_max_photons_per_cell,
+            min_depth=cfg.min_depth)
+        dr_v = med_v = mep_v = torch.zeros((), dtype=torch.int64,
+                                           device=dev)
     clock.lap("volume_gather")
     visits = visits + v_v.sum()
     shift_ok = shift_ok + so_v.sum()
@@ -211,10 +254,14 @@ def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
     border = torch.stack([xi == W - 1, xi == 0, yi == H - 1, yi == 0])
 
     clock = PhaseClock(dev, timings)
-    photons = sppm.shoot_photons(scene, cfg, n_photons, k_light)
+    # the gradient distance and bre passes read the beams only to cull
+    # them at the camera sphere
+    photons, beams = sppm.shoot_photons(scene, cfg, n_photons, k_light,
+                                        with_beams=cfg.camera_sphere > 0.0)
     clock.lap("light_trace")
     p_s, S_s, W_s, stats = pass_buffers(
-        scene, cfg, volume, n_photons, photons, k_cam, k_gather, px, py,
+        scene, cfg, volume, n_photons, photons, beams, k_cam, k_gather, px,
+        py,
         border, surf_scale, vol_scale, r_vol_base, timings=timings)
     primal, gx, gy = assemble_gradients(p_s, S_s, W_s, H, W)
     return primal, gx, gy, stats

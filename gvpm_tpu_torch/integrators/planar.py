@@ -131,7 +131,7 @@ def eval_bsdf_gather(scene: Scene, bi, wi_loc, wo_loc):
     def g1(cv):
         tan_t = torch.sqrt(torch.clamp(1.0 - cv * cv, min=0.0)) \
             / torch.clamp(torch.abs(cv), min=1e-9)
-        a = _rcp(torch.clamp(alpha * tan_t, min=1e-9))
+        a = rdiv(1.0, torch.clamp(alpha * tan_t, min=1e-9))
         rat = (3.535 * a + 2.181 * a * a) \
             / (1.0 + 2.276 * a + 2.577 * a * a)
         return torch.where(a < 1.6, rat, 1.0)
@@ -174,10 +174,10 @@ def eval_bsdf_gather(scene: Scene, bi, wi_loc, wo_loc):
     return chan(0), chan(1), chan(2)
 
 
-def _rcp(x):
-    """1 / x as a true division (torch's scalar / tensor multiplies by
+def rdiv(c, x):
+    """c / x as a true division (torch's scalar / tensor multiplies by
     the reciprocal, XLA divides)."""
-    return x.new_ones(()) / x
+    return x.new_full((), c) / x
 
 
 def parent_scatter_params(ptype, pwi, pns, bparams, mparams, w_new):

@@ -5,6 +5,8 @@ step emits one vertex record per lane (possibly invalid), so the
 result is a dense [S, P] vertex tensor that doubles as path storage
 for the gradient shifts. `alpha` stored at a vertex is the power
 arriving there; the local sigma_s / BSDF is applied at gather time.
+Every step also records the medium segment it traversed (a photon
+beam, `LightBeams`) with the shift caches of the vertex it leaves.
 """
 
 from __future__ import annotations
@@ -61,9 +63,42 @@ class LightVertices(TensorStruct):
     parent_idx: torch.Tensor
 
 
-def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key):
-    """Trace n_paths light paths; returns LightVertices [S, P].
-    Estimators divide by n_paths (per-emitted-path scaling)."""
+@dataclasses.dataclass
+class LightBeams(TensorStruct):
+    """Medium-traversing segments of light paths (photon beams), [S, P]:
+    one record per step (LTBeamMap::tryAppendLT, gvpm_beams.h:54-84).
+    alpha is the power at the segment start; the shift caches are those
+    of the vertex that emits the segment (shift_volume_beams.h:408-457).
+    `reconnectable` also requires that the segment leaves that vertex
+    itself (false after a null-boundary crossing); `parent_idx` is the
+    flat index of the vertex's own record (-1: the emitter)."""
+    valid: torch.Tensor
+    o: torch.Tensor
+    d: torch.Tensor
+    length: torch.Tensor
+    alpha: torch.Tensor
+    med: torch.Tensor
+    path: torch.Tensor
+    depth: torch.Tensor
+    parent_p: torch.Tensor
+    parent_type: torch.Tensor
+    parent_wi: torch.Tensor
+    parent_ns: torch.Tensor
+    parent_bsdf: torch.Tensor
+    parent_med: torch.Tensor
+    scatter_base: torch.Tensor
+    pdf_dir_base: torch.Tensor
+    reconnectable: torch.Tensor
+    parent_idx: torch.Tensor
+    at_origin: torch.Tensor
+
+
+def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key,
+          with_beams=True):
+    """Trace n_paths light paths; returns (LightVertices, LightBeams),
+    both [S, P], or (LightVertices, None) when with_beams is false: a
+    pass that reads no beam skips recording them. Estimators divide by
+    n_paths (per-emitted-path scaling)."""
     n = n_paths
     dev = scene.device
     n_steps = cfg.max_depth + cfg.null_bounces
@@ -84,7 +119,7 @@ def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key):
         seg_tr=torch.ones((n, 3), dtype=torch.float32, device=dev),
         seg_pdffail=torch.ones((n,), dtype=torch.float32, device=dev))
     step_keys = rng.split(k_walk, n_steps)
-    verts = []
+    verts, beams = [], []
     for step_i in range(n_steps):
         k_med, k_scat, k_rr = rng.split(step_keys[step_i], 3)
         o, d, cur_med = st["o"], st["d"], st["med"]
@@ -97,6 +132,21 @@ def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key):
                                  u_channel=u_med[:, 1])
         mevt = active & ms.success
         sevt = active & ~ms.success & hit.valid
+
+        # beam record: the medium segment traversed this step
+        if with_beams:
+            seg_len = torch.where(ms.success, ms.t, t_far)
+            finite = torch.isfinite(seg_len)
+            beams.append(dict(
+                valid=active & (cur_med >= 0) & finite & (seg_len > 1e-6),
+                o=o, d=d, length=torch.where(finite, seg_len, 0.0),
+                alpha=alpha, med=cur_med, path=lane, depth=st["depth"],
+                parent_p=st["pp_p"], parent_type=st["pp_type"],
+                parent_wi=st["pp_wi"], parent_ns=st["pp_ns"],
+                parent_bsdf=st["pp_bsdf"], parent_med=st["pp_med"],
+                scatter_base=st["pp_scatter"], pdf_dir_base=st["pp_pdf_dir"],
+                reconnectable=st["pp_reconn"] & st["pp_at_origin"],
+                parent_idx=st["pp_idx"], at_origin=st["pp_at_origin"]))
 
         alpha_in_med = alpha * ms.transmittance / torch.clamp(
             ms.pdf_success, min=1e-20)[..., None]
@@ -207,8 +257,11 @@ def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key):
             seg_pdffail=torch.where(stored, 1.0, torch.where(
                 null_cross, st["seg_pdffail"] * ms.pdf_failure,
                 st["seg_pdffail"])))
-    return LightVertices(**{f: torch.stack([v[f] for v in verts])
-                            for f in verts[0]})
+    def stack(records, cls):
+        return cls(**{f: torch.stack([r[f] for r in records])
+                      for f in records[0]})
+    return (stack(verts, LightVertices),
+            stack(beams, LightBeams) if with_beams else None)
 
 
 def flatten_vertices(lv: LightVertices):

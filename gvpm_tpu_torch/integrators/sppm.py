@@ -6,11 +6,13 @@ regenerate gather points, shoot photons, build the hash grids, run the
 selected volume estimator, accumulate; APA (average-per-pass) radius
 schedule scaleVolumeAPA (sppm.cpp:255, gvpm.cpp:181-215).
 
-  shoot_photons(...)  -> flattened photon SoA           (light pass)
+  shoot_photons(...)  -> flattened photon / beam SoA    (light pass)
   gather_images(...)  -> per-pixel radiance for a pixel slice (camera pass)
 
-Volume estimators ported: "none" and "distance"; "bre" comes with
-ROADMAP queue 1 item 13, the beams and planes with item 14.
+Every volume estimator of the JAX package: "none", "distance", "bre"
+(with per-photon kNN radii when cfg.bre_knn > 0), "beam1d", "beam3d"
+and "plane0d"; the beam and plane pair sweeps run the CUDA kernel of
+ops/beam_sweep.py on the card.
 """
 
 from __future__ import annotations
@@ -29,7 +31,14 @@ from . import estimators, gatherpoint, ptracer
 
 VOLUME_ESTIMATORS = ("none", "distance", "bre", "beam1d",
                      "beam3d", "plane0d")
+# the estimators that read the light pass's beams
+BEAM_VOLUMES = ("beam1d", "beam3d", "plane0d")
 CAMERA_FIELDS = ("valid", "o", "d", "length", "med", "thr")
+# the beam dict of the light pass (gvpm_tpu/integrators/sppm.py:64-73)
+BEAM_FIELDS = ("valid", "o", "d", "length", "alpha", "med", "parent_p",
+               "parent_type", "parent_wi", "parent_ns", "parent_bsdf",
+               "parent_med", "scatter_base", "pdf_dir_base",
+               "reconnectable", "parent_idx", "at_origin")
 
 # kernel dimension per estimator -> APA radius exponent 1/dim
 # (reference: volume_utils.h:23-53 kernel-dimension helpers)
@@ -50,34 +59,32 @@ def base_volume_radius(scene: Scene, cfg: PhotonConfig):
     return 0.02 * diag * cfg.initial_scale_volume
 
 
-def shoot_photons(scene: Scene, cfg: PhotonConfig, n_photons, key):
-    """Light pass -> photon dict, flattened [S*P]."""
+def shoot_photons(scene: Scene, cfg: PhotonConfig, n_photons, key,
+                  with_beams=True):
+    """Light pass -> (photon dict, beam dict), both flattened [S*P]. The
+    beam dict carries the shift caches of the beam reconnection; it is
+    None when with_beams is false (the pass reads no beam)."""
     require_ported(scene)
     require_homogeneous(scene)
-    lv = ptracer.shoot(scene, cfg, n_photons, key)
+    lv, lb = ptracer.shoot(scene, cfg, n_photons, key, with_beams=with_beams)
     pv, _ = ptracer.flatten_vertices(lv)
-    return pv.asdict()
+    if lb is None:
+        return pv.asdict(), None
+    lb = lb.map(lambda a: a.reshape((-1,) + a.shape[2:]))
+    return pv.asdict(), {f: getattr(lb, f) for f in BEAM_FIELDS}
 
 
-def _require_ported_volume(volume):
-    if volume not in VOLUME_ESTIMATORS:
-        raise ValueError(volume)
-    if volume == "bre":
-        raise NotImplementedError(
-            "volume estimator 'bre': ROADMAP queue 1 item 13")
-    if volume not in ("none", "distance"):
-        raise NotImplementedError(
-            f"volume estimator {volume!r}: ROADMAP queue 1 item 14")
-
-
-def gather_images(scene: Scene, cfg: PhotonConfig, volume, photons,
+def gather_images(scene: Scene, cfg: PhotonConfig, volume, photons, beams,
                   n_emitted, key_cam, key_gather, px, py, surf_scale,
                   vol_scale, r_vol_base, timings=None):
     """Camera pass over a pixel slice. Returns the flat image [n,3]
-    indexed by lane (one lane per pixel in px/py order). surf_scale,
-    vol_scale, r_vol_base: floats, taken as float32 scalars (the JAX
-    package's traced arguments). `timings` as in render_pass."""
-    _require_ported_volume(volume)
+    indexed by lane (one lane per pixel in px/py order). photons, beams:
+    the dicts of shoot_photons (beams may be None unless volume is one
+    of BEAM_VOLUMES). surf_scale, vol_scale, r_vol_base:
+    floats, taken as float32 scalars (the JAX package's traced
+    arguments). `timings` as in render_pass."""
+    if volume not in VOLUME_ESTIMATORS:
+        raise ValueError(volume)
     dev = scene.device
     clock = PhaseClock(dev, timings)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -99,34 +106,54 @@ def gather_images(scene: Scene, cfg: PhotonConfig, volume, photons,
         1.0, max_per_cell=cfg.grid_max_photons_per_cell, stencil=8)
     out = L_surf + gps.emission
     clock.lap("surface_gather")
+    if volume == "none":
+        return out
 
     # ---- volume estimator ----
-    if volume == "distance":
-        cb = {f: getattr(cam_beams, f).reshape(
-            (-1,) + getattr(cam_beams, f).shape[2:]) for f in CAMERA_FIELDS}
-        # splat by lane: lane i of every step is pixel slot i
-        cb["pixel"] = torch.arange(n, device=dev).repeat(
-            cam_beams.valid.shape[0])
-        # compact: valid medium segments first (a stable sort keeps the
-        # JAX package's order), fixed per-pixel budget
-        budget = min(cb["valid"].shape[0], n * cfg.vol_segments_per_pixel)
-        order = torch.argsort((~cb["valid"]).to(torch.int8),
-                              stable=True)[:budget]
-        cb = {k: v[order] for k, v in cb.items()}
-        r_vol = torch.tensor(r_vol_base, **f32) \
-            * torch.tensor(vol_scale, **f32)
-        grid_v = hashgrid.build(pp, photons["vtype"] == ptracer.VERT_MEDIUM,
-                                scene.medium_lo, 2.0 * r_vol,
+    cb = {f: getattr(cam_beams, f).reshape(
+        (-1,) + getattr(cam_beams, f).shape[2:]) for f in CAMERA_FIELDS}
+    # splat by lane: lane i of every step is pixel slot i
+    cb["pixel"] = torch.arange(n, device=dev).repeat(cam_beams.valid.shape[0])
+    # compact: valid medium segments first (a stable sort keeps the JAX
+    # package's order), fixed per-pixel budget
+    budget = min(cb["valid"].shape[0], n * cfg.vol_segments_per_pixel)
+    order = torch.argsort((~cb["valid"]).to(torch.int8), stable=True)[:budget]
+    cb = {k: v[order] for k, v in cb.items()}
+    r_vol = torch.tensor(r_vol_base, **f32) * torch.tensor(vol_scale, **f32)
+    max_per_cell = cfg.grid_max_photons_per_cell
+    if volume in ("distance", "bre"):
+        med_valid = photons["vtype"] == ptracer.VERT_MEDIUM
+        grid_v = hashgrid.build(pp, med_valid, scene.medium_lo, 2.0 * r_vol,
                                 hash_size=cfg.grid_hash_size)
         clock.lap("volume_grid")
+    if volume == "distance":
         Lv, pix = estimators.volume_distance_gather(
             scene, cb, grid_v, pp, photons, n_emitted, r_vol, key_gather,
-            n_samples=cfg.volume_samples,
-            max_per_cell=cfg.grid_max_photons_per_cell, stencil=8)
-        clock.lap("volume_gather")
-        out = out.index_add_(0, pix, torch.where(cb["valid"][..., None],
-                                                 Lv, 0.0))
-        clock.lap("splat")
+            n_samples=cfg.volume_samples, max_per_cell=max_per_cell,
+            stencil=8)
+    elif volume == "bre":
+        pr = None
+        if cfg.bre_knn > 0:
+            # per-photon radii from the local density (bre.cpp:29-93)
+            pr = estimators.knn_radii(grid_v, pp, med_valid, r_vol,
+                                      cfg.bre_knn, max_per_cell=max_per_cell)
+        Lv, pix = estimators.bre_gather(
+            scene, cb, grid_v, pp, photons, n_emitted, r_vol,
+            max_per_cell=max_per_cell, pr=pr)
+    elif volume == "beam1d":
+        Lv, pix = estimators.beam_beam_gather(scene, cb, beams, n_emitted,
+                                              r_vol)
+    elif volume == "beam3d":
+        Lv, pix = estimators.beam_point_gather(
+            scene, cb, beams, n_emitted, r_vol, key_gather,
+            n_samples=cfg.volume_samples, tile=cfg.beam_tile)
+    else:
+        planes = estimators.make_planes(scene, beams, key_gather)
+        clock.lap("planes")
+        Lv, pix = estimators.plane_gather(scene, cb, planes, n_emitted)
+    clock.lap("volume_gather")
+    out = out.index_add_(0, pix, torch.where(cb["valid"][..., None], Lv, 0.0))
+    clock.lap("splat")
     return out
 
 
@@ -135,19 +162,20 @@ def render_pass(scene: Scene, cfg: PhotonConfig, volume, n_photons, seed,
     """One progressive pass; returns the pass image [H,W,3]. `timings`
     (optional dict) collects per-phase seconds, each phase ending in a
     device synchronize: light_trace, camera_trace, surface_grid,
-    surface_gather, volume_grid, volume_gather, splat."""
-    _require_ported_volume(volume)
+    surface_gather, volume_grid (distance, bre), planes (plane0d),
+    volume_gather, splat."""
     dev = scene.device
     H, W = scene.height, scene.width
     k_cam = rng.pass_key(seed, it, rng.STREAM_CAMERA, dev)
     k_light = rng.pass_key(seed, it, rng.STREAM_LIGHT, dev)
     k_gather = rng.pass_key(seed, it, rng.STREAM_GATHER, dev)
     clock = PhaseClock(dev, timings)
-    photons = shoot_photons(scene, cfg, n_photons, k_light)
+    photons, beams = shoot_photons(scene, cfg, n_photons, k_light,
+                                   with_beams=volume in BEAM_VOLUMES)
     clock.lap("light_trace")
     py, px = torch.meshgrid(torch.arange(H, device=dev),
                             torch.arange(W, device=dev), indexing="ij")
-    img = gather_images(scene, cfg, volume, photons, n_photons, k_cam,
+    img = gather_images(scene, cfg, volume, photons, beams, n_photons, k_cam,
                         k_gather, px.reshape(-1).to(torch.float32),
                         py.reshape(-1).to(torch.float32), surf_scale,
                         vol_scale, r_vol_base, timings=timings)

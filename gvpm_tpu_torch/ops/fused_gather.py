@@ -22,23 +22,20 @@ tensors and takes the plain PyTorch version (`fused_gather_plain`) only
 for CPU tensors. The kernel's ball tests read an 8-float head of each
 row (`row_heads`), which each launch first copies out of the table; its
 shift bodies read the rows themselves. The kernel is built
-with nvcc at first use into gvpm_tpu_torch/_build/, keyed by a hash of
-its sources, and ptxas's resource report is kept beside it
-(`build_report`).
+with nvcc at first use into gvpm_tpu_torch/_build/ (ops/nvcc.py), and
+ptxas's resource report is kept beside it (`build_report`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import os
-import re
-import subprocess
 import threading
 
 import torch
 
+from . import nvcc
 from .cellgrid import CellGrid, anchor_ids27
 
 N_RUNS = 9
@@ -259,38 +256,14 @@ _LIB = {}
 _LOCK = threading.Lock()
 
 
-def _source_hash():
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(_CSRC, name), "rb") as f:
-            h.update(f.read())
-    return h.hexdigest()[:16]
-
-
 def build():
-    """Compile csrc/ with nvcc into _build/<source hash>/ (once), keep
-    ptxas's report beside the library, and load it; returns the ctypes
-    library."""
+    """Compile csrc/fused_gather.cu with nvcc into _build/ (once; ops/
+    nvcc.py) and load it; returns the ctypes library."""
     with _LOCK:
         if "lib" in _LIB:
             return _LIB["lib"]
-        out_dir = os.path.join(_BUILD, _source_hash())
-        so = os.path.join(out_dir, "libfused_gather.so")
-        if not os.path.exists(so):
-            os.makedirs(out_dir, exist_ok=True)
-            nvcc = os.path.join(os.environ.get("CUDA_HOME",
-                                               "/usr/local/cuda"),
-                                "bin", "nvcc")
-            tmp = so + f".{os.getpid()}.tmp"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(_CSRC, "fused_gather.cu")]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed:\n" + res.stderr)
-            with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
-                f.write(res.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = ctypes.CDLL(nvcc.build_library(_CSRC, SOURCES, _BUILD,
+                                             NVCC_FLAGS, "fused_gather"))
         vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_float, ctypes.c_int)
         for name in LAUNCHES:
@@ -305,34 +278,16 @@ def build():
 
 
 def build_report():
-    """ptxas's resources of each kernel instantiation of the built
-    library: {eval name: dict(registers, spill_stores, spill_loads,
-    stack, smem)}, bytes but for the registers per thread."""
+    """ptxas's resources of the four fused_gather_kernel<Eval, ME>
+    instantiations of the built library: {eval name: dict(registers,
+    spill_stores, spill_loads, stack, smem)}, bytes but for the
+    registers per thread."""
     build()
-    with open(os.path.join(_BUILD, _source_hash(), "ptxas.txt")) as f:
-        return parse_ptxas(f.read())
-
-
-def parse_ptxas(text):
-    """`nvcc -Xptxas -v` output -> the resources of the four
-    fused_gather_kernel<Eval, ME> entry functions, by eval name."""
-    report = {}
-    entry = re.compile(
-        r"Compiling entry function '(\w*fused_gather_kernel\w*)'(.*?)"
-        r"(?=Compiling entry function|\Z)", re.S)
-    for name, block in entry.findall(text):
-        ev = ("volume" if "VolumeEval" in name else "surface") \
-            + ("_me" if "Lb1" in name else "")
-        stack, st, ld = map(int, re.search(
-            r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-            r"(\d+) bytes spill loads", block).groups())
-        smem = re.search(r"(\d+) bytes smem", block)
-        report[ev] = dict(
-            registers=int(re.search(r"Used (\d+) registers",
-                                    block).group(1)),
-            spill_stores=st, spill_loads=ld, stack=stack,
-            smem=int(smem.group(1)) if smem else 0)
-    return report
+    return {("volume" if "VolumeEval" in name else "surface")
+            + ("_me" if "Lb1" in name else ""): r
+            for name, r in nvcc.build_report(_CSRC, SOURCES, _BUILD,
+                                             NVCC_FLAGS).items()
+            if "fused_gather_kernel" in name}
 
 
 def _check_table(ev: GatherEval, table):

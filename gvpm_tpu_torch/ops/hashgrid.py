@@ -1,7 +1,9 @@
 """Spatial hash grid: the photon index of the SPPM primal estimators
 (mirrors gvpm_tpu/ops/hashgrid.py).
 
-Build is one stable sort of the photons by bucket; a range query visits
+Build is one stable sort of the photons by bucket. `gather` folds over
+the first max_per_cell photons of each of the 27 cells around a query
+(with overflow compensation); `gather_dense`, the gathers' driver, visits
 the 8 (cell >= 2r) or 27 (cell >= r) stencil cells around each query and
 enumerates only the rows those cells hold (prefix-compacted, at most a
 budget of B rows a query; more are strided-subsampled with compensation
@@ -101,6 +103,38 @@ def build_sorted(positions, valid, origin, cell_size, payload,
     return g.replace(cell_of=g.cell_of[sorted_idx], cell_pack=cell_pack,
                      sorted_idx=sorted_idx, bucket_start=bucket_start,
                      identity_order=True), payload_sorted
+
+
+def gather(grid: HashGrid, x, fold, init, max_per_cell=32):
+    """Fold over the photons whose cell is one of the 27 around each
+    query x [Q,3]: fold(carry, idx [Q], ok [Q], scale [Q]) -> carry, once
+    per (stencil cell, slot k < max_per_cell), in the JAX package's order
+    (cells in NEIGHBOR_OFFSETS order, slots ascending), so a sum carried
+    through it adds in the same order. A bucket holding more than
+    max_per_cell photons visits its first max_per_cell, each scaled by
+    count / max_per_cell; an exact cell-coordinate match filters hash
+    collisions. The caller applies its own distance test. Needs a grid
+    from build() (photon indices, not grid-ordered rows)."""
+    if grid.identity_order:
+        raise ValueError("hashgrid.gather folds over photon indices: "
+                         "build the grid with build(), not build_sorted()")
+    P = grid.sorted_idx.shape[0]
+    qcell = _cell_coords(grid.origin, grid.cell_size, x)
+    carry = init
+    for off in NEIGHBOR_OFFSETS:
+        ncell = qcell + torch.tensor(off, dtype=torch.int64, device=x.device)
+        nb = _bucket(ncell, grid.hash_size)
+        start = grid.bucket_start[nb]
+        full = grid.bucket_start[nb + 1] - start
+        count = torch.clamp(full, max=max_per_cell)
+        scale = torch.clamp(full, min=1).to(torch.float32) \
+            / torch.clamp(count, min=1).to(torch.float32)
+        scale = torch.where(full > max_per_cell, scale, 1.0)
+        for k in range(max_per_cell):
+            idx = grid.sorted_idx[torch.clamp(start + k, 0, P - 1)]
+            ok = (k < count) & (grid.cell_of[idx] == ncell).all(-1)
+            carry = fold(carry, idx, ok, scale)
+    return carry
 
 
 def stencil_ranges(grid: HashGrid, xq, stencil, dedup_buckets=False):

@@ -188,16 +188,20 @@ def test_eval_bsdf_gather_all_types_matches_jax():
 
 
 def test_unported_estimators_raise():
-    for fn in (estimators.bre_gather, estimators.knn_radii):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn()
-    for fn in (estimators.beam_beam_gather, estimators.beam_point_gather,
-               estimators.make_planes, estimators.plane_gather):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn()
+    """Every SPPM volume estimator of the JAX package is ported (their
+    parity tests: test_torch_bre.py, test_torch_beams.py); what is left
+    raises naming its ROADMAP item: the gradient beams and planes
+    (item 14b). An unknown estimator is a ValueError."""
+    from gvpm_tpu_torch.core.config import GradientConfig
+    from gvpm_tpu_torch.integrators import gvpm
+    assert sppm.VOLUME_ESTIMATORS == jsppm.VOLUME_ESTIMATORS
     scene = port_scene_from_jax(jax_scene())
-    for volume, item in (("bre", "item 13"), ("beam1d", "item 14"),
-                         ("beam3d", "item 14"), ("plane0d", "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            sppm.render_pass(scene, PhotonConfig(), volume, 64, 0, 0,
-                             1.0, 1.0, 0.02)
+    cfg = GradientConfig(max_depth=2, null_bounces=1, max_cam_depth=2,
+                         surface_photons=64, volume_photons=64,
+                         grid_dims=(8, 8, 8))
+    for volume in ("beam1d", "beam3d", "plane0d"):
+        with pytest.raises(NotImplementedError, match="item 14b"):
+            gvpm.render_pass(scene, cfg, volume, 64, 0, 0, 1.0, 1.0, 0.02)
+    for render in (sppm.render_pass, gvpm.render_pass):
+        with pytest.raises(ValueError):
+            render(scene, cfg, "beam2d", 64, 0, 0, 1.0, 1.0, 0.02)

@@ -99,8 +99,8 @@ def test_render_with_checkpoint_resume(passes, tmp_path):
 def test_everything_is_float32(passes):
     scene, _, got = passes
     from gvpm_tpu_torch.core import rng
-    photons = sppm.shoot_photons(scene, TORCH_CFG, N_PHOTONS,
-                                 rng.pass_key(SEED, IT, rng.STREAM_LIGHT))
+    photons, _ = sppm.shoot_photons(scene, TORCH_CFG, N_PHOTONS,
+                                    rng.pass_key(SEED, IT, rng.STREAM_LIGHT))
     tensors = list(scene.tensors().items()) + list(photons.items()) \
         + [(f"out{i}", a) for i, a in enumerate(got[:3])]
     for name, v in tensors:

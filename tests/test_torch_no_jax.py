@@ -1,8 +1,8 @@
 """gvpm_tpu_torch imports no JAX and nothing of the JAX package: a fresh
 interpreter with jax, flax and gvpm_tpu made unimportable imports every
 module of the port, renders with the default manifold shifts, renders
-SPPM and volpath, round-trips a PFM, and saves and resumes a checkpoint
-of both progressive loops; and no source file of the port, nor
+SPPM (every volume estimator), gvpm `bre` and volpath, round-trips a
+PFM, and saves and resumes a checkpoint of both progressive loops; and no source file of the port, nor
 chip_smoke.py, holds an import of them."""
 
 import os
@@ -59,6 +59,14 @@ with tempfile.TemporaryDirectory() as d:
     image.write_pfm(pfm, img.numpy())
     assert (image.read_pfm(pfm) == img.numpy()).all()
 assert torch.isfinite(res["image"]).all() and torch.isfinite(img).all()
+# every SPPM volume estimator (the beam sweeps' plain version) and the
+# gvpm bre pass
+for v in ("bre", "beam1d", "beam3d", "plane0d"):
+    assert torch.isfinite(sppm.render_pass(
+        scene, pcfg, v, 1 << 8, 0, 0, 1.0, 1.0,
+        sppm.base_volume_radius(scene, pcfg))).all(), v
+assert torch.isfinite(gvpm.render(scene, cfg, volume="bre",
+                                  passes=1)["image"]).all()
 assert callable(entry.entry)
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "gvpm_tpu")

@@ -40,8 +40,8 @@ def _assert_field(name, ref, got):
 
 def test_shoot_photons(stages):
     scene, ref = stages
-    ph = sppm.shoot_photons(scene, TORCH_CFG, N_PHOTONS,
-                            rng.pass_key(SEED, IT, rng.STREAM_LIGHT))
+    ph, _ = sppm.shoot_photons(scene, TORCH_CFG, N_PHOTONS,
+                               rng.pass_key(SEED, IT, rng.STREAM_LIGHT))
     assert set(ph) == set(ref["photons"])
     for k, v in ph.items():
         _assert_field(k, ref["photons"][k], v)
