@@ -35,6 +35,14 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 plain version once, accepted-pair counts exactly equal,
                 sums at rtol 2e-4 / atol 5e-6, two launches bitwise equal;
                 kernel and plain ms and the bound (`beam_bound`).
+  3d. gbeams — the gradient sweeps of the gvpm beam volumes (gbeam1d,
+                gbeam3d, gplane0d; use_manifold=False) on the inputs of
+                one gvpm pass of each at the goldens' 128^2 check config:
+                the kernel twice and the plain version once (its base
+                test on dense planes, its shifts on the accepted pairs
+                only), visits and shift_ok exactly equal, sums at rtol
+                2e-4 / atol 5e-6, two launches bitwise equal; kernel and
+                plain ms and the bound (`gbeam_bound`).
   4. main     — gvpm.render at the bench headline size (512^2 box_medium,
                 2^18 light paths, bench.py:347-362 without the TPU knobs):
                 first 3 passes with the default use_manifold=True
@@ -61,6 +69,13 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 128^2 check config (after the warm-up of 3c): seconds,
                 phase split, and the sweep launches (1, 2, 1 a pass),
                 counted from 0.
+  4e. gvpm-128 — one gvpm pass of beam1d, beam3d and plane0d at the
+                128^2 check config, ME off: seconds, phase split and the
+                gradient sweep launches (1, 2, 1 a pass), counted from 0;
+                then one warm pass of each at bench.py's full beam config
+                (bench.py:262-292: 128^2, 2^18 paths, 2 segments a pixel,
+                2 chord samples, beam_seg_tile 8192: beam3d launches 4
+                chunks x 2 samples), which the TPU never finished.
   4d. bre     — one gvpm `bre` pass at the headline size with the
                 default ME (the surface through K2-ME, launches counted
                 from 0): seconds and phase split. Its profile (the plain
@@ -74,7 +89,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 and sppm:bre / beam1d / beam3d / plane0d at 128^2
                 (SPPM_BEAM_GOLD), under the bars recorded in their
                 meta.json; gvpm:bre at 128^2 (no bar: relMSE, finite,
-                reconstruction mean within 25% of the primal's); the 32^2
+                reconstruction mean within 25% of the primal's);
+                gvpm:beam1d / beam3d / plane0d at 128^2 (10 / 10 / 30
+                passes, ME off; no bar: relMSE, finite, reconstruction
+                mean within 2% of the primal's, and the correlation of gx
+                with the golden's finite differences above 0.5 as
+                tools/goldens.py:237-255 holds gvpm:distance); the 32^2
                 gvpm render once
                 more with the gathers' plain version, to show how far a
                 different order of the sums moves the relMSE.
@@ -128,6 +148,26 @@ SPPM_GOLD = (
                volume_samples=2, vol_segments_per_pixel=2,
                grid_dims=(64, 64, 64)), 10))
 
+# the gvpm goldens' 128^2 check config, ME off (tools/goldens.py::
+# _run_check: _check_kw(128) with the gradient gather's row caps)
+GVPM_GOLD_KW = dict(
+    max_depth=12, null_bounces=6, max_cam_depth=6,
+    surface_photons=1 << 16, volume_photons=1 << 16,
+    initial_scale_volume=0.5, volume_samples=2, vol_segments_per_pixel=2,
+    grid_dims=(64, 64, 64), grid_surface_rows=1 << 19,
+    grid_volume_rows=1 << 19, use_manifold=False)
+# bench.py's full beam config (bench.py:262-292, _beam_child without its
+# TPU knobs): 128^2, 2^18 paths, 2 segments a pixel, 2 chord samples,
+# segment chunks of 8192
+GBEAM_FULL_KW = dict(
+    max_depth=12, null_bounces=6, max_cam_depth=6,
+    surface_photons=1 << 18, volume_photons=1 << 18, grid_hash_size=1 << 20,
+    volume_samples=2, initial_scale_volume=0.8,
+    grid_max_photons_per_cell=32, vol_segments_per_pixel=2,
+    grid_dims=(64, 64, 64), grid_surface_rows=1 << 20,
+    grid_volume_rows=1 << 20, beam_seg_tile=8192, beams=1 << 14,
+    use_manifold=False)
+
 # the beam estimators' golden bars (tools/goldens.py CHECKS: 10 passes,
 # 30 for plane0d; the 32^2 artifact records sppm:beam1d only)
 SPPM_BEAM_GOLD = (("ci", "beam1d", 10), (".", "bre", 10), (".", "beam1d", 10),
@@ -180,6 +220,31 @@ BEAM_INT_OPS = 20 * 5 + 5 * 3 + 4 + 4
 # 132 SMs x 64 INT32 lanes x 1.98 GHz (the Hopper SM holds half as many
 # INT32 as FP32 units; NVIDIA's Hopper architecture white paper)
 PEAK_INT32_S = 132 * 64 * 1.98e9
+# the gvpm beam volumes' gradient sweeps (ops/beam_sweep.GKINDS): their
+# main path is the gvpm pass at the goldens' 128^2 check config with ME
+# off (tools/goldens.py::_run_check's gradient config; gold_cfgs below)
+GBEAM_VOLUMES = {"gbeam1d": "beam1d", "gbeam3d": "beam3d",
+                 "gplane0d": "plane0d"}
+GBEAM_REPLACES = {
+    "gbeam1d": "gvpm_tpu/integrators/gradient_gather.py:1232",
+    "gbeam3d": "gvpm_tpu/integrators/gradient_gather.py:1580",
+    "gplane0d": "gvpm_tpu/integrators/gradient_gather.py:1960"}
+# launches per gvpm pass at the check config (beam3d: one segment chunk
+# x volume_samples = 2)
+GBEAM_LAUNCHES = {"gbeam1d": 1, "gbeam3d": 2, "gplane0d": 1}
+GBEAM_GOLD_PASSES = {"beam1d": 10, "beam3d": 10, "plane0d": 30}
+# operations counted from csrc/beam_eval.cuh's gradient functors, one
+# per add, multiply, divide, compare, select, clamp, sqrtf and expf, on
+# box_medium's path (diffuse and medium parents; parent_lobe 112 as in
+# BODY_OPS; phase_params evaluates its HG and Rayleigh branches): (every
+# pair of a valid query and a beam in its medium and the pairs of the
+# second stage, as BEAM_OPS; each accepted pair's base term, its
+# accumulation and the tail's load; each shift of an accepted pair on a
+# reconnectable beam: the re-emitted beam, parent_lobe and the ratios,
+# MIS and the six accumulations; each identity shift).
+GBEAM_OPS = {"gbeam1d": (36, 21, 58, 241, 150),
+             "gbeam3d": (30, 17, 50, 265, 120),
+             "gplane0d": (23, 32, 110, 375, 165)}
 BALL_OPS = {"volume": 11, "surface": 20}
 BODY_OPS = {"volume": 46 + 4 * (112 + 86 + 49),
             "surface": 51 + 4 * (112 + 104 + 56)}
@@ -512,6 +577,88 @@ def beam_bound(kind, q, rows, stats, accepted):
         float_unfused_ms=fops / PEAK_FP32_UNFUSED_S * 1e3)
 
 
+def gbeam_bound(kind, q, rows, stats):
+    """beam_bound for a gradient sweep (GBEAM_OPS): the bytes of the
+    query, offset, beam, tail, key and output rows once; the operations
+    of every pair, of the second stage, of the accepted pairs' base
+    terms and of their four shifts by branch. Returns (ms, "bytes" |
+    "operations", detail)."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    M, N = q.shape[0], rows.shape[0]
+    valid = q[:, bs.QSLOT["valid"]] > 0.5
+    q_med = q[valid, bs.QSLOT["med"]].to(torch.int64)
+    b_med = rows[:, bs.BSLOT["med"]].to(torch.int64)
+    n_med = int(max(q_med.max(), b_med.max())) + 1 if q_med.numel() else 1
+    pairs = int(torch.bincount(b_med, minlength=n_med)[q_med].sum())
+    n_bytes = 4 * (M * (bs.QW + bs.XW + bs.NF_GRAD + 2)
+                   + N * (bs.BW + bs.TW)) \
+        + (16 * N if kind == "gbeam3d" else 0)
+    a, b, c, d, e = GBEAM_OPS[kind]
+    acc, rc = stats["accepted"], stats["reconn"]
+    fops = pairs * a + stats["stage2"] * b + acc * c + 4 * (rc * d
+                                                           + (acc - rc) * e)
+    iops = stats["stage2"] * BEAM_INT_OPS if kind == "gbeam3d" else 0
+    t = dict(bytes=n_bytes / PEAK_BYTES_S * 1e3,
+             operations=max(fops / PEAK_FP32_S, iops / PEAK_INT32_S) * 1e3)
+    by = max(t, key=t.get)
+    return t[by], by, dict(
+        queries=M, valid_queries=int(valid.sum()), beams=N, pairs=pairs,
+        stage2=stats["stage2"], accepted=acc, reconnectable=rc,
+        bytes=n_bytes, float_ops=fops, int_ops=iops,
+        float_ms=fops / PEAK_FP32_S * 1e3, int_ms=iops / PEAK_INT32_S * 1e3,
+        float_unfused_ms=fops / PEAK_FP32_UNFUSED_S * 1e3)
+
+
+def capture_gsweeps(scene, cfg, passes_kw):
+    """One gvpm pass of each beam volume on `scene` (cfg with
+    use_manifold=False); returns {kind: the (q, qx, rows, tails, params)
+    of its first gradient sweep call}."""
+    from gvpm_tpu_torch.integrators import gvpm
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    calls, orig = {}, bs.gsweep
+
+    def record(kind, *args):
+        calls.setdefault(kind, args)
+        return orig(kind, *args)
+
+    bs.gsweep = record
+    try:
+        for volume in GBEAM_VOLUMES.values():
+            gvpm.render_pass(scene, cfg, volume, **passes_kw)
+    finally:
+        bs.gsweep = orig
+    return calls
+
+
+def gbeams_against_plain(kind, args):
+    """The gradient sweep kernel twice and its plain version once on the
+    same inputs: visits and shift_ok exactly equal, sums within TOL, the
+    two launches bitwise equal. Returns (plain outputs, plain stats, max
+    abs error, plain ms by CUDA events)."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    got = bs.gsweep(kind, *args)
+    again = bs.gsweep(kind, *args)
+    stats = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = bs.gsweep_plain(kind, *args, stats=stats)
+    end.record()
+    torch.cuda.synchronize()
+    for g, w, name in zip(got[3:], want[3:], ("visits", "shift_ok")):
+        if g.dtype != torch.int32 or not torch.equal(g, w):
+            raise AssertionError(f"beam_sweep_{kind}: {name} differ from "
+                                 "the plain version")
+    for g, w in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g, w, **TOL)
+    if not all(torch.equal(g.view(torch.int32), a.view(torch.int32))
+               for g, a in zip(got, again)):
+        raise AssertionError(f"beam_sweep_{kind}: two launches on the same "
+                             "inputs differ")
+    err = max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3]))
+    return want, stats, err, start.elapsed_time(end)
+
+
 def capture_sweeps(scene, cfg, passes_kw):
     """One SPPM pass of each beam estimator on `scene`; returns {kind:
     the (q, rows, params) of its first sweep call}."""
@@ -723,6 +870,29 @@ def main():
                        f"{bound_by} {json.dumps(detail)}")
     del q, rows, p, want, n_acc
 
+    # ---- 3d. the gradient sweeps on one 128^2 check-config gvpm pass ----
+    gcfg = GradientConfig(**GVPM_GOLD_KW)
+    g_pass = dict(n_photons=max(gcfg.surface_photons, gcfg.volume_photons),
+                  seed=5, it=0, surf_scale=1.0, vol_scale=1.0,
+                  r_vol_base=sppm.base_volume_radius(bscene, gcfg))
+    for kind, args in capture_gsweeps(bscene, gcfg, g_pass).items():
+        q, qx, rows, tails, p = args
+        want, st, err, plain_ms = gbeams_against_plain(kind, args)
+        bound_ms, bound_by, detail = gbeam_bound(kind, q, rows, st)
+        ms = cuda_ms(lambda: bs.gsweep(kind, *args), 3)
+        beam_kernels[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+        phase("gbeams", f"{kind}: {q.shape[0]} camera queries x "
+                        f"{rows.shape[0]} beams, visits "
+                        f"{int(want[3].sum())} and shift_ok "
+                        f"{int(want[4].sum())} equal, max|err| {err:.3g} "
+                        f"(rtol 2e-4 atol 5e-6), two launches bitwise "
+                        f"equal, kernel {ms:.3f} ms, plain {plain_ms:.1f} "
+                        f"ms (shifts on the accepted pairs only), bound "
+                        f"{bound_ms:.4f} ms by {bound_by} "
+                        f"{json.dumps(detail)}")
+    del q, qx, rows, tails, p, args, want
+
     # ---- 4. the main paths at the headline size ----
     def drive(label, cfg, passes, expect):
         marks, timings = [], {}
@@ -891,7 +1061,7 @@ def main():
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         swept = dict(bs.LAUNCHES)
-        expect = dict.fromkeys(bs.KINDS, 0)
+        expect = dict.fromkeys(bs.LAUNCHES, 0)
         expect.update({volume: BEAM_LAUNCHES[volume]}
                       if volume in BEAM_LAUNCHES else {})
         if swept != expect:
@@ -908,6 +1078,48 @@ def main():
                           + json.dumps({k: round(v, 4)
                                         for k, v in timings.items()})
                           + f"; beam_sweep launches {swept}")
+
+    # ---- 4e. the gvpm beam volumes at 128^2 and at the bench's full
+    # beam config ----
+    def gvpm_beam_pass(volume, cfg_, pass_kw, label, expect):
+        for k in bs.LAUNCHES:
+            bs.LAUNCHES[k] = 0
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gvpm.render_pass(bscene, cfg_, volume, **pass_kw,
+                               timings=timings)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        swept = dict(bs.LAUNCHES)
+        if swept != dict(dict.fromkeys(bs.LAUNCHES, 0), **expect):
+            raise AssertionError(f"gvpm {volume}: beam_sweep launches "
+                                 f"{swept}, expected {expect}")
+        if not all(bool(torch.isfinite(a).all()) for a in out[:3]):
+            raise AssertionError(f"gvpm {volume}: non-finite pass buffers")
+        phase(label, f"gvpm {volume}: one pass {secs:.4f} s, visits "
+                     f"{int(out[3]['visits'])}, shift_ok "
+                     f"{int(out[3]['shift_ok'])}; phase split s "
+                     + json.dumps({k: round(v, 4)
+                                   for k, v in timings.items()})
+                     + f"; beam_sweep launches {swept}")
+        return swept
+
+    for kind, volume in GBEAM_VOLUMES.items():
+        swept = gvpm_beam_pass(volume, gcfg, dict(g_pass, it=1), "gvpm-128",
+                               {kind: GBEAM_LAUNCHES[kind]})
+        main_launches[kind] = swept[kind]
+    fcfg = GradientConfig(**GBEAM_FULL_KW)
+    f_pass = dict(n_photons=max(fcfg.surface_photons, fcfg.volume_photons),
+                  seed=5, it=0, surf_scale=1.0, vol_scale=1.0,
+                  r_vol_base=sppm.base_volume_radius(bscene, fcfg))
+    n_seg = bscene.width * bscene.height * fcfg.vol_segments_per_pixel
+    for kind, volume in GBEAM_VOLUMES.items():
+        expect = {kind: (-(-n_seg // fcfg.beam_seg_tile)
+                         * fcfg.volume_samples if kind == "gbeam3d" else 1)}
+        gvpm_beam_pass(volume, fcfg, f_pass, "gvpm-full", expect)  # warm
+        gvpm_beam_pass(volume, fcfg, dict(f_pass, it=1), "gvpm-full",
+                       expect)
 
     # ---- 4d. the G-VPM bre pass at the headline size (default ME) ----
     for k in fg.LAUNCHES:
@@ -941,13 +1153,7 @@ def main():
     gold_cfgs = [
         ("ci", "ME off", ci),
         ("ci", "ME on", dict(ci, use_manifold=True)),
-        (".", "ME off", dict(
-            max_depth=12, null_bounces=6, max_cam_depth=6,
-            surface_photons=1 << 16, volume_photons=1 << 16,
-            initial_scale_volume=0.5, volume_samples=2,
-            vol_segments_per_pixel=2, grid_dims=(64, 64, 64),
-            grid_surface_rows=1 << 19, grid_volume_rows=1 << 19,
-            use_manifold=False, passes=10))]
+        (".", "ME off", dict(GVPM_GOLD_KW, passes=10))]
     seen = {}
     for sub, label, kw in gold_cfgs:
         gdir = os.path.normpath(os.path.join(ROOT, "goldens", sub))
@@ -1032,6 +1238,34 @@ def main():
                      f"relMSE {r:.5f} (no recorded bar), primal mean "
                      f"{mp:.5g}, recon mean {mr:.5g}, finite, in "
                      f"{time.perf_counter() - t0:.2f} s")
+    # the gvpm beam volumes (no recorded bar): relMSE, finite, the
+    # reconstruction's mean within 2% of the primal's, gx against the
+    # golden's finite differences (tools/goldens.py:237-255)
+    gref = imglib.read_pfm(os.path.join(ROOT, "goldens",
+                                        "box-medium_ref.pfm"))
+    fdx = gref[:, 1:] - gref[:, :-1]
+    for volume, passes in GBEAM_GOLD_PASSES.items():
+        t0 = time.perf_counter()
+        res = gvpm.render(scenes.box_medium(128, 128), gcfg, volume=volume,
+                          seed=5, passes=passes)
+        for k in ("primal", "gx", "gy", "image"):
+            if not bool(torch.isfinite(res[k]).all()):
+                raise AssertionError(f"gvpm:{volume} 128: non-finite {k}")
+        mp, mr = float(res["primal"].mean()), float(res["image"].mean())
+        gx = res["gx"].cpu().numpy()
+        corr = float(np.corrcoef(gx[:, :-1].ravel(), fdx.ravel())[0, 1])
+        r = imglib.relmse(res["image"].cpu().numpy(), gref)
+        phase("goldens", f"box-medium gvpm:{volume} 128^2 {passes} passes, "
+                         f"ME off: relMSE {r:.5f} (no recorded bar), primal "
+                         f"mean {mp:.5g}, recon mean {mr:.5g} "
+                         f"({mr / mp - 1.0:+.2%}), gx~FD(golden) correlation "
+                         f"{corr:.3f} (> 0.5), finite, in "
+                         f"{time.perf_counter() - t0:.2f} s")
+        if not abs(mr / mp - 1.0) < 0.02:
+            raise AssertionError(f"gvpm:{volume} 128: recon mean {mr} vs "
+                                 f"primal {mp}")
+        if not corr > 0.5:
+            raise AssertionError(f"gvpm:{volume} 128: gx correlation {corr}")
     phase("goldens", "32^2 relMSE ME off / ME on: "
                      f"{seen[(32, 'ME off')]:.5f} / "
                      f"{seen[(32, 'ME on')]:.5f}")
@@ -1109,7 +1343,8 @@ def main():
         for n, k in kernels.items()] + [
         dict(name=f"beam_sweep_{n}", route="cuda",
              source="gvpm_tpu_torch/csrc/beam_sweep.cu",
-             replaces=BEAM_REPLACES[n], launches=main_launches[n],
+             replaces={**BEAM_REPLACES, **GBEAM_REPLACES}[n],
+             launches=main_launches[n],
              max_abs_err=k["max_abs_err"], ms=k["ms"],
              plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
              bound_by=k["bound_by"],

@@ -7,10 +7,11 @@ pass always gathers with the fused kernel over each query's exact cell
 runs, with no window clipping, and the SPPM hash-grid gather chunks its
 queries by a module constant (ops/hashgrid.Q_CHUNK). So are the fields
 of parts not ported yet (cam_rays_per_pixel; see ROADMAP.md): they
-come back with the code that reads them. Two fields are carried ahead
-of their readers: `beams`, read by nothing in either package, so that
-the goldens' check configs build, and `beam_seg_tile`, which the
-gradient beam and plane gathers (ROADMAP item 14b) will read.
+come back with the code that reads them. One field is carried with no
+reader: `beams`, read by nothing in either package, so that the
+goldens' check configs build. `beam_seg_tile` cuts the camera segments
+of a gradient beam3d gather into the chunks its random stream follows
+(integrators/gradient_gather.beam3d_gradient_gather).
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ class PhotonConfig(PathConfig):
     max_cam_depth: int = 8
     beam_tile: int = 256              # beam tile of the beam/plane
                                       # sweeps: beam3d's random layout
-    beam_seg_tile: int = 32768        # camera segments per gradient
-                                      # beam/plane chunk (ROADMAP item 14b)
+    beam_seg_tile: int = 32768        # camera segments per chunk of a
+                                      # gradient beam3d gather's randoms
     vol_segments_per_pixel: int = 2
     bre_knn: int = 0                  # per-photon BRE radii from local
                                       # density (bre.cpp:29); 0 = global

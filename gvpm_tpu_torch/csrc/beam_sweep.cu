@@ -5,20 +5,27 @@
 // Replaces the XLA tile loops (lax.scan over all beam slots in tiles of
 // beam_tile) of gvpm_tpu/integrators/estimators.py: beam_beam_gather
 // (:481, beam1d), beam_point_gather (:262, beam3d) and plane_gather
-// (:401, plane0d). The TPU has no kernel for them.
+// (:401, plane0d), and of gvpm_tpu/integrators/gradient_gather.py with
+// use_manifold=False: beam_gradient_gather (:1232, gbeam1d),
+// beam3d_gradient_gather (:1580, gbeam3d) and plane_gradient_gather
+// (:1960, gplane0d). The TPU has no kernel for them.
 //
 // What bounds it: operations. Each pair reads one beam row from shared
 // memory and does ~50-200 float (beam3d: plus ~110 integer, threefry for
 // the pairs inside the chord test) operations; the beams are read from
-// device memory once per block of queries.
+// device memory once per block of queries. A gradient pair that passes
+// the base test also reads the beam's 32-float gradient tail and the
+// query's 40-float offset rays from device memory and runs four shifts.
 //
 // Design (simple first): one thread per camera query, BLOCK threads a
-// block; the beams stream through shared memory in tiles of TILE_B rows.
-// Each thread keeps its query in registers and adds its accepted pairs
-// into registers in beam order. To fill the card when queries are few,
-// the beam range is split into `splits` chunks of whole tiles
-// (blockIdx.y); each (split, query) writes its partial sums and count,
-// and a second kernel adds the splits in order. No atomics: two
+// block; the 16-float beam rows stream through shared memory in tiles of
+// TILE_B rows. Each thread keeps its query in registers and adds its
+// accepted pairs into NF float and NC integer registers (3 and 1 for a
+// primal sweep; 27 and 2 for a gradient one: base, S and W of the four
+// offsets, visits and shift_ok) in beam order. To fill the card when
+// queries are few, the beam range is split into `splits` chunks of whole
+// tiles (blockIdx.y); each (split, query) writes its partial sums and
+// counts, and a second kernel adds the splits in order. No atomics: two
 // launches on the same inputs give the same bits.
 #include <cuda_runtime.h>
 
@@ -33,7 +40,9 @@ template <class F>
 __global__ void __launch_bounds__(BLOCK)
     sweep_kernel(const float* __restrict__ qrows, long long M,
                  const float4* __restrict__ brows,
-                 const int4* __restrict__ keys, long long N,
+                 const int4* __restrict__ keys,
+                 const float* __restrict__ tails,
+                 const float* __restrict__ qext, long long N,
                  beam::Params p, long long chunk, float* __restrict__ part,
                  int* __restrict__ part_cnt) {
   __shared__ float4 sb[TILE_B * beam::BW / 4];
@@ -48,8 +57,13 @@ __global__ void __launch_bounds__(BLOCK)
     q = beam::load_query(qrows + m * beam::QW, (uint32_t)m);
     live = q.valid;
   }
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  int cnt = 0;
+  float acc[F::NF];
+  int cnt[F::NC];
+#pragma unroll
+  for (int f = 0; f < F::NF; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < F::NC; ++c) cnt[c] = 0;
+  const float* qx = F::GRAD && m < M ? qext + m * beam::XW : nullptr;
   for (long long t0 = j0; t0 < j1; t0 += TILE_B) {
     const int n = (int)min((long long)TILE_B, j1 - t0);
     __syncthreads();
@@ -60,76 +74,77 @@ __global__ void __launch_bounds__(BLOCK)
     __syncthreads();
     if (!live) continue;
     for (int jj = 0; jj < n; ++jj) {
-      float c[3];
       const float* b = reinterpret_cast<const float*>(&sb[jj * (beam::BW / 4)]);
       const int* k = F::RANDOM ? reinterpret_cast<const int*>(&sk[jj]) : nullptr;
-      if (F::pair(q, b, k, p, c)) {
-        acc[0] += c[0];
-        acc[1] += c[1];
-        acc[2] += c[2];
-        ++cnt;
-      }
+      const float* tail = F::GRAD ? tails + (t0 + jj) * beam::TW : nullptr;
+      F::visit(q, b, k, tail, qx, p, acc, cnt);
     }
   }
   if (m < M) {
-    float* o = part + (s * M + m) * 3;
-    o[0] = acc[0];
-    o[1] = acc[1];
-    o[2] = acc[2];
-    part_cnt[s * M + m] = cnt;
+    float* o = part + (s * M + m) * F::NF;
+#pragma unroll
+    for (int f = 0; f < F::NF; ++f) o[f] = acc[f];
+    int* oc = part_cnt + (s * M + m) * F::NC;
+#pragma unroll
+    for (int c = 0; c < F::NC; ++c) oc[c] = cnt[c];
   }
 }
 
+// one thread per (query, accumulator): the splits in order
+template <int NF, int NC>
 __global__ void reduce_splits(const float* __restrict__ part,
                               const int* __restrict__ part_cnt, int splits,
                               long long M, float* __restrict__ out,
                               int* __restrict__ cnt) {
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-  int n = 0;
-  for (int s = 0; s < splits; ++s) {
-    const float* o = part + (s * M + m) * 3;
-    a0 += o[0];
-    a1 += o[1];
-    a2 += o[2];
-    n += part_cnt[s * M + m];
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * (NF + NC)) return;
+  const long long m = i / (NF + NC);
+  const int f = (int)(i % (NF + NC));
+  if (f < NF) {
+    float a = 0.0f;
+    for (int s = 0; s < splits; ++s) a += part[(s * M + m) * NF + f];
+    out[m * NF + f] = a;
+  } else {
+    int n = 0;
+    for (int s = 0; s < splits; ++s) n += part_cnt[(s * M + m) * NC + f - NF];
+    cnt[m * NC + f - NF] = n;
   }
-  out[m * 3] = a0;
-  out[m * 3 + 1] = a1;
-  out[m * 3 + 2] = a2;
-  cnt[m] = n;
 }
 
 template <class F>
 int launch(const float* q, long long M, const float* rows, const int* keys,
-           long long N, int tile, float r2, float k, int splits,
-           long long chunk, float* part, int* part_cnt, float* out, int* cnt,
-           cudaStream_t stream) {
+           const float* tails, const float* qext, long long N, int tile,
+           float r2, float k, int splits, long long chunk, float* part,
+           int* part_cnt, float* out, int* cnt, cudaStream_t stream) {
   const dim3 grid((unsigned)((M + BLOCK - 1) / BLOCK), (unsigned)splits);
   sweep_kernel<F><<<grid, BLOCK, 0, stream>>>(
       q, M, reinterpret_cast<const float4*>(rows),
-      reinterpret_cast<const int4*>(keys), N,
+      reinterpret_cast<const int4*>(keys), tails, qext, N,
       beam::Params{r2, k, (uint32_t)tile}, chunk, part, part_cnt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  reduce_splits<<<(unsigned)((M + 255) / 256), 256, 0, stream>>>(
-      part, part_cnt, splits, M, out, cnt);
+  const long long items = M * (F::NF + F::NC);
+  reduce_splits<F::NF, F::NC><<<(unsigned)((items + 255) / 256), 256, 0,
+                                 stream>>>(part, part_cnt, splits, M, out,
+                                           cnt);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define SWEEP_ENTRY(NAME, F)                                                \
-  extern "C" int gvpm_beam_sweep_##NAME(                                    \
-      const float* q, long long M, const float* rows, const int* keys,      \
-      long long N, int tile, float r2, float k, int splits,                 \
-      long long chunk, float* part, int* part_cnt, float* out, int* cnt,    \
-      cudaStream_t stream) {                                                \
-    return launch<F>(q, M, rows, keys, N, tile, r2, k, splits, chunk, part, \
-                     part_cnt, out, cnt, stream);                           \
+#define SWEEP_ENTRY(NAME, F)                                                 \
+  extern "C" int gvpm_beam_sweep_##NAME(                                     \
+      const float* q, long long M, const float* rows, const int* keys,       \
+      const float* tails, const float* qext, long long N, int tile,          \
+      float r2, float k, int splits, long long chunk, float* part,           \
+      int* part_cnt, float* out, int* cnt, cudaStream_t stream) {            \
+    return launch<F>(q, M, rows, keys, tails, qext, N, tile, r2, k, splits,  \
+                     chunk, part, part_cnt, out, cnt, stream);               \
   }
 
-SWEEP_ENTRY(beam1d, beam::Beam1D)
-SWEEP_ENTRY(beam3d, beam::Beam3D)
-SWEEP_ENTRY(plane0d, beam::Plane0D)
+SWEEP_ENTRY(beam1d, beam::Primal<beam::Beam1D>)
+SWEEP_ENTRY(beam3d, beam::Primal<beam::Beam3D>)
+SWEEP_ENTRY(plane0d, beam::Primal<beam::Plane0D>)
+SWEEP_ENTRY(gbeam1d, beam::GBeam1D)
+SWEEP_ENTRY(gbeam3d, beam::GBeam3D)
+SWEEP_ENTRY(gplane0d, beam::GPlane0D)

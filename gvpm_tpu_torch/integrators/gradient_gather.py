@@ -15,6 +15,14 @@ is a delta surface. The ME stage then compacts at most `me_budget` such
 the 4 offset targets (integrators/manifold.py) and adds the shifted
 contributions; pairs beyond the budget keep the unilateral gradient and
 are counted as `me_dropped`.
+
+The gradient photon beams and planes (beam1d, beam3d, plane0d) pair
+every camera segment with every beam or plane in the pair sweeps of
+ops/beam_sweep.py (a CUDA kernel on the card): the base estimate, and a
+light-side shift to each offset pixel (a reconnection at the beam's
+origin, or the identity for a beam that leaves a non-reconnectable
+vertex), with pairwise MIS. Their ME shifts (ROADMAP queue 1 item 14c)
+are not ported: the callers run them with use_manifold=False.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch
 
 from ..core import rng
 from ..core.math import coordinate_system, dot, normalize, to_local
+from ..ops import beam_sweep as bs
 from ..ops import fused_gather as fg
 from ..ops import hashgrid
 from ..render import medium as med
@@ -32,6 +41,7 @@ from ..render import phase as ph
 from ..render.bsdf import eval_bsdf, eval_bsdf_pdf_params
 from ..scene.types import (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_NULL,
                            Scene)
+from . import estimators as est
 from . import manifold
 from . import planar as pl
 
@@ -734,3 +744,194 @@ def bre_gather(scene: Scene, cb, scb_list, grid, packed, n_emitted, r_vol,
         shift_ok = shift_ok + so_
     inv = 1.0 / n_emitted
     return primal * inv, S * inv, W * inv, visits, shift_ok
+
+
+# ---------------------------------------------------------------------------
+# gradient photon beams (1D, 3D) and planes (0D), use_manifold=False
+# ---------------------------------------------------------------------------
+
+def _bake_beam_params(scene: Scene, lb):
+    """Per-beam [B] material of the vertex that emits the beam: its
+    BSDF's parameters and the sigma_s / g / phase type of the medium it
+    scatters in (the pair sweeps read them from the beam's tail)."""
+    nb, nm = scene.bsdf_type.shape[0], scene.med_sigma_s.shape[0]
+    bic = torch.clamp(lb["parent_bsdf"], 0, nb - 1)
+    pmi = torch.clamp(lb["parent_med"], 0, nm - 1)
+    return dict(
+        bp_btype=scene.bsdf_type[bic], bp_alb=scene.bsdf_albedo[bic],
+        bp_spec=scene.bsdf_k[bic], bp_eta3=scene.bsdf_eta3[bic],
+        bp_alpha=scene.bsdf_alpha[bic], bp_eta1=scene.bsdf_eta[bic],
+        bp_sigs=torch.where((lb["parent_med"] >= 0)[..., None],
+                            scene.med_sigma_s[pmi], 0.0),
+        bp_g=scene.med_g[pmi], bp_ptype=scene.med_phase[pmi])
+
+
+def _sweep_beams(scene: Scene, lb, planes=False):
+    """The valid beams (or planes), in stable order, as sweep rows and
+    gradient tails; returns (rows, tails, their flat indices)."""
+    if planes:
+        rows, keep = bs.pack_beams(lb["o"], lb["w0"], lb["l0"], lb["med"],
+                                   lb["alpha"], lb["valid"], w1=lb["w1"],
+                                   l1=lb["l1"], sig=lb["surv1_sigma"])
+    else:
+        rows, keep = bs.pack_beams(lb["o"], lb["d"], lb["length"],
+                                   lb["med"], lb["alpha"], lb["valid"])
+    fields = dict(lb, **_bake_beam_params(scene, lb))
+    return rows, bs.pack_tails(fields, keep), keep
+
+
+def _offset_terms(cb, scb_list):
+    """Per offset: its segment is valid, in the base's medium and the
+    base is valid; sensorMIS's camera-subpath pdf ratio
+    (gvpm_struct.h:608-631)."""
+    mi = cb["med"]
+    svalid = [s["valid"] & (s["med"] == mi) & cb["valid"] for s in scb_list]
+    sens = [torch.clamp(s["pdf_prod"] / torch.clamp(cb["pdf_prod"],
+                                                    min=1e-20), 1e-4, 1e4)
+            for s in scb_list]
+    return svalid, sens
+
+
+def _segment_sweep(kind, scene, cb, scb_list, rows, tails, border_lane,
+                   params):
+    """The sweep of whole camera segments (gbeam1d, gplane0d) with the
+    camera throughputs applied: (primal, S, W, visits, shift_ok)."""
+    svalid, sens = _offset_terms(cb, scb_list)
+    q = est._camera_queries(scene, cb["med"], cb["o"], cb["d"],
+                            cb["length"], cb["valid"])
+    qx = bs.pack_offsets([s["o"] for s in scb_list],
+                         [s["d"] for s in scb_list],
+                         [s["length"] for s in scb_list], svalid, sens,
+                         list(border_lane))
+    pr, S, W, visits, shift_ok = bs.gsweep(kind, q, qx, rows, tails, params)
+    thr = cb["thr"]
+    return (thr * pr, torch.stack([scb_list[i]["thr"] * S[i]
+                                   for i in range(4)]),
+            W * thr[None], visits, shift_ok)
+
+
+def _scaled(res, inv):
+    primal, S, W, visits, shift_ok = res
+    return (primal * inv, S * inv, W * inv, visits, shift_ok,
+            torch.zeros((), dtype=torch.int64, device=primal.device))
+
+
+def beam_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted, r_beam,
+                         border_lane):
+    """1D beam x beam gradient gather (gvpm_tpu's beam_gradient_gather,
+    use_manifold=False): each (camera segment, beam) closest approach
+    within r_beam is the base pair; its shift to an offset keeps the
+    beam's origin A, maps the base point to the offset segment at the
+    same camera distance with the same kernel offset, and re-emits the
+    beam from A through it (lobe ratio at A, survival and 1/sin of the
+    new crossing; shiftBeamDiffuse, shift_volume_beams.h:408-457), or,
+    for a beam that leaves a non-reconnectable vertex, re-intersects the
+    same beam with the offset segment (shiftNull3D). Pairwise MIS of the
+    two intersection densities, 1 on the image border.
+
+    cb / scb_list: the compacted base and 4 offset camera-segment dicts
+    [M]; lb: the flattened beam dict; r_beam: float32 scalar tensor;
+    border_lane: [4, M] bool. Returns (primal [M,3], S [4,M,3],
+    W [4,M,3], visits [M], shift_ok [M], me_dropped = 0)."""
+    r2, k1 = torch.stack([r_beam * r_beam,
+                          pl.rdiv(1.0, 2.0 * r_beam)]).tolist()
+    rows, tails, _ = _sweep_beams(scene, lb)
+    return _scaled(_segment_sweep("gbeam1d", scene, cb, scb_list, rows,
+                                  tails, border_lane,
+                                  bs.Params(r2=r2, k=k1)), 1.0 / n_emitted)
+
+
+def plane_gradient_gather(scene: Scene, cb, scb_list, planes, n_emitted,
+                          border_lane):
+    """0D photon-plane gradient gather (gvpm_tpu's plane_gradient_gather,
+    use_manifold=False): camera segment x plane by Moller-Trumbore; the
+    shift rotates the plane about its origin by the minimal rotation that
+    takes the base point's direction to the offset point's (same camera
+    distance), with the analytic offset intersection at the scaled plane
+    parameters (mediumRotationShift, shift_medium.h:39), or the identity
+    (the same plane against the offset ray) for a non-reconnectable
+    origin. planes: estimators.make_planes' dict. Returns
+    beam_gradient_gather's tuple."""
+    rows, tails, _ = _sweep_beams(scene, planes, planes=True)
+    return _scaled(_segment_sweep("gplane0d", scene, cb, scb_list, rows,
+                                  tails, border_lane, bs.Params()),
+                   1.0 / n_emitted)
+
+
+def beam3d_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted,
+                           r_beam, key, border_lane, n_samples=2, tile=256,
+                           seg_tile=0):
+    """3D beam x point gradient gather (gvpm_tpu's beam3d_gradient_gather,
+    use_manifold=False): a camera distance sample x per segment and
+    sample; the base pair is one stratified chord sample y on the beam's
+    chord through the kernel sphere around x. The shift maps y to the
+    offset frame keeping the camera distance and y - x, and re-emits the
+    beam from its origin through it (MIS density: direction pdf, t^2,
+    survival and the chord), or, for a non-reconnectable origin, takes
+    the same beam's chord around the offset sample at the base's chord
+    fraction (identity).
+
+    The random stream follows the JAX package's gvpm.render schedule
+    (render_pass_hosted, gvpm.py:690-747): the segments are cut into
+    chunks of `seg_tile` (all of them when 0 or more), chunk ci draws
+    with fold_in(key, ci) (one chunk too), each of its n_samples keys
+    splits into (k_t, k_s): the distance sample is lane_uniform(k_t,
+    gid), the chord sample of the chunk's query m and beam j the word
+    m * tile + j % tile of uniform(fold_in(k_s, j // tile), [chunk,
+    tile]) (ops/beam_sweep.beam_keys). One sweep launch per chunk and
+    sample. Returns beam_gradient_gather's tuple."""
+    mi, o, d, length = cb["med"], cb["o"], cb["d"], cb["length"]
+    m = o.shape[0]
+    dev = o.device
+    r2, k3 = torch.stack([r_beam * r_beam, pl.rdiv(
+        3.0, 4.0 * math.pi * torch.clamp(r_beam * r_beam * r_beam,
+                                         min=1e-18))]).tolist()
+    rows, tails, keep = _sweep_beams(scene, lb)
+    tiles = torch.arange(-(-lb["o"].shape[0] // tile), device=dev)
+    svalid, sens = _offset_terms(cb, scb_list)
+    f32 = dict(dtype=torch.float32, device=dev)
+    primal = torch.zeros((m, 3), **f32)
+    S = torch.zeros((4, m, 3), **f32)
+    W = torch.zeros((4, m, 3), **f32)
+    visits = torch.zeros((m,), dtype=torch.int64, device=dev)
+    shift_ok = torch.zeros((m,), dtype=torch.int64, device=dev)
+    st = max(1, min(seg_tile or m, m))
+    for ci, c0 in enumerate(range(0, m, st)):
+        sl = slice(c0, c0 + st)
+        mic = mi[sl]
+        scs = [{k: v[sl] for k, v in s.items()} for s in scb_list]
+        for k in rng.split(rng.fold_in(key, ci), n_samples):
+            k_t, k_s = rng.split(k)
+            ms = med.sample_distance(
+                scene, mic, o[sl], d[sl], length[sl],
+                rng.lane_uniform(k_t, cb["gid"][sl]),
+                strategy=med.ALWAYS_VALID)
+            t_cam = ms.t
+            sok = cb["valid"][sl] & ms.success
+            pdf_ray = torch.clamp(ms.pdf_success, min=1e-20)
+            cam_ok = [sok & svalid[i][sl] & (scs[i]["length"] >= t_cam)
+                      for i in range(4)]
+            pr_cam = [med.pdf_distance_always_valid(
+                scene, mic, t_cam, scs[i]["length"]) / pdf_ray * sens[i][sl]
+                for i in range(4)]
+            q = est._camera_queries(scene, mic, ms.p, d[sl], length[sl],
+                                    sok)
+            qx = bs.pack_offsets(
+                [s["o"] + s["d"] * t_cam[..., None] for s in scs],
+                [s["d"] for s in scs], [s["length"] for s in scs], cam_ok,
+                pr_cam, list(border_lane[:, sl]))
+            keys = bs.beam_keys(rng.fold_in(k_s, tiles), keep, tile)
+            pr, S_, W_, v_, so_ = bs.gsweep(
+                "gbeam3d", q, qx, rows, tails,
+                bs.Params(r2=r2, k=k3, keys=keys, tile=tile))
+            w_cam = cb["thr"][sl] * ms.transmittance * ms.sigma_s \
+                / pdf_ray[..., None]
+            primal[sl] += w_cam * pr
+            for i in range(4):
+                S[i, sl] += scs[i]["thr"] * ms.transmittance * ms.sigma_s \
+                    / pdf_ray[..., None] * S_[i]
+                W[i, sl] += W_[i] * w_cam
+            visits[sl] += v_
+            shift_ok[sl] += so_
+    return _scaled((primal, S, W, visits, shift_ok),
+                   1.0 / (n_samples * n_emitted))

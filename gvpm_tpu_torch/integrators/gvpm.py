@@ -1,6 +1,8 @@
 """G-VPM: gradient-domain volumetric photon density estimation
-(mirrors gvpm_tpu/integrators/gvpm.py on the `distance` and `bre` volume
-paths; the gradient beams and planes are ROADMAP queue 1 item 14b).
+(mirrors gvpm_tpu/integrators/gvpm.py: the `distance` and `bre` volume
+estimators, and the photon beams and planes `beam1d`, `beam3d` and
+`plane0d` without their manifold shifts, which are ROADMAP queue 1 item
+14c).
 
 Each progressive pass computes, besides the primal photon-density
 estimate, finite-difference gradients to the 4 neighbour pixels by
@@ -30,7 +32,7 @@ from ..render.bsdf import require_ported
 from ..render.medium import require_homogeneous
 from ..scene.types import Scene
 from ..utils import checkpoint as ckpt
-from . import gatherpoint, gradient_gather, ptracer, sppm
+from . import estimators, gatherpoint, gradient_gather, ptracer, sppm
 
 # shift directions: (dx, dy) in image coords (gbdpt_proc.cpp:103)
 OFFSETS = ((1, 0), (-1, 0), (0, 1), (0, -1))
@@ -71,21 +73,23 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     """The per-pixel gradient pass core: camera traces (base + 4
     offsets), surface + volume gathers with shifts. Returns flat
     (primal [n,3], S [4,n,3], W [4,n,3], stats) for the given pixels.
-    photons, beams: the dicts of sppm.shoot_photons (beams, read only
-    by the camera_sphere cull, may be None when it is 0). `timings`, when
-    given, receives each phase's seconds (the phases end in a device
-    synchronize); with cfg.use_manifold the ME stages of the gathers are
-    phases of their own (surface_me, volume_me) and their parts are
-    listed beside them under "me:..." keys (compact, chains, newton,
-    ratios, occlusion), which the two phases include. The volume
-    estimator is `distance` or `bre`; the gradient beams and planes
-    raise."""
-    if volume in sppm.BEAM_VOLUMES:
-        raise NotImplementedError(
-            f"gradient volume estimator {volume!r}: ROADMAP queue 1 item "
-            "14b")
-    if volume not in ("distance", "bre"):
+    photons, beams: the dicts of sppm.shoot_photons (beams, read by the
+    beam and plane volumes and by the camera_sphere cull, may be None
+    otherwise). `timings`, when given, receives each phase's seconds (the
+    phases end in a device synchronize); with cfg.use_manifold the ME
+    stages of the gathers are phases of their own (surface_me,
+    volume_me) and their parts are listed beside them under "me:..."
+    keys (compact, chains, newton, ratios, occlusion), which the two
+    phases include. The volume estimator is `distance`, `bre`, or one of
+    the beams and planes (sppm.BEAM_VOLUMES), whose ME shifts are not
+    ported: they raise with cfg.use_manifold."""
+    if volume not in ("distance", "bre") + sppm.BEAM_VOLUMES:
         raise ValueError(volume)
+    if volume in sppm.BEAM_VOLUMES and cfg.use_manifold:
+        raise NotImplementedError(
+            f"gradient volume estimator {volume!r} with use_manifold=True: "
+            "the beam and plane ME shifts are ROADMAP queue 1 item 14c "
+            "(run it with use_manifold=False)")
     dev = scene.device
     n = px.shape[0]
     clock = PhaseClock(dev, timings)
@@ -158,14 +162,14 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     shift_ok = so_s.sum()
     dropped = dr_s
 
-    # ---- volume (VPM distance | BRE) ----
+    # ---- volume (VPM distance | BRE | beams and planes) ----
     r_vol = torch.tensor(r_vol_base, **f32) * torch.tensor(vol_scale, **f32)
     if volume == "distance":
         grid_v, sel_v = cellgrid.build_cells(
             pp, med_valid, scene.medium_lo, scene.medium_hi, r_vol,
             cfg.grid_dims, max_rows=cfg.grid_volume_rows)
         packed_v = pack_rows(sel_v)
-    else:
+    elif volume == "bre":
         # BRE stays on the hash grid: its step membership is no ball, so
         # it needs the 27-stencil's exact cell fingerprints
         grid_v, packed_v = hashgrid.build_sorted(
@@ -196,10 +200,27 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
                 k_gather, border_lane, n_samples=cfg.volume_samples,
                 min_depth=cfg.min_depth, **me_kw)
     else:
-        p_v, S_v, W_v, v_v, so_v = gradient_gather.bre_gather(
-            scene, cb, scb_list, grid_v, packed_v, n_photons, r_vol,
-            border_lane, max_per_cell=cfg.grid_max_photons_per_cell,
-            min_depth=cfg.min_depth)
+        if volume == "bre":
+            p_v, S_v, W_v, v_v, so_v = gradient_gather.bre_gather(
+                scene, cb, scb_list, grid_v, packed_v, n_photons, r_vol,
+                border_lane, max_per_cell=cfg.grid_max_photons_per_cell,
+                min_depth=cfg.min_depth)
+        elif volume == "beam1d":
+            p_v, S_v, W_v, v_v, so_v, _ = \
+                gradient_gather.beam_gradient_gather(
+                    scene, cb, scb_list, beams, n_photons, r_vol,
+                    border_lane)
+        elif volume == "beam3d":
+            p_v, S_v, W_v, v_v, so_v, _ = \
+                gradient_gather.beam3d_gradient_gather(
+                    scene, cb, scb_list, beams, n_photons, r_vol, k_gather,
+                    border_lane, n_samples=cfg.volume_samples,
+                    tile=cfg.beam_tile, seg_tile=cfg.beam_seg_tile)
+        else:
+            p_v, S_v, W_v, v_v, so_v, _ = \
+                gradient_gather.plane_gradient_gather(
+                    scene, cb, scb_list, estimators.make_planes(
+                        scene, beams, k_gather), n_photons, border_lane)
         dr_v = med_v = mep_v = torch.zeros((), dtype=torch.int64,
                                            device=dev)
     clock.lap("volume_gather")
@@ -256,8 +277,9 @@ def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
     clock = PhaseClock(dev, timings)
     # the gradient distance and bre passes read the beams only to cull
     # them at the camera sphere
-    photons, beams = sppm.shoot_photons(scene, cfg, n_photons, k_light,
-                                        with_beams=cfg.camera_sphere > 0.0)
+    photons, beams = sppm.shoot_photons(
+        scene, cfg, n_photons, k_light,
+        with_beams=volume in sppm.BEAM_VOLUMES or cfg.camera_sphere > 0.0)
     clock.lap("light_trace")
     p_s, S_s, W_s, stats = pass_buffers(
         scene, cfg, volume, n_photons, photons, beams, k_cam, k_gather, px,

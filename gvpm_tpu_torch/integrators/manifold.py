@@ -84,7 +84,7 @@ def pull_chains(scene: Scene, pv, idx, virt=None):
     if virt is not None:
         raise NotImplementedError(
             "virtual start vertices (the beam ME shift): ROADMAP queue 1 "
-            "item 14b")
+            "item 14c")
     L = idx.shape[0]
     dev = idx.device
     n = pv["p"].shape[0]
@@ -621,5 +621,5 @@ def me_shift_surface(scene: Scene, ch, photon_prim, photon_ns,
 
 def me_shift_beam(*_args, **_kw):
     raise NotImplementedError(
-        "the beam ME shift comes with the gradient beam estimators: "
-        "ROADMAP queue 1 item 14b")
+        "the beam ME shift of the gradient beams and planes: ROADMAP "
+        "queue 1 item 14c")

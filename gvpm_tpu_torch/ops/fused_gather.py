@@ -54,7 +54,7 @@ LAUNCHES = {"surface": 0, "volume": 0, "surface_me": 0, "volume_me": 0}
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("fused_gather.cu", "gather_eval.cuh")
+SOURCES = ("fused_gather.cu", "gather_eval.cuh", "shift_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")

@@ -200,15 +200,15 @@ def jax_stage_inputs(js=None, cfg=JAX_CFG):
     return js, to_np(out)
 
 
-def render_pass_pair(js, jax_cfg, torch_cfg):
-    """One whole G-VPM distance pass on both sides (same seed and pass
+def render_pass_pair(js, jax_cfg, torch_cfg, volume="distance"):
+    """One whole G-VPM pass of `volume` on both sides (same seed and pass
     index) -> (JAX (primal, gx, gy, stats), the port's)."""
     from gvpm_tpu_torch.integrators import gvpm, sppm
     n_photons = max(jax_cfg.surface_photons, jax_cfg.volume_photons)
-    ref = jgvpm.render_pass(js, jax_cfg, "distance", n_photons, SEED, IT,
+    ref = jgvpm.render_pass(js, jax_cfg, volume, n_photons, SEED, IT,
                             1.0, 1.0, jsppm.base_volume_radius(js, jax_cfg))
     scene = port_scene_from_jax(js)
-    got = gvpm.render_pass(scene, torch_cfg, "distance", n_photons, SEED,
+    got = gvpm.render_pass(scene, torch_cfg, volume, n_photons, SEED,
                            IT, 1.0, 1.0,
                            sppm.base_volume_radius(scene, torch_cfg))
     return ref, got
