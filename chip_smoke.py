@@ -43,6 +43,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 only), visits and shift_ok exactly equal, sums at rtol
                 2e-4 / atol 5e-6, two launches bitwise equal; kernel and
                 plain ms and the bound (`gbeam_bound`).
+  3e. gbeams-me — the same three sweeps' ME instantiations (gbeam1d_me,
+                gbeam3d_me, gplane0d_me) on the inputs of one gvpm pass
+                of each with the default use_manifold=True: the kernel
+                twice on every query, the plain version once on the
+                first quarter of the valid queries (a prefix, so beam3d's
+                randoms keep their query index): visits,
+                shift_ok, the ME key, the ME pair count and gbeam3d_me's
+                chord point exactly equal on those rows, sums at rtol
+                2e-4 / atol 5e-6, two launches bitwise equal; kernel and
+                plain ms and the bound (its counts from a dense base test
+                over every pair, `gsweep_stats`).
   4. main     — gvpm.render at the bench headline size (512^2 box_medium,
                 2^18 light paths, bench.py:347-362 without the TPU knobs):
                 first 3 passes with the default use_manifold=True
@@ -76,6 +87,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 (bench.py:262-292: 128^2, 2^18 paths, 2 segments a pixel,
                 2 chord samples, beam_seg_tile 8192: beam3d launches 4
                 chunks x 2 samples), which the TPU never finished.
+  4f. gvpm-128-me, gvpm-full-me — the same passes with the default
+                use_manifold=True: the surface gather through K2-ME (1
+                launch), the ME sweeps (one a segment chunk, beam3d's
+                one a chunk and sample), the ME stage of each sweep as
+                the volume_me phase with its me: parts, the beam ME pairs
+                taken (> 0) and dropped, and the launch counts.
   4d. bre     — one gvpm `bre` pass at the headline size with the
                 default ME (the surface through K2-ME, launches counted
                 from 0): seconds and phase split. Its profile (the plain
@@ -94,7 +111,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 passes, ME off; no bar: relMSE, finite, reconstruction
                 mean within 2% of the primal's, and the correlation of gx
                 with the golden's finite differences above 0.5 as
-                tools/goldens.py:237-255 holds gvpm:distance); the 32^2
+                tools/goldens.py:237-255 holds gvpm:distance), and the
+                same three with ME on (their relMSE beside ME off's,
+                the same bars); the 32^2
                 gvpm render once
                 more with the gathers' plain version, to show how far a
                 different order of the sums moves the relMSE.
@@ -109,6 +128,7 @@ The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -230,8 +250,16 @@ GBEAM_REPLACES = {
     "gbeam3d": "gvpm_tpu/integrators/gradient_gather.py:1580",
     "gplane0d": "gvpm_tpu/integrators/gradient_gather.py:1960"}
 # launches per gvpm pass at the check config (beam3d: one segment chunk
-# x volume_samples = 2)
+# x volume_samples = 2); the ME instantiations' the same
 GBEAM_LAUNCHES = {"gbeam1d": 1, "gbeam3d": 2, "gplane0d": 1}
+# the ME instantiations replace the ME pair collection of the same loops
+GBEAM_ME_REPLACES = {
+    "gbeam1d_me": "gvpm_tpu/integrators/gradient_gather.py:1346",
+    "gbeam3d_me": "gvpm_tpu/integrators/gradient_gather.py:1710",
+    "gplane0d_me": "gvpm_tpu/integrators/gradient_gather.py:2091"}
+# the plain version checks the first 1 / PLAIN_EVERY of an ME sweep's
+# valid queries
+PLAIN_EVERY = 4
 GBEAM_GOLD_PASSES = {"beam1d": 10, "beam3d": 10, "plane0d": 30}
 # operations counted from csrc/beam_eval.cuh's gradient functors, one
 # per add, multiply, divide, compare, select, clamp, sqrtf and expf, on
@@ -245,6 +273,11 @@ GBEAM_GOLD_PASSES = {"beam1d": 10, "beam3d": 10, "plane0d": 30}
 GBEAM_OPS = {"gbeam1d": (36, 21, 58, 241, 150),
              "gbeam3d": (30, 17, 50, 265, 120),
              "gplane0d": (23, 32, 110, 375, 165)}
+# an ME sweep's accepted pair on an ME-eligible beam: the key and count
+# (2), and per offset no shift, only the MIS weight and the six
+# accumulations (ME_OPS_OFFSET)
+ME_OPS_PAIR = 2
+ME_OPS_OFFSET = 20
 BALL_OPS = {"volume": 11, "surface": 20}
 BODY_OPS = {"volume": 46 + 4 * (112 + 86 + 49),
             "surface": 51 + 4 * (112 + 104 + 56)}
@@ -581,8 +614,9 @@ def gbeam_bound(kind, q, rows, stats):
     """beam_bound for a gradient sweep (GBEAM_OPS): the bytes of the
     query, offset, beam, tail, key and output rows once; the operations
     of every pair, of the second stage, of the accepted pairs' base
-    terms and of their four shifts by branch. Returns (ms, "bytes" |
-    "operations", detail)."""
+    terms and of their four shifts by branch (an ME sweep's pairs on
+    ME-eligible beams: ME_OPS_PAIR and ME_OPS_OFFSET). Returns (ms,
+    "bytes" | "operations", detail)."""
     from gvpm_tpu_torch.ops import beam_sweep as bs
     M, N = q.shape[0], rows.shape[0]
     valid = q[:, bs.QSLOT["valid"]] > 0.5
@@ -590,29 +624,30 @@ def gbeam_bound(kind, q, rows, stats):
     b_med = rows[:, bs.BSLOT["med"]].to(torch.int64)
     n_med = int(max(q_med.max(), b_med.max())) + 1 if q_med.numel() else 1
     pairs = int(torch.bincount(b_med, minlength=n_med)[q_med].sum())
-    n_bytes = 4 * (M * (bs.QW + bs.XW + bs.NF_GRAD + 2)
-                   + N * (bs.BW + bs.TW)) \
-        + (16 * N if kind == "gbeam3d" else 0)
-    a, b, c, d, e = GBEAM_OPS[kind]
-    acc, rc = stats["accepted"], stats["reconn"]
-    fops = pairs * a + stats["stage2"] * b + acc * c + 4 * (rc * d
-                                                           + (acc - rc) * e)
-    iops = stats["stage2"] * BEAM_INT_OPS if kind == "gbeam3d" else 0
+    nf, nc = bs._widths(kind)
+    base = kind.removesuffix("_me")
+    n_bytes = 4 * (M * (bs.QW + bs.XW + nf + nc) + N * (bs.BW + bs.TW)) \
+        + (16 * N if base == "gbeam3d" else 0)
+    a, b, c, d, e = GBEAM_OPS[base]
+    acc, rc, me = stats["accepted"], stats["reconn"], stats.get("me", 0)
+    fops = pairs * a + stats["stage2"] * b + acc * c + me * ME_OPS_PAIR \
+        + 4 * (rc * d + (acc - rc - me) * e + me * ME_OPS_OFFSET)
+    iops = stats["stage2"] * BEAM_INT_OPS if base == "gbeam3d" else 0
     t = dict(bytes=n_bytes / PEAK_BYTES_S * 1e3,
              operations=max(fops / PEAK_FP32_S, iops / PEAK_INT32_S) * 1e3)
     by = max(t, key=t.get)
     return t[by], by, dict(
         queries=M, valid_queries=int(valid.sum()), beams=N, pairs=pairs,
         stage2=stats["stage2"], accepted=acc, reconnectable=rc,
-        bytes=n_bytes, float_ops=fops, int_ops=iops,
+        me_eligible=me, bytes=n_bytes, float_ops=fops, int_ops=iops,
         float_ms=fops / PEAK_FP32_S * 1e3, int_ms=iops / PEAK_INT32_S * 1e3,
         float_unfused_ms=fops / PEAK_FP32_UNFUSED_S * 1e3)
 
 
 def capture_gsweeps(scene, cfg, passes_kw):
-    """One gvpm pass of each beam volume on `scene` (cfg with
-    use_manifold=False); returns {kind: the (q, qx, rows, tails, params)
-    of its first gradient sweep call}."""
+    """One gvpm pass of each beam volume on `scene`; returns {kind: the
+    (q, qx, rows, tails, params) of its first gradient sweep call} (the
+    _me kinds with cfg.use_manifold)."""
     from gvpm_tpu_torch.integrators import gvpm
     from gvpm_tpu_torch.ops import beam_sweep as bs
     calls, orig = {}, bs.gsweep
@@ -657,6 +692,81 @@ def gbeams_against_plain(kind, args):
                              "inputs differ")
     err = max(float((g - w).abs().max()) for g, w in zip(got[:3], want[:3]))
     return want, stats, err, start.elapsed_time(end)
+
+
+def gsweep_stats(kind, q, rows, tails, p):
+    """gsweep_plain's stats (stage2, accepted, reconn, me) of every pair
+    from its dense base test alone, without the shifts."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    M, N = q.shape[0], rows.shape[0]
+    base_fn, _ = bs.GPAIRS[kind.removesuffix("_me")]
+    tb = max(1, min(N, max(256, bs.PLAIN_MAX_PAIRS // max(M, 1))))
+    mc = max(1, min(M, bs.PLAIN_MAX_PAIRS // tb))
+    rc = tails[:, bs.TSLOT["reconnectable"]]
+    stats = dict(stage2=0, accepted=0, reconn=0, me=0)
+    for m0 in range(0, M, mc):
+        qc = bs._Cols(q[m0:m0 + mc], bs.QSLOT, (-1, 1))
+        for j0 in range(0, N, tb):
+            pp = dataclasses.replace(p, keys=p.keys[j0:j0 + tb]) \
+                if p.keys is not None else p
+            okb, _, stage2 = base_fn(
+                qc, bs._Cols(rows[j0:j0 + tb], bs.BSLOT, (1, -1)), pp, m0)
+            r = rc[j0:j0 + tb][None]
+            stats["stage2"] += int(stage2.sum())
+            stats["accepted"] += int(okb.sum())
+            stats["reconn"] += int((okb & (r > 0.5)).sum())
+            stats["me"] += int((okb & (r < -0.5)).sum())
+    return stats
+
+
+def gbeams_me_against_plain(kind, args):
+    """An ME sweep's kernel twice on every query and its plain version
+    once on the first 1 / PLAIN_EVERY of the valid queries (the segment
+    compaction puts the valid ones first; a prefix keeps beam3d's words,
+    which are indexed by the query's row): visits, shift_ok, ME key, ME
+    pairs and gbeam3d_me's chord point exactly equal on those rows, sums
+    within TOL, the two launches bitwise equal. Returns (kernel outputs,
+    plain ms, max abs error, rows compared, ME queries among them)."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    q, qx, rows, tails, p = args
+    got = bs.gsweep(kind, *args)
+    again = bs.gsweep(kind, *args)
+    valid = q[:, bs.QSLOT["valid"]] > 0.5
+    n = max(1, int(valid.sum()) // PLAIN_EVERY)
+    if not bool(valid[:n].all()):
+        raise AssertionError(f"beam_sweep_{kind}: the first {n} queries "
+                             "are not all valid")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = bs.gsweep_plain(kind, q[:n], qx[:n], rows, tails, p)
+    end.record()
+    torch.cuda.synchronize()
+    for k, name in ((3, "visits"), (4, "shift_ok"), (5, "ME key"),
+                    (6, "ME pairs")):
+        if got[k].dtype != torch.int32 or not torch.equal(got[k][:n],
+                                                          want[k]):
+            raise AssertionError(f"beam_sweep_{kind}: {name} differ from "
+                                 "the plain version")
+    if (got[7] is None) != (kind != "gbeam3d_me") or (
+            got[7] is not None and not torch.equal(
+                got[7][:n].view(torch.int32), want[7].view(torch.int32))):
+        raise AssertionError(f"beam_sweep_{kind}: chord points differ from "
+                             "the plain version")
+    me_queries = int((want[5] != bs.ME_NONE).sum())
+    if not me_queries > 0:
+        raise AssertionError(f"beam_sweep_{kind}: no ME pair on the rows "
+                             "compared")
+    pairs = [(got[0][:n], want[0])] + [(got[k][:, :n], want[k])
+                                       for k in (1, 2)]
+    for g, w in pairs:
+        torch.testing.assert_close(g, w, **TOL)
+    if not all(torch.equal(g.view(torch.int32), a.view(torch.int32))
+               for g, a in zip(got, again) if g is not None):
+        raise AssertionError(f"beam_sweep_{kind}: two launches on the same "
+                             "inputs differ")
+    err = max(float((g - w).abs().max()) for g, w in pairs)
+    return got, start.elapsed_time(end), err, n, me_queries
 
 
 def capture_sweeps(scene, cfg, passes_kw):
@@ -893,6 +1003,38 @@ def main():
                         f"{json.dumps(detail)}")
     del q, qx, rows, tails, p, args, want
 
+    # ---- 3e. their ME instantiations on one 128^2 gvpm ME pass ----
+    gcfg_me = GradientConfig(**dict(GVPM_GOLD_KW, use_manifold=True))
+    for kind, args in capture_gsweeps(bscene, gcfg_me, g_pass).items():
+        q, qx, rows, tails, p = args
+        got, plain_ms, err, n_rows, me_q = gbeams_me_against_plain(kind,
+                                                                   args)
+        st = gsweep_stats(kind, q, rows, tails, p)
+        if st["accepted"] != int(got[3].sum()):
+            raise AssertionError(f"beam_sweep_{kind}: the dense base test "
+                                 "counts other pairs than the kernel")
+        bound_ms, bound_by, detail = gbeam_bound(kind, q, rows, st)
+        ms = cuda_ms(lambda: bs.gsweep(kind, *args), 3)
+        beam_kernels[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by)
+        n_elig = int((tails[:, bs.TSLOT["reconnectable"]] < -0.5).sum())
+        chords = " and chord points" if got[7] is not None else ""
+        phase("gbeams-me", f"{kind}: {q.shape[0]} camera queries x "
+                           f"{rows.shape[0]} beams ({n_elig} ME-eligible), "
+                           f"visits {int(got[3].sum())}, "
+                           f"shift_ok {int(got[4].sum())}, ME queries "
+                           f"{int((got[5] != bs.ME_NONE).sum())} with "
+                           f"{int(got[6].sum())} ME pairs; on the first "
+                           f"{n_rows} rows (1/{PLAIN_EVERY} of the valid "
+                           f"queries, {me_q} with an ME pair) visits, "
+                           f"shift_ok, ME keys, counts{chords} equal, "
+                           f"max|err| {err:.3g} (rtol 2e-4 atol 5e-6), two "
+                           f"launches bitwise equal, kernel "
+                           f"{ms:.3f} ms, plain {plain_ms:.1f} ms on those "
+                           f"rows, bound {bound_ms:.4f} ms by {bound_by} "
+                           f"{json.dumps(detail)}")
+    del q, qx, rows, tails, p, args, got
+
     # ---- 4. the main paths at the headline size ----
     def drive(label, cfg, passes, expect):
         marks, timings = [], {}
@@ -1082,27 +1224,59 @@ def main():
     # ---- 4e. the gvpm beam volumes at 128^2 and at the bench's full
     # beam config ----
     def gvpm_beam_pass(volume, cfg_, pass_kw, label, expect):
+        """One gvpm beam pass, its sweep launches (and with ME the
+        surface gather's) counted from 0; with ME the beam ME pairs
+        taken (counted where the beam gathers compact them) must be
+        above 0."""
+        beam_pairs, me_pairs = [0], gradient_gather._me_pairs
+
+        def count_pairs(*a, **k):
+            out = me_pairs(*a, **k)
+            beam_pairs[0] += out[0].shape[0]
+            return out
+
         for k in bs.LAUNCHES:
             bs.LAUNCHES[k] = 0
+        for k in fg.LAUNCHES:
+            fg.LAUNCHES[k] = 0
         timings = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = gvpm.render_pass(bscene, cfg_, volume, **pass_kw,
-                               timings=timings)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        swept = dict(bs.LAUNCHES)
+        gradient_gather._me_pairs = count_pairs
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = gvpm.render_pass(bscene, cfg_, volume, **pass_kw,
+                                   timings=timings)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            gradient_gather._me_pairs = me_pairs
+        swept, gathered = dict(bs.LAUNCHES), dict(fg.LAUNCHES)
         if swept != dict(dict.fromkeys(bs.LAUNCHES, 0), **expect):
             raise AssertionError(f"gvpm {volume}: beam_sweep launches "
                                  f"{swept}, expected {expect}")
+        surf = "surface_me" if cfg_.use_manifold else "surface"
+        if gathered != dict(dict.fromkeys(fg.LAUNCHES, 0), **{surf: 1}):
+            raise AssertionError(f"gvpm {volume}: fused_gather launches "
+                                 f"{gathered}")
         if not all(bool(torch.isfinite(a).all()) for a in out[:3]):
             raise AssertionError(f"gvpm {volume}: non-finite pass buffers")
+        if cfg_.use_manifold and not beam_pairs[0] > 0:
+            raise AssertionError(f"gvpm {volume}: no beam ME pair taken")
+        me = (f", ME pairs {int(out[3]['me_pairs'])} (of the beams "
+              f"{beam_pairs[0]}), me_dropped {int(out[3]['me_dropped'])}"
+              if cfg_.use_manifold else "")
         phase(label, f"gvpm {volume}: one pass {secs:.4f} s, visits "
                      f"{int(out[3]['visits'])}, shift_ok "
-                     f"{int(out[3]['shift_ok'])}; phase split s "
+                     f"{int(out[3]['shift_ok'])}{me}; phase split s "
                      + json.dumps({k: round(v, 4)
-                                   for k, v in timings.items()})
-                     + f"; beam_sweep launches {swept}")
+                                   for k, v in timings.items()
+                                   if not k.startswith("me:")})
+                     + (("; me: parts s " + json.dumps(
+                         {k[3:]: round(v, 4) for k, v in timings.items()
+                          if k.startswith("me:")}))
+                        if cfg_.use_manifold else "")
+                     + f"; beam_sweep launches {swept}, fused_gather "
+                       f"launches {gathered}")
         return swept
 
     for kind, volume in GBEAM_VOLUMES.items():
@@ -1119,6 +1293,20 @@ def main():
                          * fcfg.volume_samples if kind == "gbeam3d" else 1)}
         gvpm_beam_pass(volume, fcfg, f_pass, "gvpm-full", expect)  # warm
         gvpm_beam_pass(volume, fcfg, dict(f_pass, it=1), "gvpm-full",
+                       expect)
+    # ---- 4f. the same with the default use_manifold=True ----
+    for kind, volume in GBEAM_VOLUMES.items():
+        swept = gvpm_beam_pass(volume, gcfg_me, dict(g_pass, it=1),
+                               "gvpm-128-me",
+                               {kind + "_me": GBEAM_LAUNCHES[kind]})
+        main_launches[kind + "_me"] = swept[kind + "_me"]
+    fcfg_me = GradientConfig(**dict(GBEAM_FULL_KW, use_manifold=True))
+    n_chunks = -(-n_seg // fcfg_me.beam_seg_tile)
+    for kind, volume in GBEAM_VOLUMES.items():
+        expect = {kind + "_me": n_chunks * (fcfg_me.volume_samples
+                                            if kind == "gbeam3d" else 1)}
+        gvpm_beam_pass(volume, fcfg_me, f_pass, "gvpm-full-me", expect)
+        gvpm_beam_pass(volume, fcfg_me, dict(f_pass, it=1), "gvpm-full-me",
                        expect)
 
     # ---- 4d. the G-VPM bre pass at the headline size (default ME) ----
@@ -1238,34 +1426,42 @@ def main():
                      f"relMSE {r:.5f} (no recorded bar), primal mean "
                      f"{mp:.5g}, recon mean {mr:.5g}, finite, in "
                      f"{time.perf_counter() - t0:.2f} s")
-    # the gvpm beam volumes (no recorded bar): relMSE, finite, the
-    # reconstruction's mean within 2% of the primal's, gx against the
-    # golden's finite differences (tools/goldens.py:237-255)
+    # the gvpm beam volumes, ME off and on (no recorded bar): relMSE,
+    # finite, the reconstruction's mean within 2% of the primal's, gx
+    # against the golden's finite differences (tools/goldens.py:237-255)
     gref = imglib.read_pfm(os.path.join(ROOT, "goldens",
                                         "box-medium_ref.pfm"))
     fdx = gref[:, 1:] - gref[:, :-1]
-    for volume, passes in GBEAM_GOLD_PASSES.items():
-        t0 = time.perf_counter()
-        res = gvpm.render(scenes.box_medium(128, 128), gcfg, volume=volume,
-                          seed=5, passes=passes)
-        for k in ("primal", "gx", "gy", "image"):
-            if not bool(torch.isfinite(res[k]).all()):
-                raise AssertionError(f"gvpm:{volume} 128: non-finite {k}")
-        mp, mr = float(res["primal"].mean()), float(res["image"].mean())
-        gx = res["gx"].cpu().numpy()
-        corr = float(np.corrcoef(gx[:, :-1].ravel(), fdx.ravel())[0, 1])
-        r = imglib.relmse(res["image"].cpu().numpy(), gref)
-        phase("goldens", f"box-medium gvpm:{volume} 128^2 {passes} passes, "
-                         f"ME off: relMSE {r:.5f} (no recorded bar), primal "
-                         f"mean {mp:.5g}, recon mean {mr:.5g} "
-                         f"({mr / mp - 1.0:+.2%}), gx~FD(golden) correlation "
-                         f"{corr:.3f} (> 0.5), finite, in "
-                         f"{time.perf_counter() - t0:.2f} s")
-        if not abs(mr / mp - 1.0) < 0.02:
-            raise AssertionError(f"gvpm:{volume} 128: recon mean {mr} vs "
-                                 f"primal {mp}")
-        if not corr > 0.5:
-            raise AssertionError(f"gvpm:{volume} 128: gx correlation {corr}")
+    beam_gold = {}
+    for label, cfg_ in (("ME off", gcfg), ("ME on", gcfg_me)):
+        for volume, passes in GBEAM_GOLD_PASSES.items():
+            t0 = time.perf_counter()
+            res = gvpm.render(scenes.box_medium(128, 128), cfg_,
+                              volume=volume, seed=5, passes=passes)
+            for k in ("primal", "gx", "gy", "image"):
+                if not bool(torch.isfinite(res[k]).all()):
+                    raise AssertionError(f"gvpm:{volume} 128 {label}: "
+                                         f"non-finite {k}")
+            mp, mr = float(res["primal"].mean()), float(res["image"].mean())
+            gx = res["gx"].cpu().numpy()
+            corr = float(np.corrcoef(gx[:, :-1].ravel(), fdx.ravel())[0, 1])
+            r = imglib.relmse(res["image"].cpu().numpy(), gref)
+            beam_gold[(volume, label)] = r
+            off = (f" (ME off {beam_gold[(volume, 'ME off')]:.5f})"
+                   if label == "ME on" else "")
+            phase("goldens", f"box-medium gvpm:{volume} 128^2 {passes} "
+                             f"passes, {label}: relMSE {r:.5f}{off} (no "
+                             f"recorded bar), primal mean {mp:.5g}, recon "
+                             f"mean {mr:.5g} ({mr / mp - 1.0:+.2%}), "
+                             f"gx~FD(golden) correlation {corr:.3f} (> "
+                             f"0.5), finite, in "
+                             f"{time.perf_counter() - t0:.2f} s")
+            if not abs(mr / mp - 1.0) < 0.02:
+                raise AssertionError(f"gvpm:{volume} 128 {label}: recon "
+                                     f"mean {mr} vs primal {mp}")
+            if not corr > 0.5:
+                raise AssertionError(f"gvpm:{volume} 128 {label}: gx "
+                                     f"correlation {corr}")
     phase("goldens", "32^2 relMSE ME off / ME on: "
                      f"{seen[(32, 'ME off')]:.5f} / "
                      f"{seen[(32, 'ME on')]:.5f}")
@@ -1343,7 +1539,8 @@ def main():
         for n, k in kernels.items()] + [
         dict(name=f"beam_sweep_{n}", route="cuda",
              source="gvpm_tpu_torch/csrc/beam_sweep.cu",
-             replaces={**BEAM_REPLACES, **GBEAM_REPLACES}[n],
+             replaces={**BEAM_REPLACES, **GBEAM_REPLACES,
+                       **GBEAM_ME_REPLACES}[n],
              launches=main_launches[n],
              max_abs_err=k["max_abs_err"], ms=k["ms"],
              plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],

@@ -266,17 +266,20 @@ struct Plane0D {
 
 // ------------------------------------------------------- primal visit
 // The sweep kernel's interface (beam_sweep.cu): visit(q, b, key, tail,
-// qx, p, acc, cnt) adds one pair to a query's NF float and NC integer
-// accumulators. A primal pair adds its contribution and one count.
+// qx, p, acc, cnt, j) adds the pair of the query and beam j (its index
+// among the packed beams) to the query's NF float and NC integer
+// accumulators, of which the first NF_SUM floats and every count but an
+// ME instantiation's key are sums. A primal pair adds its contribution
+// and one count.
 
 template <class P>
 struct Primal {
-  static constexpr bool RANDOM = P::RANDOM, GRAD = false;
-  static constexpr int NF = 3, NC = 1;
+  static constexpr bool RANDOM = P::RANDOM, GRAD = false, ME = false;
+  static constexpr int NF = 3, NC = 1, NF_SUM = 3;
   __host__ __device__ static void visit(const Query& q, const float* b,
                                         const int* key, const float*,
                                         const float*, const Params& p,
-                                        float* acc, int* cnt) {
+                                        float* acc, int* cnt, int = 0) {
     float c[3];
     if (P::pair(q, b, key, p, c)) {
       acc[0] += c[0];
@@ -289,11 +292,29 @@ struct Primal {
 
 // ----------------------------------------------------- gradient functors
 // The G-VPM beam and plane gathers of gvpm_tpu/integrators/
-// gradient_gather.py with the use_manifold=False shifts:
+// gradient_gather.py:
 //
 //   GBeam1D  — beam_gradient_gather (:1232)
 //   GBeam3D  — beam3d_gradient_gather (:1580)
 //   GPlane0D — plane_gradient_gather (:1960)
+//
+// each a template on ME (use_manifold): GBeam1D = GBeam1DT<false> etc.
+// are the use_manifold=False sweeps, GBeam1DME = GBeam1DT<true> etc. the
+// ME instantiations, which also collect each query's manifold pairs for
+// the host's ME stage (gradient_gather.py:1346-1355, 1710-1720,
+// 2091-2100). A beam is ME-eligible when its origin is a delta surface
+// that cannot reconnect (_beam_me_elig, :1215). The flag is folded into
+// the tail's reconnectable slot, which an ME sweep's tails hold as -1
+// for an eligible beam (eligibility implies not reconnectable; the ME-off
+// tails hold 0 / 1 and never read it). An accepted pair on an eligible
+// beam takes no identity shift (the reference's ~me_t in ok_id: S gets 0,
+// W the base at weight 1); the ME stage resolves the first such pair of
+// each query. Two more counts a query: cnt[C_KEY], the lowest packed
+// index of an eligible beam among its accepted pairs (ME_NONE if none;
+// the kernel reduces it by min over the beam splits), and cnt[C_ME], the
+// number of those pairs (a sum); GBeam3D<ME> also keeps the chosen
+// pair's chord point y in acc[NF_SUM .. NF_SUM + 2], taken from the
+// split that holds the key, so the host never recomputes it.
 //
 // The base test and term are the primal estimator's (with the gradient
 // gathers' phase_params). A pair that passes it reads the beam's
@@ -311,6 +332,19 @@ struct Primal {
 // throughputs (base, and each offset's) are per query and applied by the
 // caller. The plain version is ops/beam_sweep.py's _g* functions, in the
 // same operation order.
+
+constexpr int NF_GRAD = 27;             // base, S 4 x 3, W 4 x 3
+constexpr int C_KEY = 2, C_ME = 3;      // the ME counts' slots
+constexpr int ME_NONE = 0x7fffffff;     // ops/fused_gather.ME_NONE
+
+// an accepted pair on an ME-eligible beam j: count it; true when it is
+// the query's first (each thread visits its beams in increasing j)
+__host__ __device__ inline bool me_first(int j, int* cnt) {
+  ++cnt[C_ME];
+  if (cnt[C_KEY] != ME_NONE) return false;
+  cnt[C_KEY] = j;
+  return true;
+}
 
 // the query's offset rays (ops/beam_sweep.XSLOT): offset i at XSTRIDE i
 // — origin (beam3d: the offset distance sample), direction, length,
@@ -381,13 +415,14 @@ __host__ __device__ inline void add_offset(int i, bool ok_sh, float pr_l,
   }
 }
 
-struct GBeam1D {
-  static constexpr bool RANDOM = false, GRAD = true;
-  static constexpr int NF = 27, NC = 2;
+template <bool ME_>
+struct GBeam1DT {
+  static constexpr bool RANDOM = false, GRAD = true, ME = ME_;
+  static constexpr int NF = NF_GRAD, NC = ME ? 4 : 2, NF_SUM = NF_GRAD;
   __host__ __device__ static void visit(const Query& q, const float* b,
                                         const int*, const float* tail,
                                         const float* qx, const Params& p,
-                                        float* acc, int* cnt) {
+                                        float* acc, int* cnt, int j = 0) {
     if (b[B_MED] != q.med) return;
     V3 ob = ld3(b, B_O), db = ld3(b, B_D);
     const float lb = b[B_LEN];
@@ -411,6 +446,8 @@ struct GBeam1D {
       acc[c] += c_base[c];
     }
     ++cnt[0];
+    const bool me = ME && tail[T_RECONN] < -0.5f;
+    if (me) me_first(j, cnt);
     // ---- the four shifts ----
     const Parent a = load_parent(tail);
 #pragma unroll
@@ -444,6 +481,11 @@ struct GBeam1D {
                (surv_n / cmin_(surv_b, 1e-9f)) * (tb * tb / t_new2) *
                (sin_t / sin_n);
         cnt[1] += ok_sh ? 1 : 0;
+      } else if (me) {
+        // resolved by the ME stage: no identity shift
+        ok_sh = false;
+        c_sh[0] = c_sh[1] = c_sh[2] = 0.0f;
+        pr_l = 1.0f;
       } else {
         // identity: the same beam against the offset ray
         const Closest hi = closest(so, sd, ob, db);
@@ -467,13 +509,15 @@ struct GBeam1D {
   }
 };
 
-struct GBeam3D {
-  static constexpr bool RANDOM = true, GRAD = true;
-  static constexpr int NF = 27, NC = 2;
+template <bool ME_>
+struct GBeam3DT {
+  static constexpr bool RANDOM = true, GRAD = true, ME = ME_;
+  static constexpr int NF = ME ? NF_GRAD + 3 : NF_GRAD, NC = ME ? 4 : 2,
+                       NF_SUM = NF_GRAD;
   __host__ __device__ static void visit(const Query& q, const float* b,
                                         const int* key, const float* tail,
                                         const float* qx, const Params& p,
-                                        float* acc, int* cnt) {
+                                        float* acc, int* cnt, int j = 0) {
     if (b[B_MED] != q.med) return;
     V3 ob = ld3(b, B_O), db = ld3(b, B_D);
     const float lb = b[B_LEN];
@@ -496,6 +540,12 @@ struct GBeam3D {
       acc[c] += c_base[c];
     }
     ++cnt[0];
+    const bool me = ME && tail[T_RECONN] < -0.5f;
+    if (me && me_first(j, cnt)) {
+      acc[NF_SUM] = y.x;
+      acc[NF_SUM + 1] = y.y;
+      acc[NF_SUM + 2] = y.z;
+    }
     V3 yx = sub3(y, q.o);
     // ---- the four shifts ----
     const Parent a = load_parent(tail);
@@ -537,6 +587,11 @@ struct GBeam3D {
                (surv_n / cmin_(surv_b, 1e-9f)) * (s * s / t_new2) *
                (ch / cmin_(chord_n, 1e-12f));
         cnt[1] += ok_sh ? 1 : 0;
+      } else if (me) {
+        // resolved by the ME stage: no identity shift
+        ok_sh = false;
+        c_sh[0] = c_sh[1] = c_sh[2] = 0.0f;
+        pr_l = 1.0f;
       } else {
         // identity: the same beam's chord around the offset sample, at
         // the base pair's chord fraction us
@@ -571,13 +626,14 @@ __host__ __device__ inline V3 rodrigues(V3 v, V3 k, float cos_r,
           v.z * cos_r + cz * sin_r + k.z * f};
 }
 
-struct GPlane0D {
-  static constexpr bool RANDOM = false, GRAD = true;
-  static constexpr int NF = 27, NC = 2;
+template <bool ME_>
+struct GPlane0DT {
+  static constexpr bool RANDOM = false, GRAD = true, ME = ME_;
+  static constexpr int NF = NF_GRAD, NC = ME ? 4 : 2, NF_SUM = NF_GRAD;
   __host__ __device__ static void visit(const Query& q, const float* b,
                                         const int*, const float* tail,
                                         const float* qx, const Params& p,
-                                        float* acc, int* cnt) {
+                                        float* acc, int* cnt, int j = 0) {
     if (b[B_MED] != q.med) return;
     V3 po = ld3(b, B_O), pw0 = ld3(b, B_D), pw1 = ld3(b, B_W1);
     const float pl0 = b[B_LEN], pl1 = b[B_L1], psig = b[B_SIG];
@@ -604,6 +660,8 @@ struct GPlane0D {
       acc[c] += c_base[c];
     }
     ++cnt[0];
+    const bool me = ME && tail[T_RECONN] < -0.5f;
+    if (me) me_first(j, cnt);
     // the base point's direction from the plane's origin
     V3 rel_b = sub3(madd3(q.o, q.d, tcam), po);
     float lb_r = sqrtf(cmin_(dot3(rel_b, rel_b), 1e-16f));
@@ -658,6 +716,11 @@ struct GPlane0D {
                (surv1n / cmin_(surv1, 1e-9f)) * (jac / cmin_(jac_n, 1e-6f)) /
                cmin_(scale * scale, 1e-12f);
         cnt[1] += ok_sh ? 1 : 0;
+      } else if (me) {
+        // resolved by the ME stage: no identity shift
+        ok_sh = false;
+        c_sh[0] = c_sh[1] = c_sh[2] = 0.0f;
+        pr_l = 1.0f;
       } else {
         // identity: the same plane against the offset ray
         float u0i = 0.0f, u1i = 0.0f, tci = 0.0f;
@@ -683,5 +746,12 @@ struct GPlane0D {
     }
   }
 };
+
+using GBeam1D = GBeam1DT<false>;
+using GBeam3D = GBeam3DT<false>;
+using GPlane0D = GPlane0DT<false>;
+using GBeam1DME = GBeam1DT<true>;
+using GBeam3DME = GBeam3DT<true>;
+using GPlane0DME = GPlane0DT<true>;
 
 }  // namespace beam

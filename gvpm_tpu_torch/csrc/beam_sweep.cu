@@ -8,7 +8,10 @@
 // (:401, plane0d), and of gvpm_tpu/integrators/gradient_gather.py with
 // use_manifold=False: beam_gradient_gather (:1232, gbeam1d),
 // beam3d_gradient_gather (:1580, gbeam3d) and plane_gradient_gather
-// (:1960, gplane0d). The TPU has no kernel for them.
+// (:1960, gplane0d), and their use_manifold=True instantiations
+// (gbeam1d_me, gbeam3d_me, gplane0d_me), which also collect each query's
+// first ME-eligible accepted beam for the host's ME stage
+// (integrators/gradient_gather.py). The TPU has no kernel for them.
 //
 // What bounds it: operations. Each pair reads one beam row from shared
 // memory and does ~50-200 float (beam3d: plus ~110 integer, threefry for
@@ -25,8 +28,11 @@
 // offsets, visits and shift_ok) in beam order. To fill the card when
 // queries are few, the beam range is split into `splits` chunks of whole
 // tiles (blockIdx.y); each (split, query) writes its partial sums and
-// counts, and a second kernel adds the splits in order. No atomics: two
-// launches on the same inputs give the same bits.
+// counts, and a second kernel adds the splits in order. An ME
+// instantiation's key (the lowest packed index of an ME-eligible accepted
+// beam, ME_NONE for none) is reduced by min over the splits instead, and
+// gbeam3d_me's chord point comes from the split that holds the key. No
+// atomics: two launches on the same inputs give the same bits.
 #include <cuda_runtime.h>
 
 #include "beam_eval.cuh"
@@ -63,6 +69,7 @@ __global__ void __launch_bounds__(BLOCK)
   for (int f = 0; f < F::NF; ++f) acc[f] = 0.0f;
 #pragma unroll
   for (int c = 0; c < F::NC; ++c) cnt[c] = 0;
+  if constexpr (F::ME) cnt[beam::C_KEY] = beam::ME_NONE;
   const float* qx = F::GRAD && m < M ? qext + m * beam::XW : nullptr;
   for (long long t0 = j0; t0 < j1; t0 += TILE_B) {
     const int n = (int)min((long long)TILE_B, j1 - t0);
@@ -77,7 +84,7 @@ __global__ void __launch_bounds__(BLOCK)
       const float* b = reinterpret_cast<const float*>(&sb[jj * (beam::BW / 4)]);
       const int* k = F::RANDOM ? reinterpret_cast<const int*>(&sk[jj]) : nullptr;
       const float* tail = F::GRAD ? tails + (t0 + jj) * beam::TW : nullptr;
-      F::visit(q, b, k, tail, qx, p, acc, cnt);
+      F::visit(q, b, k, tail, qx, p, acc, cnt, (int)(t0 + jj));
     }
   }
   if (m < M) {
@@ -91,16 +98,32 @@ __global__ void __launch_bounds__(BLOCK)
 }
 
 // one thread per (query, accumulator): the splits in order
-template <int NF, int NC>
+template <class F>
 __global__ void reduce_splits(const float* __restrict__ part,
                               const int* __restrict__ part_cnt, int splits,
                               long long M, float* __restrict__ out,
                               int* __restrict__ cnt) {
+  constexpr int NF = F::NF, NC = F::NC;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M * (NF + NC)) return;
   const long long m = i / (NF + NC);
   const int f = (int)(i % (NF + NC));
-  if (f < NF) {
+  if (F::ME && ((f >= F::NF_SUM && f < NF) || f == NF + beam::C_KEY)) {
+    // the lowest key, and the chord point of the split that holds it
+    int key = beam::ME_NONE;
+    float a = 0.0f;
+    for (int s = 0; s < splits; ++s) {
+      const int k = part_cnt[(s * M + m) * NC + beam::C_KEY];
+      if (k < key) {
+        key = k;
+        if (f < NF) a = part[(s * M + m) * NF + f];
+      }
+    }
+    if (f < NF)
+      out[m * NF + f] = a;
+    else
+      cnt[m * NC + beam::C_KEY] = key;
+  } else if (f < NF) {
     float a = 0.0f;
     for (int s = 0; s < splits; ++s) a += part[(s * M + m) * NF + f];
     out[m * NF + f] = a;
@@ -124,9 +147,8 @@ int launch(const float* q, long long M, const float* rows, const int* keys,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long items = M * (F::NF + F::NC);
-  reduce_splits<F::NF, F::NC><<<(unsigned)((items + 255) / 256), 256, 0,
-                                 stream>>>(part, part_cnt, splits, M, out,
-                                           cnt);
+  reduce_splits<F><<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(
+      part, part_cnt, splits, M, out, cnt);
   return (int)cudaGetLastError();
 }
 
@@ -148,3 +170,6 @@ SWEEP_ENTRY(plane0d, beam::Primal<beam::Plane0D>)
 SWEEP_ENTRY(gbeam1d, beam::GBeam1D)
 SWEEP_ENTRY(gbeam3d, beam::GBeam3D)
 SWEEP_ENTRY(gplane0d, beam::GPlane0D)
+SWEEP_ENTRY(gbeam1d_me, beam::GBeam1DME)
+SWEEP_ENTRY(gbeam3d_me, beam::GBeam3DME)
+SWEEP_ENTRY(gplane0d_me, beam::GPlane0DME)

@@ -21,8 +21,11 @@ every camera segment with every beam or plane in the pair sweeps of
 ops/beam_sweep.py (a CUDA kernel on the card): the base estimate, and a
 light-side shift to each offset pixel (a reconnection at the beam's
 origin, or the identity for a beam that leaves a non-reconnectable
-vertex), with pairwise MIS. Their ME shifts (ROADMAP queue 1 item 14c)
-are not ported: the callers run them with use_manifold=False.
+vertex), with pairwise MIS. With `use_manifold` a beam that leaves a
+delta vertex it cannot reconnect takes no identity shift: the sweep
+reports each segment's first such beam, and an ME stage like the
+photons' (budgeted per segment chunk) chain-solves the beam through the
+offset points (manifold.me_shift_beam).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import math
 import torch
 
 from ..core import rng
-from ..core.math import coordinate_system, dot, normalize, to_local
+from ..core.math import coordinate_system, cross, dot, normalize, to_local
 from ..ops import beam_sweep as bs
 from ..ops import fused_gather as fg
 from ..ops import hashgrid
@@ -747,7 +750,7 @@ def bre_gather(scene: Scene, cb, scb_list, grid, packed, n_emitted, r_vol,
 
 
 # ---------------------------------------------------------------------------
-# gradient photon beams (1D, 3D) and planes (0D), use_manifold=False
+# gradient photon beams (1D, 3D) and planes (0D)
 # ---------------------------------------------------------------------------
 
 def _bake_beam_params(scene: Scene, lb):
@@ -766,9 +769,22 @@ def _bake_beam_params(scene: Scene, lb):
         bp_g=scene.med_g[pmi], bp_ptype=scene.med_phase[pmi])
 
 
-def _sweep_beams(scene: Scene, lb, planes=False):
+def _beam_me_elig(scene: Scene, lb):
+    """Per beam (or plane): ME-eligible — its origin lobe is a DELTA
+    surface scatter, the segment leaves that vertex itself and no diffuse
+    reconnection exists (gvpm_tpu's _beam_me_elig; shiftBeamME dispatch,
+    shift_volume_beams.h:440)."""
+    bt = scene.bsdf_type[torch.clamp(lb["parent_bsdf"], 0,
+                                     scene.bsdf_type.shape[0] - 1)]
+    par_delta = (bt == BSDF_CONDUCTOR) | (bt == BSDF_DIELECTRIC)
+    return lb["valid"] & lb["at_origin"] & ~lb["reconnectable"] \
+        & (lb["parent_type"] == pl.VERT_SURFACE) & par_delta
+
+
+def _sweep_beams(scene: Scene, lb, planes=False, me=False):
     """The valid beams (or planes), in stable order, as sweep rows and
-    gradient tails; returns (rows, tails, their flat indices)."""
+    gradient tails (with `me`, the ME-eligible ones marked); returns
+    (rows, tails, their flat indices)."""
     if planes:
         rows, keep = bs.pack_beams(lb["o"], lb["w0"], lb["l0"], lb["med"],
                                    lb["alpha"], lb["valid"], w1=lb["w1"],
@@ -777,7 +793,8 @@ def _sweep_beams(scene: Scene, lb, planes=False):
         rows, keep = bs.pack_beams(lb["o"], lb["d"], lb["length"],
                                    lb["med"], lb["alpha"], lb["valid"])
     fields = dict(lb, **_bake_beam_params(scene, lb))
-    return rows, bs.pack_tails(fields, keep), keep
+    return rows, bs.pack_tails(fields, keep, _beam_me_elig(scene, lb)
+                               if me else None), keep
 
 
 def _offset_terms(cb, scb_list):
@@ -794,8 +811,9 @@ def _offset_terms(cb, scb_list):
 
 def _segment_sweep(kind, scene, cb, scb_list, rows, tails, border_lane,
                    params):
-    """The sweep of whole camera segments (gbeam1d, gplane0d) with the
-    camera throughputs applied: (primal, S, W, visits, shift_ok)."""
+    """The sweep of whole camera segments (gbeam1d, gplane0d and their
+    _me kinds) with the camera throughputs applied: (primal, S, W,
+    visits, shift_ok[, ME key, ME pairs, None])."""
     svalid, sens = _offset_terms(cb, scb_list)
     q = est._camera_queries(scene, cb["med"], cb["o"], cb["d"],
                             cb["length"], cb["valid"])
@@ -803,73 +821,450 @@ def _segment_sweep(kind, scene, cb, scb_list, rows, tails, border_lane,
                          [s["d"] for s in scb_list],
                          [s["length"] for s in scb_list], svalid, sens,
                          list(border_lane))
-    pr, S, W, visits, shift_ok = bs.gsweep(kind, q, qx, rows, tails, params)
+    pr, S, W, visits, shift_ok, *me = bs.gsweep(kind, q, qx, rows, tails,
+                                                 params)
     thr = cb["thr"]
     return (thr * pr, torch.stack([scb_list[i]["thr"] * S[i]
                                    for i in range(4)]),
-            W * thr[None], visits, shift_ok)
+            W * thr[None], visits, shift_ok, *me)
 
 
 def _scaled(res, inv):
-    primal, S, W, visits, shift_ok = res
-    return (primal * inv, S * inv, W * inv, visits, shift_ok,
-            torch.zeros((), dtype=torch.int64, device=primal.device))
+    primal, S, W, visits, shift_ok, *me = res
+    zero = torch.zeros((), dtype=torch.int64, device=primal.device)
+    return (primal * inv, S * inv, W * inv, visits, shift_ok) \
+        + (tuple(me) if me else (zero, zero))
+
+
+def _chunks(m, seg_tile):
+    """Slices of the camera segments in chunks of seg_tile (all of them
+    when 0 or more), as the JAX package's hosted dispatch cuts them."""
+    st = max(1, min(seg_tile or m, m))
+    return [slice(c0, c0 + st) for c0 in range(0, m, st)]
+
+
+def _me_pairs(me_key, me_cnt, keep, me_budget):
+    """A sweep's ME pairs cut to the budget: (segment ids [B], beam flat
+    indices [B], eligible accepted pairs in all). The key is an index of
+    the packed (valid, stable-order) beams, so `keep` maps it back and
+    the lowest key is the reference's first eligible beam."""
+    me_q, me_j, _ = _compact_me(me_key, me_budget)
+    return me_q, keep[me_j], me_cnt.sum().to(torch.int64)
+
+
+def _virtual_chains(scene, pv_chain, lb, me_b, p):
+    """The chains of the ME pairs' beams (or planes), each started at a
+    virtual photon at p [B,3] on the beam whose parent is the beam's
+    origin vertex, tiled for the 4 offsets."""
+    virt = dict(p=p, seg_med=lb["med"][me_b],
+                parent_idx=lb["parent_idx"][me_b],
+                reconnectable=torch.zeros_like(me_b, dtype=torch.bool),
+                parent_type=lb["parent_type"][me_b],
+                parent_bsdf=lb["parent_bsdf"][me_b])
+    return manifold.tile_chains(
+        manifold.pull_chains(scene, pv_chain, virt=virt), 4)
+
+
+def _query_medium(scene, mi):
+    """(sigma_s [B,3], sigma_t [B,3], g [B], phase type [B]) of the
+    queries' medium."""
+    _, ss, st = med._tables(scene, mi)
+    gi = torch.clamp(mi, 0, scene.med_g.shape[0] - 1)
+    return ss, st, scene.med_g[gi], scene.med_phase[gi]
+
+
+def _rep4(*ts):
+    """Each tensor repeated 4 times along lanes (offset-major)."""
+    return [t.repeat((4,) + (1,) * (t.dim() - 1)) for t in ts]
+
+
+def _beam_me_stage(scene, cb, scb_list, lb, pv_chain, me_q, me_b, r2, k1,
+                   border_lane, S, W, shift_ok, me_iters, lap):
+    """beam1d's ME stage (gvpm_tpu's _beam_me_stage; shiftBeamME,
+    shift_volume_beams.cpp:748): the base closest approach of each
+    (segment me_q, beam me_b) pair again, the beam's delta chain
+    Newton-solved so that the new beam passes through each offset's
+    point (the offset segment at the same camera distance, minus the
+    kernel offset), its 1D kernel term on the new geometry, pairwise
+    MIS; adds into S / W / shift_ok. Returns the attempted pairs."""
+    svalid, sens = _offset_terms(cb, scb_list)
+    oq, dq, lq = cb["o"][me_q], cb["d"][me_q], cb["length"][me_q]
+    miq = cb["med"][me_q]
+    sg_q, st_q, g_q, pt_q = _query_medium(scene, miq)
+    bo, bd, bL = lb["o"][me_b], lb["d"][me_b], lb["length"][me_b]
+    ba, bmed = lb["alpha"][me_b], lb["med"][me_b]
+
+    # base closest approach (the sweep's math, pair lanes)
+    w0 = oq - bo
+    b = dot(dq, bd)
+    f1 = -dot(w0, dq)
+    f2 = -dot(w0, bd)
+    denom = 1.0 - b * b
+    parallel = torch.abs(denom) < 1e-8
+    den = torch.where(parallel, 1.0, denom)
+    tc = (f1 - b * f2) / den
+    tb = (b * f1 - f2) / den
+    pb = bo + bd * tb[..., None]
+    delta = oq + dq * tc[..., None] - pb
+    okp = (~parallel & (tc > 1e-5) & (tc < lq) & (tb > 1e-5) & (tb < bL)
+           & (dot(delta, delta) < r2) & (miq == bmed))
+    sin_t = torch.sqrt(torch.clamp(denom, min=1e-12))
+    surv_b = est.survival_prob(scene, miq, tb)
+    pf_b = pl.phase_params(-b, g_q, pt_q)
+    tr_c = torch.exp(-st_q * tc[..., None])
+    tr_b = torch.exp(-st_q * tb[..., None])
+    wgt_b = (pf_b * k1 / (sin_t * torch.clamp(surv_b, min=1e-9)))[..., None] \
+        * tr_c * tr_b * sg_q
+    c_base_pair = torch.where(okp[..., None], ba * wgt_b, 0.0) \
+        * cb["thr"][me_q]
+    # the virtual photon is the base beam point pb
+    ch4 = _virtual_chains(scene, pv_chain, lb, me_b, pb)
+    if lap is not None:
+        lap("me:chains", part=True)
+    y_t = _per_offset(lambda i: scb_list[i]["o"][me_q]
+                      + scb_list[i]["d"][me_q] * tc[..., None] - delta)
+    wscale = torch.linalg.norm(scene.world_hi - scene.world_lo)
+    _, dir_n, t_n, ar, pr_ch, okm = manifold.me_shift_beam(
+        scene, ch4, y_t, n_iters=me_iters, scene_scale=wscale, lap=lap)
+
+    sd4 = _per_offset(lambda i: scb_list[i]["d"][me_q])
+    miq4, g4, pt4, tb4, bL4, sin_t4, surv_b4 = _rep4(
+        miq, g_q, pt_q, tb, bL, sin_t, surv_b)
+    sg4, st4, tr_c4, ba4 = _rep4(sg_q, st_q, tr_c, ba)
+    cos_x = dot(dir_n, sd4)
+    sin_n = torch.sqrt(torch.clamp(1.0 - cos_x * cos_x, min=1e-8))
+    pf_n = pl.phase_params(-cos_x, g4, pt4)
+    surv_n = est.survival_prob(scene, miq4, t_n)
+    tr_bn = torch.exp(-st4 * t_n[..., None])
+    ok4 = okm & okp.repeat(4) & (t_n < bL4) & _per_offset(
+        lambda i: svalid[i][me_q] & (tc < scb_list[i]["length"][me_q])
+        & ~border_lane[i][me_q])
+    wgt_n = (pf_n * k1 / (sin_n * torch.clamp(surv_n, min=1e-9)))[..., None] \
+        * tr_c4 * tr_bn * sg4
+    c_me = ba4 * ar * wgt_n * _per_offset(lambda i: scb_list[i]["thr"][me_q])
+    pr_me = (pr_ch * (surv_n / torch.clamp(surv_b4, min=1e-9))
+             * (tb4 * tb4 / torch.clamp(t_n * t_n, min=1e-12))
+             * (sin_t4 / sin_n))
+    w4 = torch.where(ok4, 1.0 / (1.0 + torch.clamp(
+        pr_me * _per_offset(lambda i: sens[i][me_q]), 0.0, 1e12)), 1.0)
+    _add_me(S, W, shift_ok, me_q, ok4, w4, c_me, c_base_pair)
+    return okp.sum()
+
+
+def _plane_me_stage(scene, cb, scb_list, planes, pv_chain, me_q, me_p,
+                    border_lane, S, W, shift_ok, me_iters, lap):
+    """plane0d's ME stage (gvpm_tpu's _plane_me_stage; the delta-origin
+    branch of PlaneGradRadianceQuery, shift_volume_planes.h:57): the
+    plane's generating beam origin ends a pure-delta chain, which is
+    Newton-solved so that the shifted AXIS passes through the offset
+    camera point minus the base extension offset t1 w1. The shifted
+    plane keeps its lengths, takes the chain's exit direction as w0' and
+    w1 turned by the minimal rotation w0 -> w0', and is intersected
+    exactly with the offset ray; plane-estimator factors on the shifted
+    geometry, pairwise MIS. Returns the attempted pairs."""
+    svalid, sens = _offset_terms(cb, scb_list)
+    oq, dq, lq = cb["o"][me_q], cb["d"][me_q], cb["length"][me_q]
+    miq = cb["med"][me_q]
+    sg_q, st_q, g_q, pt_q = _query_medium(scene, miq)
+    po, pw0, pl0 = planes["o"][me_p], planes["w0"][me_p], planes["l0"][me_p]
+    pw1, pl1 = planes["w1"][me_p], planes["l1"][me_p]
+    pal, pmed = planes["alpha"][me_p], planes["med"][me_p]
+    psig = planes["surv1_sigma"][me_p]
+
+    # base Moller-Trumbore (pair lanes)
+    e0 = pw0 * pl0[..., None]
+    e1 = pw1 * pl1[..., None]
+    Pv = cross(dq, e1)
+    det = dot(e0, Pv)
+    okb = torch.abs(det) > 1e-7
+    inv_det = torch.where(okb, 1.0 / torch.where(det == 0, 1.0, det), 0.0)
+    T_ = oq - po
+    u0 = dot(T_, Pv) * inv_det
+    Q = cross(T_, e0)
+    u1 = dot(dq, Q) * inv_det
+    tcam = dot(e1, Q) * inv_det
+    okb = (okb & (u0 >= 0.0) & (u0 <= 1.0) & (u1 >= 0.0) & (u1 <= 1.0)
+           & (tcam > 1e-5) & (tcam < lq) & (miq == pmed))
+    t0 = u0 * pl0
+    t1 = u1 * pl1
+    tr_cam = torch.exp(-st_q * tcam[..., None])
+    pf_b = pl.phase_params(-dot(pw1, dq), g_q, pt_q)
+    tr0 = torch.exp(-st_q * t0[..., None])
+    tr1 = torch.exp(-st_q * t1[..., None])
+    surv0 = est.survival_prob(scene, miq, t0)
+    surv1 = torch.exp(-psig * t1)
+    jac = torch.abs(dot(pw0, cross(pw1, dq)))
+    wgt_b = (tr_cam * tr0 * tr1 * sg_q * sg_q
+             * (pf_b / (torch.clamp(surv0, min=1e-9)
+                        * torch.clamp(surv1, min=1e-9)
+                        * torch.clamp(jac, min=1e-6)))[..., None])
+    c_base_pair = torch.where(okb[..., None], pal * wgt_b, 0.0) \
+        * cb["thr"][me_q]
+    # the virtual photon is the base axis point A + t0 w0
+    q_axis = po + pw0 * t0[..., None]
+    ch4 = _virtual_chains(scene, pv_chain, planes, me_p, q_axis)
+    if lap is not None:
+        lap("me:chains", part=True)
+    y_base = oq + dq * tcam[..., None]
+    so4 = _per_offset(lambda i: scb_list[i]["o"][me_q])
+    sd4 = _per_offset(lambda i: scb_list[i]["d"][me_q])
+    tcam4, y_base4, q_axis4 = _rep4(tcam, y_base, q_axis)
+    # keep the extension offset: the axis through y'_i - (y - q_axis)
+    q_t = so4 + sd4 * tcam4[..., None] - (y_base4 - q_axis4)
+    wscale = torch.linalg.norm(scene.world_hi - scene.world_lo)
+    org_n, w0n, _, ar, pr_ch, okm = manifold.me_shift_beam(
+        scene, ch4, q_t, n_iters=me_iters, scene_scale=wscale, lap=lap)
+
+    pw0_4, pw1_4, pl0_4, pl1_4, psig4, pal4 = _rep4(pw0, pw1, pl0, pl1, psig,
+                                                    pal)
+    miq4, g4, pt4, sg4, st4 = _rep4(miq, g_q, pt_q, sg_q, st_q)
+    surv0_4, surv1_4, jac4, t0_4, t1_4 = _rep4(surv0, surv1, jac, t0, t1)
+    # minimal rotation w0 -> w0' applied to w1
+    cos_r = dot(pw0_4, w0n)
+    axis = cross(pw0_4, w0n)
+    sin_r = torch.sqrt(torch.clamp(dot(axis, axis), min=0.0))
+    safe = sin_r > 1e-7
+    k_hat = axis / torch.clamp(sin_r, min=1e-7)[..., None]
+    kdv = dot(k_hat, pw1_4)
+    cx = cross(k_hat, pw1_4)
+    w1n = torch.where(
+        safe[..., None],
+        pw1_4 * cos_r[..., None] + cx * sin_r[..., None]
+        + k_hat * (kdv * (1.0 - cos_r))[..., None], pw1_4)
+    # the shifted plane against the offset ray
+    e0n = w0n * pl0_4[..., None]
+    e1n = w1n * pl1_4[..., None]
+    Pvn = cross(sd4, e1n)
+    detn = dot(e0n, Pvn)
+    okn = torch.abs(detn) > 1e-7
+    invn = torch.where(okn, 1.0 / torch.where(detn == 0, 1.0, detn), 0.0)
+    Tn = so4 - org_n
+    u0n = dot(Tn, Pvn) * invn
+    Qn = cross(Tn, e0n)
+    u1n = dot(sd4, Qn) * invn
+    tcn = dot(e1n, Qn) * invn
+    ok4 = (okm & okb.repeat(4) & okn & (u0n >= 0.0) & (u0n <= 1.0)
+           & (u1n >= 0.0) & (u1n <= 1.0) & (tcn > 1e-5)
+           & _per_offset(lambda i: svalid[i][me_q] & ~border_lane[i][me_q])
+           & (tcn < _per_offset(lambda i: scb_list[i]["length"][me_q])))
+    t0i = u0n * pl0_4
+    t1i = u1n * pl1_4
+    tr_cn = torch.exp(-st4 * tcn[..., None])
+    pf_n = pl.phase_params(-dot(w1n, sd4), g4, pt4)
+    tr0n = torch.exp(-st4 * t0i[..., None])
+    tr1n = torch.exp(-st4 * t1i[..., None])
+    surv0n = est.survival_prob(scene, miq4, t0i)
+    surv1n = torch.exp(-psig4 * t1i)
+    jac_n = torch.abs(dot(w0n, cross(w1n, sd4)))
+    wgt_n = (tr_cn * tr0n * tr1n * sg4 * sg4
+             * (pf_n / (torch.clamp(surv0n, min=1e-9)
+                        * torch.clamp(surv1n, min=1e-9)
+                        * torch.clamp(jac_n, min=1e-6)))[..., None])
+    c_me = pal4 * ar * wgt_n * _per_offset(lambda i: scb_list[i]["thr"][me_q])
+    pr_me = (pr_ch * (surv0n / torch.clamp(surv0_4, min=1e-9))
+             * (surv1n / torch.clamp(surv1_4, min=1e-9))
+             * (jac4 / torch.clamp(jac_n, min=1e-6))
+             * (t0_4 * t1_4) / torch.clamp(t0i * t1i, min=1e-12))
+    w4 = torch.where(ok4, 1.0 / (1.0 + torch.clamp(
+        pr_me * _per_offset(lambda i: sens[i][me_q]), 0.0, 1e12)), 1.0)
+    _add_me(S, W, shift_ok, me_q, ok4, w4, c_me, c_base_pair)
+    return okb.sum()
+
+
+def _segment_gather_me(kind, stage, scene, cb, scb_list, lb, border_lane,
+                       params, pv_chain, me_budget, seg_tile, lap, **kw):
+    """gbeam1d / gplane0d with use_manifold: the camera segments in
+    chunks of seg_tile, one ME sweep each, then its ME stage on at most
+    me_budget pairs (the first queries with an eligible pair, as the
+    JAX package's hosted dispatch budgets each chunk). Returns (primal,
+    S, W, visits, shift_ok, me_dropped, me_pairs), before 1/n_emitted."""
+    rows, tails, keep = _sweep_beams(scene, lb, planes=kind == "gplane0d_me",
+                                     me=True)
+    parts, me_drop, me_pairs = [], 0, 0
+    for sl in _chunks(cb["o"].shape[0], seg_tile):
+        cbc = {k: v[sl] for k, v in cb.items()}
+        scbc = [{k: v[sl] for k, v in s.items()} for s in scb_list]
+        blc = border_lane[:, sl]
+        pr, S, W, visits, shift_ok, me_key, me_cnt, _ = _segment_sweep(
+            kind, scene, cbc, scbc, rows, tails, blc, params)
+        if lap is not None:
+            lap("volume_gather")
+        me_q, me_b, total = _me_pairs(me_key, me_cnt, keep, me_budget)
+        if lap is not None:
+            lap("me:compact", part=True)
+        att = 0
+        if me_q.shape[0]:
+            att = stage(scene, cbc, scbc, lb, pv_chain, me_q, me_b,
+                        border_lane=blc, S=S, W=W, shift_ok=shift_ok,
+                        lap=lap, **kw)
+        me_drop = me_drop + total - att
+        me_pairs += me_q.shape[0]
+        if lap is not None:
+            lap("volume_me")
+        parts.append((pr, S, W, visits, shift_ok))
+    pr, S, W, visits, shift_ok = (torch.cat([p[k] for p in parts],
+                                            dim=1 if k in (1, 2) else 0)
+                                  for k in range(5))
+    dev = pr.device
+    return (pr, S, W, visits, shift_ok,
+            torch.as_tensor(me_drop, dtype=torch.int64, device=dev),
+            torch.tensor(me_pairs, dtype=torch.int64, device=dev))
 
 
 def beam_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted, r_beam,
-                         border_lane):
-    """1D beam x beam gradient gather (gvpm_tpu's beam_gradient_gather,
-    use_manifold=False): each (camera segment, beam) closest approach
-    within r_beam is the base pair; its shift to an offset keeps the
-    beam's origin A, maps the base point to the offset segment at the
-    same camera distance with the same kernel offset, and re-emits the
-    beam from A through it (lobe ratio at A, survival and 1/sin of the
-    new crossing; shiftBeamDiffuse, shift_volume_beams.h:408-457), or,
-    for a beam that leaves a non-reconnectable vertex, re-intersects the
-    same beam with the offset segment (shiftNull3D). Pairwise MIS of the
-    two intersection densities, 1 on the image border.
+                         border_lane, use_manifold=False, pv_chain=None,
+                         me_budget=4096, me_iters=5, seg_tile=0, lap=None):
+    """1D beam x beam gradient gather (gvpm_tpu's beam_gradient_gather):
+    each (camera segment, beam) closest approach within r_beam is the
+    base pair; its shift to an offset keeps the beam's origin A, maps
+    the base point to the offset segment at the same camera distance
+    with the same kernel offset, and re-emits the beam from A through it
+    (lobe ratio at A, survival and 1/sin of the new crossing;
+    shiftBeamDiffuse, shift_volume_beams.h:408-457), or, for a beam that
+    leaves a non-reconnectable vertex, re-intersects the same beam with
+    the offset segment (shiftNull3D). Pairwise MIS of the two
+    intersection densities, 1 on the image border.
+
+    With use_manifold a beam that leaves a delta surface vertex it can
+    not reconnect takes the MANIFOLD shift instead (shiftBeamME): each
+    segment keeps its first such pair, at most me_budget of them per
+    chunk of seg_tile segments are chain-solved with me_iters Newton
+    steps (`_beam_me_stage`; pv_chain: the light pass's photon dict), the
+    others stay unilateral and are counted in me_dropped. `lap(name,
+    part=False)`, when given, is called at the end of each chunk's sweep
+    ("volume_gather") and ME stage ("volume_me"), and with part=True
+    after its parts ("me:compact", "me:chains" and the shift's
+    "me:newton", "me:ratios", "me:occlusion"). Without ME the segments
+    sweep in one launch.
 
     cb / scb_list: the compacted base and 4 offset camera-segment dicts
     [M]; lb: the flattened beam dict; r_beam: float32 scalar tensor;
     border_lane: [4, M] bool. Returns (primal [M,3], S [4,M,3],
-    W [4,M,3], visits [M], shift_ok [M], me_dropped = 0)."""
+    W [4,M,3], visits [M], shift_ok [M], me_dropped, me_pairs)."""
     r2, k1 = torch.stack([r_beam * r_beam,
                           pl.rdiv(1.0, 2.0 * r_beam)]).tolist()
+    params = bs.Params(r2=r2, k=k1)
+    if use_manifold:
+        return _scaled(_segment_gather_me(
+            "gbeam1d_me", _beam_me_stage, scene, cb, scb_list, lb,
+            border_lane, params, pv_chain, me_budget, seg_tile, lap, r2=r2,
+            k1=k1, me_iters=me_iters), 1.0 / n_emitted)
     rows, tails, _ = _sweep_beams(scene, lb)
     return _scaled(_segment_sweep("gbeam1d", scene, cb, scb_list, rows,
-                                  tails, border_lane,
-                                  bs.Params(r2=r2, k=k1)), 1.0 / n_emitted)
+                                  tails, border_lane, params),
+                   1.0 / n_emitted)
 
 
 def plane_gradient_gather(scene: Scene, cb, scb_list, planes, n_emitted,
-                          border_lane):
-    """0D photon-plane gradient gather (gvpm_tpu's plane_gradient_gather,
-    use_manifold=False): camera segment x plane by Moller-Trumbore; the
-    shift rotates the plane about its origin by the minimal rotation that
-    takes the base point's direction to the offset point's (same camera
-    distance), with the analytic offset intersection at the scaled plane
-    parameters (mediumRotationShift, shift_medium.h:39), or the identity
-    (the same plane against the offset ray) for a non-reconnectable
-    origin. planes: estimators.make_planes' dict. Returns
-    beam_gradient_gather's tuple."""
+                          border_lane, use_manifold=False, pv_chain=None,
+                          me_budget=4096, me_iters=5, seg_tile=0, lap=None):
+    """0D photon-plane gradient gather (gvpm_tpu's plane_gradient_gather):
+    camera segment x plane by Moller-Trumbore; the shift rotates the
+    plane about its origin by the minimal rotation that takes the base
+    point's direction to the offset point's (same camera distance), with
+    the analytic offset intersection at the scaled plane parameters
+    (mediumRotationShift, shift_medium.h:39), or the identity (the same
+    plane against the offset ray) for a non-reconnectable origin; with
+    use_manifold, the manifold shift for a delta origin
+    (`_plane_me_stage`), budgeted and timed as in beam_gradient_gather.
+    planes: estimators.make_planes' dict. Returns beam_gradient_gather's
+    tuple."""
+    if use_manifold:
+        return _scaled(_segment_gather_me(
+            "gplane0d_me", _plane_me_stage, scene, cb, scb_list, planes,
+            border_lane, bs.Params(), pv_chain, me_budget, seg_tile, lap,
+            me_iters=me_iters), 1.0 / n_emitted)
     rows, tails, _ = _sweep_beams(scene, planes, planes=True)
     return _scaled(_segment_sweep("gplane0d", scene, cb, scb_list, rows,
                                   tails, border_lane, bs.Params()),
                    1.0 / n_emitted)
 
 
+def _beam3d_me_stage(scene, lb, pv_chain, me_q, me_b, yq, x, xs, sd, dc,
+                     mi, cam_ok, pr_cam, thr_c, w_cam, border_lane, r2, k3,
+                     S, W, shift_ok, me_iters, lap):
+    """beam3d's ME stage for one chunk and distance sample (gvpm_tpu's
+    _beam3d_me_stage): the stored base chord point yq (the kernel's)
+    maps to each offset frame (xs_i + (y - x)) and the delta-origin beam
+    is chain-solved through it; the new beam's chord in the offset kernel
+    sphere, pairwise MIS; adds into S / W / shift_ok. Returns the
+    attempted pairs."""
+    bo, bd, bL = lb["o"][me_b], lb["d"][me_b], lb["length"][me_b]
+    ba, bmed = lb["alpha"][me_b], lb["med"][me_b]
+    xq, miq = x[me_q], mi[me_q]
+    _, st_q, g_q, pt_q = _query_medium(scene, miq)
+
+    # base pair terms at the stored chord point
+    s_b = torch.linalg.norm(yq - bo, dim=-1)
+    rel = xq - bo
+    sm = dot(rel, bd)
+    d2p = dot(rel, rel) - sm * sm
+    half = torch.sqrt(torch.clamp(r2 - d2p, min=0.0))
+    s0 = torch.clamp(sm - half, min=0.0)
+    s1 = torch.minimum(sm + half, bL)
+    chord = torch.clamp(s1 - s0, min=0.0)
+    e = xq - yq
+    okp = (chord > 0.0) & (miq == bmed) \
+        & (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2] < r2)
+    surv_b = est.survival_prob(scene, miq, s_b)
+    ch4 = _virtual_chains(scene, pv_chain, lb, me_b, yq)
+    if lap is not None:
+        lap("me:chains", part=True)
+    xs4 = _per_offset(lambda i: xs[i][me_q])
+    yx4, = _rep4(yq - xq)
+    wscale = torch.linalg.norm(scene.world_hi - scene.world_lo)
+    org_n, dir_n, t_n, ar, pr_ch, okm = manifold.me_shift_beam(
+        scene, ch4, xs4 + yx4, n_iters=me_iters, scene_scale=wscale, lap=lap)
+
+    miq4, g4, pt4, st4, bL4, ba4 = _rep4(miq, g_q, pt_q, st_q, bL, ba)
+    s_b4, surv_b4, chord4 = _rep4(s_b, surv_b, chord)
+    sd4 = _per_offset(lambda i: sd[i][me_q])
+    # the new beam's chord in the offset kernel sphere
+    rel_n = xs4 - org_n
+    sm_n = dot(rel_n, dir_n)
+    d2p_n = dot(rel_n, rel_n) - sm_n * sm_n
+    half_n = torch.sqrt(torch.clamp(r2 - d2p_n, min=0.0))
+    s0n = torch.clamp(sm_n - half_n, min=0.0)
+    s1n = torch.minimum(sm_n + half_n, bL4)
+    chord_n = torch.clamp(s1n - s0n, min=0.0)
+    pf_n = pl.phase_params(-dot(dir_n, sd4), g4, pt4)
+    surv_n = est.survival_prob(scene, miq4, t_n)
+    tr_bn = torch.exp(-st4 * t_n[..., None])
+    ok4 = (okm & okp.repeat(4) & (chord_n > 0.0) & (t_n >= s0n)
+           & (t_n <= s1n) & (t_n < bL4)
+           & _per_offset(lambda i: cam_ok[i][me_q] & ~border_lane[i][me_q]))
+    c_me = ba4 * ar * tr_bn \
+        * (chord_n * k3 * pf_n / torch.clamp(surv_n, min=1e-9))[..., None] \
+        * _per_offset(lambda i: thr_c[i][me_q])
+    pr_me = (pr_ch * (surv_n / torch.clamp(surv_b4, min=1e-9))
+             * (s_b4 * s_b4 / torch.clamp(t_n * t_n, min=1e-12))
+             * (chord4 / torch.clamp(chord_n, min=1e-12)))
+    # the base pair's term (base beam direction vs the base camera's)
+    pf_b = pl.phase_params(-dot(bd, dc[me_q]), g_q, pt_q)
+    c_base_pair = ba * torch.exp(-st_q * s_b[..., None]) \
+        * (chord * k3 * pf_b / torch.clamp(surv_b, min=1e-9))[..., None] \
+        * w_cam[me_q]
+    w4 = torch.where(ok4, 1.0 / (1.0 + torch.clamp(
+        pr_me * _per_offset(lambda i: pr_cam[i][me_q]), 0.0, 1e12)), 1.0)
+    _add_me(S, W, shift_ok, me_q, ok4, w4, c_me, c_base_pair)
+    return okp.sum()
+
+
 def beam3d_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted,
                            r_beam, key, border_lane, n_samples=2, tile=256,
-                           seg_tile=0):
-    """3D beam x point gradient gather (gvpm_tpu's beam3d_gradient_gather,
-    use_manifold=False): a camera distance sample x per segment and
-    sample; the base pair is one stratified chord sample y on the beam's
-    chord through the kernel sphere around x. The shift maps y to the
-    offset frame keeping the camera distance and y - x, and re-emits the
-    beam from its origin through it (MIS density: direction pdf, t^2,
-    survival and the chord), or, for a non-reconnectable origin, takes
-    the same beam's chord around the offset sample at the base's chord
-    fraction (identity).
+                           seg_tile=0, use_manifold=False, pv_chain=None,
+                           me_budget=4096, me_iters=5, lap=None):
+    """3D beam x point gradient gather (gvpm_tpu's beam3d_gradient_gather):
+    a camera distance sample x per segment and sample; the base pair is
+    one stratified chord sample y on the beam's chord through the kernel
+    sphere around x. The shift maps y to the offset frame keeping the
+    camera distance and y - x, and re-emits the beam from its origin
+    through it (MIS density: direction pdf, t^2, survival and the chord),
+    or, for a non-reconnectable origin, takes the same beam's chord
+    around the offset sample at the base's chord fraction (identity);
+    with use_manifold, the manifold shift of a delta origin through the
+    kernel's chord point (`_beam3d_me_stage`), budgeted per chunk and
+    sample and timed as in beam_gradient_gather.
 
     The random stream follows the JAX package's gvpm.render schedule
     (render_pass_hosted, gvpm.py:690-747): the segments are cut into
@@ -886,7 +1281,8 @@ def beam3d_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted,
     r2, k3 = torch.stack([r_beam * r_beam, pl.rdiv(
         3.0, 4.0 * math.pi * torch.clamp(r_beam * r_beam * r_beam,
                                          min=1e-18))]).tolist()
-    rows, tails, keep = _sweep_beams(scene, lb)
+    rows, tails, keep = _sweep_beams(scene, lb, me=use_manifold)
+    kind = "gbeam3d_me" if use_manifold else "gbeam3d"
     tiles = torch.arange(-(-lb["o"].shape[0] // tile), device=dev)
     svalid, sens = _offset_terms(cb, scb_list)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -895,9 +1291,8 @@ def beam3d_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted,
     W = torch.zeros((4, m, 3), **f32)
     visits = torch.zeros((m,), dtype=torch.int64, device=dev)
     shift_ok = torch.zeros((m,), dtype=torch.int64, device=dev)
-    st = max(1, min(seg_tile or m, m))
-    for ci, c0 in enumerate(range(0, m, st)):
-        sl = slice(c0, c0 + st)
+    me_drop = me_pairs = 0
+    for ci, sl in enumerate(_chunks(m, seg_tile)):
         mic = mi[sl]
         scs = [{k: v[sl] for k, v in s.items()} for s in scb_list]
         for k in rng.split(rng.fold_in(key, ci), n_samples):
@@ -914,24 +1309,47 @@ def beam3d_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted,
             pr_cam = [med.pdf_distance_always_valid(
                 scene, mic, t_cam, scs[i]["length"]) / pdf_ray * sens[i][sl]
                 for i in range(4)]
+            xs = [s["o"] + s["d"] * t_cam[..., None] for s in scs]
             q = est._camera_queries(scene, mic, ms.p, d[sl], length[sl],
                                     sok)
-            qx = bs.pack_offsets(
-                [s["o"] + s["d"] * t_cam[..., None] for s in scs],
-                [s["d"] for s in scs], [s["length"] for s in scs], cam_ok,
-                pr_cam, list(border_lane[:, sl]))
+            qx = bs.pack_offsets(xs, [s["d"] for s in scs],
+                                 [s["length"] for s in scs], cam_ok,
+                                 pr_cam, list(border_lane[:, sl]))
             keys = bs.beam_keys(rng.fold_in(k_s, tiles), keep, tile)
-            pr, S_, W_, v_, so_ = bs.gsweep(
-                "gbeam3d", q, qx, rows, tails,
+            pr, S_, W_, v_, so_, *me = bs.gsweep(
+                kind, q, qx, rows, tails,
                 bs.Params(r2=r2, k=k3, keys=keys, tile=tile))
             w_cam = cb["thr"][sl] * ms.transmittance * ms.sigma_s \
                 / pdf_ray[..., None]
+            thr_c = [scs[i]["thr"] * ms.transmittance * ms.sigma_s
+                     / pdf_ray[..., None] for i in range(4)]
+            S_ = torch.stack([thr_c[i] * S_[i] for i in range(4)])
+            W_ = W_ * w_cam
+            so_ = so_.to(torch.int64)
+            if use_manifold:
+                if lap is not None:
+                    lap("volume_gather")
+                me_key, me_cnt, me_y = me
+                me_q, me_b, total = _me_pairs(me_key, me_cnt, keep,
+                                              me_budget)
+                if lap is not None:
+                    lap("me:compact", part=True)
+                att = 0
+                if me_q.shape[0]:
+                    att = _beam3d_me_stage(
+                        scene, lb, pv_chain, me_q, me_b, me_y[me_q], ms.p,
+                        xs, [s["d"] for s in scs], d[sl], mic, cam_ok,
+                        pr_cam, thr_c, w_cam, border_lane[:, sl], r2, k3,
+                        S_, W_, so_, me_iters, lap)
+                me_drop = me_drop + total - att
+                me_pairs += me_q.shape[0]
+                if lap is not None:
+                    lap("volume_me")
             primal[sl] += w_cam * pr
-            for i in range(4):
-                S[i, sl] += scs[i]["thr"] * ms.transmittance * ms.sigma_s \
-                    / pdf_ray[..., None] * S_[i]
-                W[i, sl] += W_[i] * w_cam
+            S[:, sl] += S_
+            W[:, sl] += W_
             visits[sl] += v_
             shift_ok[sl] += so_
-    return _scaled((primal, S, W, visits, shift_ok),
-                   1.0 / (n_samples * n_emitted))
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return _scaled((primal, S, W, visits, shift_ok, zero + me_drop,
+                    zero + me_pairs), 1.0 / (n_samples * n_emitted))

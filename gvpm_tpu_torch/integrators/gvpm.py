@@ -1,8 +1,7 @@
 """G-VPM: gradient-domain volumetric photon density estimation
 (mirrors gvpm_tpu/integrators/gvpm.py: the `distance` and `bre` volume
 estimators, and the photon beams and planes `beam1d`, `beam3d` and
-`plane0d` without their manifold shifts, which are ROADMAP queue 1 item
-14c).
+`plane0d`, each with and without manifold shifts).
 
 Each progressive pass computes, besides the primal photon-density
 estimate, finite-difference gradients to the 4 neighbour pixels by
@@ -80,16 +79,11 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     stages of the gathers are phases of their own (surface_me,
     volume_me) and their parts are listed beside them under "me:..."
     keys (compact, chains, newton, ratios, occlusion), which the two
-    phases include. The volume estimator is `distance`, `bre`, or one of
-    the beams and planes (sppm.BEAM_VOLUMES), whose ME shifts are not
-    ported: they raise with cfg.use_manifold."""
+    phases include (a beam or plane volume runs its volume_me phase once
+    per segment chunk). The volume estimator is `distance`, `bre`, or one
+    of the beams and planes (sppm.BEAM_VOLUMES)."""
     if volume not in ("distance", "bre") + sppm.BEAM_VOLUMES:
         raise ValueError(volume)
-    if volume in sppm.BEAM_VOLUMES and cfg.use_manifold:
-        raise NotImplementedError(
-            f"gradient volume estimator {volume!r} with use_manifold=True: "
-            "the beam and plane ME shifts are ROADMAP queue 1 item 14c "
-            "(run it with use_manifold=False)")
     dev = scene.device
     n = px.shape[0]
     clock = PhaseClock(dev, timings)
@@ -205,24 +199,25 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
                 scene, cb, scb_list, grid_v, packed_v, n_photons, r_vol,
                 border_lane, max_per_cell=cfg.grid_max_photons_per_cell,
                 min_depth=cfg.min_depth)
+            med_v = mep_v = torch.zeros((), dtype=torch.int64, device=dev)
         elif volume == "beam1d":
-            p_v, S_v, W_v, v_v, so_v, _ = \
+            p_v, S_v, W_v, v_v, so_v, med_v, mep_v = \
                 gradient_gather.beam_gradient_gather(
                     scene, cb, scb_list, beams, n_photons, r_vol,
-                    border_lane)
+                    border_lane, seg_tile=cfg.beam_seg_tile, **me_kw)
         elif volume == "beam3d":
-            p_v, S_v, W_v, v_v, so_v, _ = \
+            p_v, S_v, W_v, v_v, so_v, med_v, mep_v = \
                 gradient_gather.beam3d_gradient_gather(
                     scene, cb, scb_list, beams, n_photons, r_vol, k_gather,
                     border_lane, n_samples=cfg.volume_samples,
-                    tile=cfg.beam_tile, seg_tile=cfg.beam_seg_tile)
+                    tile=cfg.beam_tile, seg_tile=cfg.beam_seg_tile, **me_kw)
         else:
-            p_v, S_v, W_v, v_v, so_v, _ = \
+            p_v, S_v, W_v, v_v, so_v, med_v, mep_v = \
                 gradient_gather.plane_gradient_gather(
                     scene, cb, scb_list, estimators.make_planes(
-                        scene, beams, k_gather), n_photons, border_lane)
-        dr_v = med_v = mep_v = torch.zeros((), dtype=torch.int64,
-                                           device=dev)
+                        scene, beams, k_gather), n_photons, border_lane,
+                    seg_tile=cfg.beam_seg_tile, **me_kw)
+        dr_v = torch.zeros((), dtype=torch.int64, device=dev)
     clock.lap("volume_gather")
     visits = visits + v_v.sum()
     shift_ok = shift_ok + so_v.sum()

@@ -1,5 +1,5 @@
 """Manifold (ME) shift: specular-chain photon shifts (mirrors
-gvpm_tpu/integrators/manifold.py without the beam variant).
+gvpm_tpu/integrators/manifold.py: the volume, surface and beam targets).
 
 A photon whose parent chain crosses delta (mirror / glass) vertices
 cannot take the diffuse reconnection shift. A pure-delta chain is a
@@ -60,11 +60,17 @@ _SLOT_MAJOR = ("prim", "enter", "branch_refl", "eta", "is_diel", "seg_med",
 # chain extraction
 # --------------------------------------------------------------------------
 
-def pull_chains(scene: Scene, pv, idx, virt=None):
+def pull_chains(scene: Scene, pv, idx=None, virt=None):
     """Walk parent_idx from each photon up to K_MAX specular parents.
 
     pv: flattened photon dict (original order); idx: [L] photon indices
-    (all in range). Returns a dict of tensors with lane dim L:
+    (all in range). virt (in place of idx): dict of [L] tensors standing
+    for the START vertex's record — a VIRTUAL photon with no stored
+    record. Keys: p (position), seg_med, parent_idx, reconnectable,
+    parent_type, parent_bsdf. The beam ME shift uses it: the virtual
+    photon is a point y on the beam and its parent the beam's origin
+    vertex (shiftBeamME, shift_volume_beams.cpp:748). Returns a dict of
+    tensors with lane dim L:
       ok          — photon admits an ME shift (pure-delta chain of length
                     1..K_MAX ending at a reconnectable anchor)
       k           — chain length
@@ -81,12 +87,9 @@ def pull_chains(scene: Scene, pv, idx, virt=None):
       w1_base     — base outgoing direction at the anchor [L,3]
       t_last      — base length of the final segment (sk -> photon) [L]
     """
-    if virt is not None:
-        raise NotImplementedError(
-            "virtual start vertices (the beam ME shift): ROADMAP queue 1 "
-            "item 14c")
-    L = idx.shape[0]
-    dev = idx.device
+    start = virt["p"] if virt is not None else idx
+    L = start.shape[0]
+    dev = start.device
     n = pv["p"].shape[0]
     nb = scene.bsdf_type.shape[0]
 
@@ -95,16 +98,22 @@ def pull_chains(scene: Scene, pv, idx, virt=None):
         # read is masked out below
         return pv[name][torch.clamp(j, 0, n - 1)]
 
-    # walk up: cur starts at the photon
-    cur = idx
+    def startf(name, cur):
+        return virt[name] if virt is not None else vfield(name, cur)
+
+    # walk up: cur starts at the (possibly virtual) photon
+    start_idx = idx if virt is None else torch.zeros(
+        (L,), dtype=torch.int64, device=dev)
+    cur = start_idx
     chain_idx = []          # photon-to-anchor order while walking
     alive = torch.ones((L,), dtype=torch.bool, device=dev)
     done = torch.zeros((L,), dtype=torch.bool, device=dev)
-    for _step in range(K_MAX):
-        par = vfield("parent_idx", cur)
-        rec = vfield("reconnectable", cur)
-        ptype = vfield("parent_type", cur)
-        pbsdf = vfield("parent_bsdf", cur)
+    for step in range(K_MAX):
+        field = startf if step == 0 else vfield
+        par = field("parent_idx", cur)
+        rec = field("reconnectable", cur)
+        ptype = field("parent_type", cur)
+        pbsdf = field("parent_bsdf", cur)
         bty = scene.bsdf_type[torch.clamp(pbsdf, 0, nb - 1)]
         is_delta = (bty == BSDF_CONDUCTOR) | (bty == BSDF_DIELECTRIC)
         step_ok = alive & ~done & ~rec & (ptype == shift.VERT_SURFACE) \
@@ -125,7 +134,7 @@ def pull_chains(scene: Scene, pv, idx, virt=None):
 
     # walked[m] = vertex m steps above the photon; slot j (0-based from
     # the anchor) is the vertex (k-1-j) steps above the photon
-    cur = idx
+    cur = start_idx
     walked = [cur]
     for ci, _sok in chain_idx:
         cur = torch.where(ci >= 0, ci, cur)
@@ -152,7 +161,7 @@ def pull_chains(scene: Scene, pv, idx, virt=None):
     wi_ch = chain("wi")                                # [K,L,3] arriving
     ns_ch = chain("ns")
     # outgoing dir at slot j: toward slot j+1 (or the photon for j=k-1)
-    photon_p = pv["p"][idx]
+    photon_p = virt["p"] if virt is not None else pv["p"][idx]
     nxt = torch.cat([pos[1:], photon_p[None]], dim=0)
     is_last = torch.arange(K_MAX, device=dev)[:, None] == (k - 1)[None, :]
     nxt = torch.where(is_last[..., None], photon_p[None], nxt)
@@ -165,7 +174,9 @@ def pull_chains(scene: Scene, pv, idx, virt=None):
     is_diel = scene.bsdf_type[bc] == BSDF_DIELECTRIC
     eta = scene.bsdf_eta[bc]
 
-    seg_med = torch.cat([chain("seg_med"), pv["seg_med"][idx][None]])
+    seg_med_last = virt["seg_med"] if virt is not None \
+        else pv["seg_med"][idx]
+    seg_med = torch.cat([chain("seg_med"), seg_med_last[None]])
     seg_med = torch.where(
         torch.cat([live, torch.ones((1, L), dtype=torch.bool, device=dev)]),
         seg_med, -1)
@@ -444,10 +455,15 @@ def _trust_step(du, n_dir):
 
 
 def _chain_ratios(scene, ch, w1_new, F_off, len_off, t_off, rho_off,
-                  rho_base, conv, surface_target, c_target, lap=None):
-    """Everything after the Newton solve, common to both targets: base
-    chain retrace, anchor scatter, Fresnel / transmittance / distance-pdf
-    / measure ratios and the validity mask. `lap` as in me_shift_volume."""
+                  rho_base, conv, target, end_p, lap=None):
+    """Everything after the Newton solve, common to the three targets
+    ("volume", "surface", "beam"): base chain retrace, anchor scatter,
+    Fresnel / transmittance / distance-pdf / measure ratios, the validity
+    mask and the occlusion sweep of the shifted chain up to end_p. A
+    beam's final segment (its origin to the target) is the beam itself,
+    which the beam estimator re-evaluates: it takes no final-segment
+    transmittance or distance-pdf ratio here. `lap` as in
+    me_shift_volume."""
     chl = _lanes(ch)
     _, _, ok_b, F_base, _, len_base = _retrace(scene, chl, chl["w1_base"])
 
@@ -470,34 +486,43 @@ def _chain_ratios(scene, ch, w1_new, F_off, len_off, t_off, rho_off,
     f_chain_ratio = torch.where(live, fr, 1.0).prod(dim=0)
     pdf_chain_ratio = torch.where(live & ch["is_diel"], fr, 1.0).prod(dim=0)
 
-    # transmittance + final-distance-pdf ratios, exact per segment
-    dlen = torch.cat([len_off - len_base, (t_off - ch["t_last"])[None]],
-                     dim=0)                                   # [K+1, L]
-    st = _sigma_t(scene, ch["seg_med"].t())                   # [L,K+1,3]
-    tr_ratio = torch.exp(-(st * dlen.t()[..., None]).sum(dim=1))
-    stl = _sigma_t(scene, ch["seg_med"][-1])
-    e_new = torch.exp(-stl * t_off[..., None])
-    e_old = torch.exp(-stl * ch["t_last"][..., None])
-    if surface_target:   # pdf_failure ratio (reaching the surface)
-        dens_new, dens_old = e_new.mean(-1), e_old.mean(-1)
+    # transmittance (+ final-distance-pdf) ratios, exact per segment
+    if target == "beam":
+        dlen = len_off - len_base                             # [K, L]
+        st = _sigma_t(scene, ch["seg_med"][:K_MAX].t())       # [L,K,3]
     else:
-        dens_new, dens_old = (stl * e_new).mean(-1), (stl * e_old).mean(-1)
-    pdf_dist_ratio = torch.where(
-        dens_old > 1e-20, dens_new / torch.clamp(dens_old, min=1e-20), 1.0)
+        dlen = torch.cat([len_off - len_base,
+                          (t_off - ch["t_last"])[None]], dim=0)  # [K+1, L]
+        st = _sigma_t(scene, ch["seg_med"].t())               # [L,K+1,3]
+    tr_ratio = torch.exp(-(st * dlen.t()[..., None]).sum(dim=1))
 
     rho_ratio = rho_base / torch.clamp(rho_off, min=1e-20)   # alpha factor
     alpha_ratio = sc_ratio * f_chain_ratio[..., None] * tr_ratio \
         * rho_ratio[..., None]
-    pdf_ratio = pdf_dir_ratio * pdf_chain_ratio * pdf_dist_ratio \
-        * rho_ratio
+    pdf_ratio = pdf_dir_ratio * pdf_chain_ratio
+    if target != "beam":
+        stl = _sigma_t(scene, ch["seg_med"][-1])
+        e_new = torch.exp(-stl * t_off[..., None])
+        e_old = torch.exp(-stl * ch["t_last"][..., None])
+        if target == "surface":   # pdf_failure ratio (reaching the surface)
+            dens_new, dens_old = e_new.mean(-1), e_old.mean(-1)
+        else:
+            dens_new = (stl * e_new).mean(-1)
+            dens_old = (stl * e_old).mean(-1)
+        pdf_ratio = pdf_ratio * torch.where(
+            dens_old > 1e-20, dens_new / torch.clamp(dens_old, min=1e-20),
+            1.0)
+    pdf_ratio = pdf_ratio * rho_ratio
     t2 = torch.clamp(t_off, min=1e-3) ** 2
     t2b = torch.clamp(ch["t_last"], min=1e-3) ** 2
     ok = (ch["ok"] & conv & ok_b & ok_an
           & (ch["pdf_dir_base"] > 1e-20) & (pdf_new > 0.0)
           & (rho_off > FOLD_EPS * t2) & (rho_base > FOLD_EPS * t2b))
+    if target == "beam":
+        ok = ok & (t_off > 1e-5)
     if lap is not None:
         lap("me:ratios", part=True)
-    ok = ok & ~chain_occluded(scene, ch, w1_new, c_target)
+    ok = ok & ~chain_occluded(scene, ch, w1_new, end_p)
     if lap is not None:
         lap("me:occlusion", part=True)
     return (torch.where(ok[..., None], alpha_ratio, 0.0),
@@ -525,6 +550,20 @@ def me_shift_volume(scene: Scene, ch, c_target, n_iters=5,
         ep, ed, ok, F, _ci, ln = _retrace(scene, chl3, w1)
         return ep + ed * u[:, 2:3], (ok, F.t(), ln.t(), w1, ed)
 
+    u, conv, rho_off, rho_base, aux = _newton3(c_of, ch, c_target, n_iters,
+                                               scene_scale)
+    ok_tr, F_off, len_off, w1_new, wi_new = aux
+    if lap is not None:
+        lap("me:newton", part=True)
+    return _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(), u[:, 2],
+                         rho_off, rho_base, conv & ok_tr, "volume",
+                         c_target, lap) + (wi_new,)
+
+
+def _newton3(c_of, ch, c_target, n_iters, scene_scale):
+    """Newton solve of c_of(u) = c_target in the unknowns u = (a, b, t)
+    from (0, 0, t_last), c_of as in me_shift_volume. Returns (u,
+    converged, rho_off, rho_base, aux of c_of at the solution)."""
     u = torch.stack([torch.zeros_like(ch["t_last"]),
                      torch.zeros_like(ch["t_last"]), ch["t_last"]], dim=-1)
     c, J, aux = _lane_jacobian(c_of, u)
@@ -538,9 +577,6 @@ def me_shift_volume(scene: Scene, ch, c_target, n_iters=5,
         # free-flight distance, scene-scaled: left unclamped)
         u = torch.where(ok_step[:, None], u - _trust_step(du, 2), u)
         c, J, aux = _lane_jacobian(c_of, u)
-    ok_tr, F_off, len_off, w1_new, wi_new = aux
-    if lap is not None:
-        lap("me:newton", part=True)
     conv = (_norm(c - c_target) < NEWTON_EPS * scene_scale) \
         & (torch.sqrt(u[:, 0] ** 2 + u[:, 1] ** 2) < MAX_DEV)
     # geometric expansion |dc/d(a,b,t)| at the solution and at base;
@@ -548,10 +584,7 @@ def me_shift_volume(scene: Scene, ch, c_target, n_iters=5,
     # d(omega)/d(a,b) = (1+a^2+b^2)^(-3/2)
     s_off = (1.0 + u[:, 0] ** 2 + u[:, 1] ** 2) ** -1.5
     rho_off = torch.abs(_det3(J)) / torch.clamp(s_off, min=1e-12)
-    rho_base = torch.abs(_det3(J_base))
-    return _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(), u[:, 2],
-                         rho_off, rho_base, conv & ok_tr, False,
-                         c_target, lap) + (wi_new,)
+    return u, conv, rho_off, torch.abs(_det3(J_base)), aux
 
 
 def me_shift_surface(scene: Scene, ch, photon_prim, photon_ns,
@@ -615,11 +648,42 @@ def me_shift_surface(scene: Scene, ch, photon_prim, photon_ns,
     rho_off = torch.abs(det2(J)) / torch.clamp(s_off, min=1e-12)
     rho_base = torch.abs(det2(J_base))
     return _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(), t_end,
-                         rho_off, rho_base, conv & ok_tr, True,
+                         rho_off, rho_base, conv & ok_tr, "surface",
                          c_target, lap) + (wi_new,)
 
 
-def me_shift_beam(*_args, **_kw):
-    raise NotImplementedError(
-        "the beam ME shift of the gradient beams and planes: ROADMAP "
-        "queue 1 item 14c")
+def me_shift_beam(scene: Scene, ch, y_target, n_iters=5, scene_scale=1.0,
+                  lap=None):
+    """ME shift of a BEAM pair (shiftBeamME, shift_volume_beams.h:440 /
+    shift_volume_beams.cpp:748).
+
+    ch: chain dict from pull_chains(..., virt=...) whose virtual photon
+    is the base point y on the beam, so the final chain vertex is the
+    beam's (delta) origin A. Newton solves the chain so that the new
+    beam A' + t dir' passes exactly through y_target (unknowns: the
+    anchor direction's two tangent offsets and the beam parameter t).
+    The ratios cover the anchor scatter, the chain's Fresnel terms and
+    transmittances and the manifold measure; the beam segment A' -> y'
+    is the beam estimator's to re-evaluate. `lap` as in me_shift_volume.
+
+    Returns (origin_new [L,3], dir_new [L,3], t_new [L], alpha_ratio
+    [L,3], pdf_ratio [L], ok [L])."""
+    s_ax, t_ax = coordinate_system(ch["w1_base"])
+    chl3 = _rep(_lanes(ch), 3)
+    sa3, ta3 = s_ax.repeat(3, 1), t_ax.repeat(3, 1)
+
+    def c_of(u):
+        w1 = _w1_of(chl3, sa3, ta3, u)
+        ep, ed, ok, F, _ci, ln = _retrace(scene, chl3, w1)
+        return ep + ed * u[:, 2:3], (ok, F.t(), ln.t(), w1, ep, ed)
+
+    u, conv, rho_off, rho_base, aux = _newton3(c_of, ch, y_target, n_iters,
+                                               scene_scale)
+    ok_tr, F_off, len_off, w1_new, org_new, dir_new = aux
+    if lap is not None:
+        lap("me:newton", part=True)
+    t_new = u[:, 2]
+    ar, pr, ok = _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(),
+                               t_new, rho_off, rho_base, conv & ok_tr,
+                               "beam", org_new, lap)
+    return org_new, dir_new, t_new, ar, pr, ok

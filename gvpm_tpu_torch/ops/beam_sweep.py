@@ -9,14 +9,20 @@ per estimator, summed per query.
   plane0d — camera segment x photon plane, Moller-Trumbore, 0D
             (:401 plane_gather)
 
-and their G-VPM gradient versions with use_manifold=False
-(gvpm_tpu/integrators/gradient_gather.py): gbeam1d (:1232
-beam_gradient_gather), gbeam3d (:1580 beam3d_gradient_gather) and
-gplane0d (:1960 plane_gradient_gather). A gradient pair that passes the
-base test is shifted to the four offset pixels: reconnected at the
-beam's origin when its lobe allows it (gplane0d: the plane rotated about
-its origin), else the same beam or plane against the offset ray, with
-pairwise MIS.
+and their G-VPM gradient versions (gvpm_tpu/integrators/
+gradient_gather.py): gbeam1d (:1232 beam_gradient_gather), gbeam3d
+(:1580 beam3d_gradient_gather) and gplane0d (:1960
+plane_gradient_gather). A gradient pair that passes the base test is
+shifted to the four offset pixels: reconnected at the beam's origin when
+its lobe allows it (gplane0d: the plane rotated about its origin), else
+the same beam or plane against the offset ray, with pairwise MIS. Their
+use_manifold=True kinds (gbeam1d_me, gbeam3d_me, gplane0d_me) take no
+identity shift for a beam whose origin is an ME-eligible delta vertex
+(marked -1 in its tail's reconnectable slot, `pack_tails`) and also
+return, per query, the lowest packed index of such a beam among its
+accepted pairs (int32, fused_gather.ME_NONE if none), the number of
+those pairs, and for gbeam3d_me the chosen pair's chord point [M,3]:
+the host's ME stage resolves that pair (integrators/gradient_gather.py).
 
 The JAX package leaves these to XLA as dense lax.scan tile loops over
 all beam slots; the TPU has no kernel for them. Here `sweep` / `gsweep`
@@ -59,6 +65,7 @@ import threading
 import torch
 
 from . import nvcc
+from .fused_gather import ME_NONE
 from ..core import rng
 from ..core import warp
 from ..integrators import planar as pl
@@ -67,8 +74,9 @@ from ..scene.types import PHASE_HG, PHASE_RAYLEIGH
 
 KINDS = ("beam1d", "beam3d", "plane0d")
 GKINDS = ("gbeam1d", "gbeam3d", "gplane0d")
+GKINDS_ME = tuple(k + "_me" for k in GKINDS)
 # kernel launches per kind, counted by the wrapper where it launches
-LAUNCHES = dict.fromkeys(KINDS + GKINDS, 0)
+LAUNCHES = dict.fromkeys(KINDS + GKINDS + GKINDS_ME, 0)
 
 # query-row and beam-row slots (csrc/beam_eval.cuh QSlot / BSlot). A
 # beam3d query's "o" is its distance sample x. A beam row's "d" /
@@ -161,14 +169,18 @@ def pack_offsets(o, d, length, ok, sens, border):
         .contiguous()
 
 
-def pack_tails(fields, keep):
+def pack_tails(fields, keep, me_elig=None):
     """[N, TW] float32 gradient tails of the kept beams (`keep`, the
     index pack_beams returns): `fields` holds the TSLOT entries over all
-    beam slots."""
+    beam slots. me_elig (an ME sweep's, over all beam slots): the
+    ME-eligible beams, whose reconnectable slot holds -1 (eligibility
+    implies not reconnectable)."""
     rows = torch.zeros((keep.shape[0], TW), dtype=torch.float32,
                        device=keep.device)
     for name, k in TSLOT.items():
         v = fields[name][keep].to(torch.float32)
+        if name == "reconnectable" and me_elig is not None:
+            v = torch.where(me_elig[keep], -1.0, v)
         rows[:, k:k + (v.shape[1] if v.dim() == 2 else 1)] = \
             v if v.dim() == 2 else v[:, None]
     return rows
@@ -448,11 +460,13 @@ def _gbase_plane0d(q, b, p, m0):
 
 def _parent(t):
     """The beams' origin lobes (TSLOT columns of the pairs' tails) ->
-    the arguments of planar.parent_scatter_params and the old values."""
+    the arguments of planar.parent_scatter_params, the old values, and
+    `me`: the beam is left to the ME stage (pack_tails' -1)."""
     return dict(
         A=t.f3("parent_p"), ptype=t.f1("parent_type"),
         pwi=t.f3("parent_wi"), pns=t.f3("parent_ns"),
-        reconn=t.b1("reconnectable"), sc_old=t.f3("scatter_base"),
+        reconn=t.b1("reconnectable"), me=t.f1("reconnectable") < -0.5,
+        sc_old=t.f3("scatter_base"),
         pdf_old=t.f1("pdf_dir_base"),
         bparams=dict(btype=t.f1("bp_btype"), alb=t.f3("bp_alb"),
                      spec=t.f3("bp_spec"), eta3=t.f3("bp_eta3"),
@@ -527,8 +541,9 @@ def _gpair_beam1d(q, b, t, x, p, us):
         # identity: the same beam against the offset ray
         bi, deni, pari, tci, tbi = _closest(so, sd, ob, db)
         di = _sub3(_madd3(so, sd, tci), _madd3(ob, db, tbi))
-        ok_id = ~a["reconn"] & ~pari & sval & (tci > 1e-5) & (tci < slen) \
-            & (tbi > 1e-5) & (tbi < lb) & (_dot3(di, di) < p.r2)
+        ok_id = ~a["reconn"] & ~a["me"] & ~pari & sval & (tci > 1e-5) \
+            & (tci < slen) & (tbi > 1e-5) & (tbi < lb) \
+            & (_dot3(di, di) < p.r2)
         sin_i = torch.sqrt(torch.clamp(deni, min=1e-12))
         s_i = pl.phase_params(-bi, g, pt) * p.k \
             / (sin_i * torch.clamp(_survival(q, tbi), min=1e-9))
@@ -597,7 +612,7 @@ def _gpair_beam3d(q, b, t, x, p, us):
         s0i, chord_i = _chord(xs, ob, db, lb, p.r2)
         s_id = s0i + us * chord_i
         ei = _sub3(xs, _madd3(ob, db, s_id))
-        ok_id = ~a["reconn"] & cam_ok & (chord_i > 0.0) \
+        ok_id = ~a["reconn"] & ~a["me"] & cam_ok & (chord_i > 0.0) \
             & (_dot3(ei, ei) < p.r2)
         k_i = chord_i * p.k * pl.phase_params(-_dot3(db, sd), g, pt) \
             / torch.clamp(_survival(q, s_id), min=1e-9)
@@ -680,8 +695,9 @@ def _gpair_plane0d(q, b, t, x, p, us):
             / torch.clamp(scale * scale, min=1e-12)
         # identity: the same plane against the offset ray
         u0i, u1i, tci, oki = _plane_hit(so, sd, b)
-        ok_id = ~a["reconn"] & oki & sval & (u0i >= 0.0) & (u0i <= 1.0) \
-            & (u1i >= 0.0) & (u1i <= 1.0) & (tci > 1e-5) & (tci < slen)
+        ok_id = ~a["reconn"] & ~a["me"] & oki & sval & (u0i >= 0.0) \
+            & (u0i <= 1.0) & (u1i >= 0.0) & (u1i <= 1.0) & (tci > 1e-5) \
+            & (tci < slen)
         t0i, t1i = u0i * pl0, u1i * pl1
         jaci = torch.abs(_dot3(pw0, _cross3(pw1, sd)))
         k_i = pl.phase_params(-_dot3(pw1, sd), g, pt) \
@@ -702,27 +718,53 @@ GPAIRS = dict(gbeam1d=(_gbase_beam1d, _gpair_beam1d),
 
 
 def _grad_out(out, cnt):
-    """[M, 27] sums and [M, 2] counts -> (primal [M,3], S [4,M,3],
-    W [4,M,3], visits [M], shift_ok [M])."""
+    """[M, NF] sums and [M, NC] counts of a gradient sweep -> (primal
+    [M,3], S [4,M,3], W [4,M,3], visits [M], shift_ok [M]) and, for an ME
+    kind (NC 4), (ME key [M], ME pairs [M], gbeam3d_me's chord point
+    [M,3] or None)."""
     M = out.shape[0]
-    return (out[:, :3], out[:, 3:15].reshape(M, 4, 3).movedim(1, 0),
-            out[:, 15:27].reshape(M, 4, 3).movedim(1, 0), cnt[:, 0],
-            cnt[:, 1])
+    res = (out[:, :3], out[:, 3:15].reshape(M, 4, 3).movedim(1, 0),
+           out[:, 15:27].reshape(M, 4, 3).movedim(1, 0), cnt[:, 0],
+           cnt[:, 1])
+    if cnt.shape[1] == 2:
+        return res
+    return res + (cnt[:, 2], cnt[:, 3],
+                  out[:, NF_GRAD:] if out.shape[1] > NF_GRAD else None)
+
+
+def _widths(kind):
+    """(float, int) accumulators a query of gradient sweep `kind`."""
+    if kind not in GKINDS_ME:
+        return NF_GRAD, 2
+    return NF_GRAD + (3 if kind == "gbeam3d_me" else 0), 4
+
+
+def _chord_point(q, b, p, us):
+    """gbeam3d's chord sample y on pair planes (its base test's point)."""
+    ob, db = b.f3("o"), b.f3("d")
+    s0, chord = _chord(q.f3("o"), ob, db, b.f1("length"), p.r2)
+    return _madd3(ob, db, s0 + us * chord)
 
 
 def gsweep_plain(kind, q, qx, rows, tails, p: Params, stats=None):
     """The gradient sweeps' plain PyTorch version: the base test on
     [Mc, T] planes (chunks of at most PLAIN_MAX_PAIRS pairs), the shifts
-    on its accepted pairs, summed per query. `stats`, when given,
+    on its accepted pairs, summed per query; an ME kind's key, ME pair
+    count and chord point from the same planes. `stats`, when given,
     receives the pairs past the primal sweep's first tests ("stage2":
     for gbeam3d those that draw a threefry word), the accepted pairs
-    ("accepted") and those of them on a reconnectable beam ("reconn").
-    Returns gsweep's tuple."""
+    ("accepted") and those of them on a reconnectable beam ("reconn") or
+    on an ME-eligible one ("me"). Returns gsweep's tuple."""
     M, N = q.shape[0], rows.shape[0]
     dev = q.device
-    out = torch.zeros((M, NF_GRAD), dtype=torch.float32, device=dev)
+    nf, nc = _widths(kind)
+    me = nc == 4
+    out = torch.zeros((M, nf), dtype=torch.float32, device=dev)
     cnt = torch.zeros((M, 2), dtype=torch.int64, device=dev)
-    base_fn, pair_fn = GPAIRS[kind]
+    me_key = torch.full((M,), ME_NONE, dtype=torch.int64, device=dev)
+    me_cnt = torch.zeros((M,), dtype=torch.int64, device=dev)
+    gkind = kind.removesuffix("_me")
+    base_fn, pair_fn = GPAIRS[gkind]
     tb = max(1, min(N, max(256, PLAIN_MAX_PAIRS // max(M, 1))))
     mc = max(1, min(M, PLAIN_MAX_PAIRS // tb))
     for m0 in range(0, M, mc):
@@ -732,12 +774,30 @@ def gsweep_plain(kind, q, qx, rows, tails, p: Params, stats=None):
                 if p.keys is not None else p
             okb, us, stage2 = base_fn(
                 qc, _Cols(rows[j0:j0 + tb], BSLOT, (1, -1)), pp, m0)
+            if me:
+                # the lowest eligible beam of each query's accepted pairs
+                elig = okb & (tails[j0:j0 + tb, TSLOT["reconnectable"]]
+                              < -0.5)[None]
+                sl = slice(m0, m0 + okb.shape[0])
+                me_cnt[sl] += elig.sum(1)
+                js = torch.arange(j0, j0 + okb.shape[1], device=dev)
+                first = torch.where(elig, js[None], ME_NONE).amin(1)
+                new = first < me_key[sl]
+                me_key[sl] = torch.where(new, first, me_key[sl])
+                if gkind == "gbeam3d" and bool(new.any()):
+                    qn = torch.nonzero(new)[:, 0]
+                    bn = first[qn]
+                    y = _chord_point(_Cols(q[m0 + qn], QSLOT, (-1,)),
+                                     _Cols(rows[bn], BSLOT, (-1,)), pp,
+                                     us[qn, bn - j0])
+                    out[m0 + qn, NF_GRAD:] = torch.stack(y, dim=1)
             mm, jj = torch.nonzero(okb, as_tuple=True)
             if stats is not None:
-                n_rc = int((tails[j0 + jj, TSLOT["reconnectable"]]
-                            > 0.5).sum())
+                rc = tails[j0 + jj, TSLOT["reconnectable"]]
                 for k, v in (("stage2", int(stage2.sum())),
-                             ("accepted", int(mm.numel())), ("reconn", n_rc)):
+                             ("accepted", int(mm.numel())),
+                             ("reconn", int((rc > 0.5).sum())),
+                             ("me", int((rc < -0.5).sum()))):
                     stats[k] = stats.get(k, 0) + v
             if mm.numel() == 0:
                 continue
@@ -748,21 +808,26 @@ def gsweep_plain(kind, q, qx, rows, tails, p: Params, stats=None):
                 None if us is None else us[mm, jj])
             cols = list(base) + [c for s in S for c in s] \
                 + [c for w in W for c in w]
-            out.index_add_(0, qi, torch.stack(cols, dim=1))
+            out[:, :NF_GRAD].index_add_(0, qi, torch.stack(cols, dim=1))
             cnt.index_add_(0, qi, torch.stack(
                 [torch.ones_like(mm), sum(o.to(torch.int64) for o in oks)],
                 dim=1))
+    if me:
+        cnt = torch.cat([cnt, me_key[:, None], me_cnt[:, None]], dim=1)
     return _grad_out(out, cnt.to(torch.int32))
 
 
 def gsweep(kind, q, qx, rows, tails, p: Params):
-    """The gradient sweep `kind` (GKINDS) over every (query, beam) pair:
-    CUDA tensors launch the kernel, CPU tensors take the plain version.
-    q: pack_queries rows (beam3d: the distance samples); qx: pack_offsets
-    rows; rows / tails: pack_beams / pack_tails of the kept beams.
-    Returns (primal [M,3], S [4,M,3], W [4,M,3], visits [M], shift_ok
-    [M]), the last two int32, without the camera throughputs."""
-    if kind not in GKINDS:
+    """The gradient sweep `kind` (GKINDS or GKINDS_ME) over every
+    (query, beam) pair: CUDA tensors launch the kernel, CPU tensors take
+    the plain version. q: pack_queries rows (beam3d: the distance
+    samples); qx: pack_offsets rows; rows / tails: pack_beams /
+    pack_tails of the kept beams (an ME kind's with me_elig). Returns
+    (primal [M,3], S [4,M,3], W [4,M,3], visits [M], shift_ok [M]), the
+    counts int32, without the camera throughputs; an ME kind also (ME
+    key [M], ME pairs [M], both int32, and gbeam3d_me's chord point
+    [M,3], else None)."""
+    if kind not in GKINDS + GKINDS_ME:
         raise ValueError(f"beam_sweep: no gradient pair function {kind!r}")
     if q.device.type == "cpu":
         return gsweep_plain(kind, q, qx, rows, tails, p)
@@ -787,7 +852,7 @@ def build():
                                              NVCC_FLAGS, "beam_sweep"))
         vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_float, ctypes.c_int)
-        for kind in KINDS + GKINDS:
+        for kind in LAUNCHES:
             fn = getattr(lib, f"gvpm_beam_sweep_{kind}")
             fn.argtypes = [vp, i64, vp, vp, vp, vp, i64, i32, f32, f32, i32,
                            i64, vp, vp, vp, vp, vp]
@@ -797,13 +862,16 @@ def build():
 
 
 def build_report():
-    """ptxas's resources of the six sweep_kernel<Pair>
+    """ptxas's resources of the nine sweep_kernel<Pair>
     instantiations: {kind: dict(registers, spill_stores, spill_loads,
     stack, smem)}."""
     build()
-    # mangled names: the primal ones as Primal<Beam1D> etc.
-    tags = dict(GBeam1D="gbeam1d", GBeam3D="gbeam3d", GPlane0D="gplane0d",
-                Beam1D="beam1d", Beam3D="beam3d", Plane0D="plane0d")
+    # mangled names: the primal ones as Primal<Beam1D>, the gradient ones
+    # as GBeam1DT<false> ("ILb0E") and GBeam1DT<true> ("ILb1E") etc.
+    tags = {f"{t}TILb{int(me)}E": k + ("_me" if me else "")
+            for t, k in (("GBeam1D", "gbeam1d"), ("GBeam3D", "gbeam3d"),
+                         ("GPlane0D", "gplane0d")) for me in (True, False)}
+    tags.update(Beam1D="beam1d", Beam3D="beam3d", Plane0D="plane0d")
     return {next(k for t, k in tags.items() if t in name): r
             for name, r in nvcc.build_report(_CSRC, SOURCES, _BUILD,
                                              NVCC_FLAGS).items()
@@ -827,12 +895,13 @@ def launch_kernel(kind, q, rows, p: Params, qx=None, tails=None):
     synchronize); raises on inputs the kernel does not take or a refused
     launch. Returns the [M, NF] sums and [M, NC] counts (a primal kind:
     [M, 3] and [M]; a gradient one, which also takes the offset rows qx
-    and the beams' tails: [M, 27] and [M, 2])."""
+    and the beams' tails: [M, 27] and [M, 2], an ME kind [M, 27 or 30]
+    and [M, 4])."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"beam_sweep: the kernel runs on CUDA tensors, "
                          f"not on {dev}")
-    grad = kind in GKINDS
+    grad = kind in GKINDS + GKINDS_ME
     checks = [("query rows", q, QW), ("beam rows", rows, BW)]
     if grad:
         checks += [("offset rows", qx, XW), ("beam tails", tails, TW)]
@@ -848,7 +917,7 @@ def launch_kernel(kind, q, rows, p: Params, qx=None, tails=None):
         raise ValueError("beam_sweep: one offset row a query and one tail "
                          "a beam")
     keys = None
-    if kind in ("beam3d", "gbeam3d"):
+    if kind in ("beam3d", "gbeam3d", "gbeam3d_me"):
         if p.keys is None or p.keys.shape != (N, 4) \
                 or p.keys.dtype != torch.int32 or p.keys.device != dev \
                 or not p.keys.is_contiguous():
@@ -858,10 +927,12 @@ def launch_kernel(kind, q, rows, p: Params, qx=None, tails=None):
             raise ValueError("beam_sweep: beam3d's counters m * tile + "
                              "lane must stay below 2^32")
         keys = p.keys.data_ptr()
-    nf, nc = (NF_GRAD, 2) if grad else (3, 1)
+    nf, nc = _widths(kind) if grad else (3, 1)
     out = torch.zeros((M, nf), dtype=torch.float32, device=dev)
     cnt = torch.zeros((M, nc), dtype=torch.int32, device=dev)
     if M == 0 or N == 0:
+        if nc == 4:
+            cnt[:, 2] = ME_NONE
         return out, cnt if grad else cnt[:, 0]
     splits, chunk = split_plan(M, N)
     part = torch.empty((splits, M, nf), dtype=torch.float32, device=dev)

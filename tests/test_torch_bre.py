@@ -16,6 +16,7 @@ no stencil exceeds (ROADMAP.md section 3: the strided overflow subsample
 turns last-bit radius differences into other photons), and holds the
 JAX package's `dense` surface driver against the port's exact runs."""
 
+import dataclasses
 import functools
 
 import jax
@@ -221,9 +222,9 @@ def test_gvpm_bre_pass_matches_jax():
 def test_gvpm_bre_renders_with_defaults_and_camera_sphere():
     """The default use_manifold=True pass (K2-ME on the surface) and the
     camera-sphere cull: finite images, the cull keeps fewer visits; the
-    gradient beams and planes raise naming their item (14c, their ME
-    shifts) with use_manifold=True and render with the camera-sphere
-    cull and use_manifold=False."""
+    gradient beams and planes render with the camera-sphere cull, with
+    use_manifold=True (their ME shifts, ported since ROADMAP item 14c:
+    they no longer raise) and False, the same visits either way."""
     scene = port_scene_from_jax(jax_scene())
     cfg = GradientConfig(**dict(CFG_KW, use_manifold=True))
     r = sppm.base_volume_radius(scene, cfg)
@@ -238,11 +239,13 @@ def test_gvpm_bre_renders_with_defaults_and_camera_sphere():
     assert 0 < int(cull[3]["visits"]) < int(full[3]["visits"])
     no_me = GradientConfig(**dict(CFG_KW, use_manifold=False,
                                   camera_sphere=1.5))
+    me = dataclasses.replace(no_me, use_manifold=True)
     for volume in ("beam1d", "beam3d", "plane0d"):
-        with pytest.raises(NotImplementedError, match="item 14c"):
-            gvpm.render_pass(scene, cfg, volume, N_PHOTONS, SEED, IT, 1.0,
-                             1.0, r)
+        with_me = gvpm.render_pass(scene, me, volume, N_PHOTONS, SEED, IT,
+                                   1.0, 1.0, r)
         out = gvpm.render_pass(scene, no_me, volume, N_PHOTONS, SEED, IT,
                                1.0, 1.0, r)
-        assert all(bool(torch.isfinite(a).all()) for a in out[:3]), volume
+        for o in (with_me, out):
+            assert all(bool(torch.isfinite(a).all()) for a in o[:3]), volume
         assert int(out[3]["visits"]) > 0, volume
+        assert int(with_me[3]["visits"]) == int(out[3]["visits"]), volume

@@ -189,11 +189,11 @@ def test_eval_bsdf_gather_all_types_matches_jax():
 
 def test_unported_estimators_raise():
     """Every SPPM volume estimator of the JAX package is ported (their
-    parity tests: test_torch_bre.py, test_torch_beams.py); what is left
-    raises naming its ROADMAP item: the gradient beams and planes with
-    use_manifold=True (item 14c, their ME shifts). With use_manifold=False
-    they render (finite, visits above 0; their parity tests:
-    test_torch_gbeams*.py). An unknown estimator is a ValueError."""
+    parity tests: test_torch_bre.py, test_torch_beams.py), and since
+    ROADMAP item 14c no gvpm one raises: the gradient beams and planes
+    render with use_manifold=True and False (finite, the same visits
+    above 0; their parity tests: test_torch_gbeams*.py). An unknown
+    estimator is a ValueError."""
     from gvpm_tpu_torch.core.config import GradientConfig
     from gvpm_tpu_torch.integrators import gvpm
     assert sppm.VOLUME_ESTIMATORS == jsppm.VOLUME_ESTIMATORS
@@ -203,12 +203,14 @@ def test_unported_estimators_raise():
                          grid_dims=(8, 8, 8))
     no_me = dataclasses.replace(cfg, use_manifold=False)
     for volume in ("beam1d", "beam3d", "plane0d"):
-        with pytest.raises(NotImplementedError, match="item 14c"):
-            gvpm.render_pass(scene, cfg, volume, 64, 0, 0, 1.0, 1.0, 0.02)
+        with_me = gvpm.render_pass(scene, cfg, volume, 64, 0, 0, 1.0, 1.0,
+                                   0.02)
         out = gvpm.render_pass(scene, no_me, volume, 64, 0, 0, 1.0, 1.0,
                                0.02)
-        assert all(bool(torch.isfinite(a).all()) for a in out[:3]), volume
+        for o in (with_me, out):
+            assert all(bool(torch.isfinite(a).all()) for a in o[:3]), volume
         assert int(out[3]["visits"]) > 0, volume
+        assert int(with_me[3]["visits"]) == int(out[3]["visits"]), volume
     for render in (sppm.render_pass, gvpm.render_pass):
         with pytest.raises(ValueError):
             render(scene, cfg, "beam2d", 64, 0, 0, 1.0, 1.0, 0.02)

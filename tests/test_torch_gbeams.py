@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gvpm_tpu.core import rng as jrng
 from gvpm_tpu.integrators import estimators as jest
@@ -140,11 +141,15 @@ def test_gradient_gather_matches_jax(stages, kind):
 
 
 def test_beam_volumes_raise_with_manifold():
-    """With use_manifold=True the beam and plane volumes raise naming
-    ROADMAP item 14c (their ME shifts are not ported)."""
+    """With use_manifold=True (the default) the beam and plane volumes
+    no longer raise naming ROADMAP item 14c: their ME shifts are ported,
+    and each volume renders a pass with finite buffers and ME pairs
+    taken (their parity with the JAX package is held in
+    tests/test_torch_gbeams_me*.py)."""
     scene = port_scene_from_jax(jax_scene())
     cfg = GradientConfig(**dict(CFG_KW, use_manifold=True))
     for volume in sppm.BEAM_VOLUMES:
-        with pytest.raises(NotImplementedError, match="item 14c"):
-            gvpm.render_pass(scene, cfg, volume, N_PHOTONS, SEED, IT, 1.0,
-                             1.0, sppm.base_volume_radius(scene, cfg))
+        out = gvpm.render_pass(scene, cfg, volume, N_PHOTONS, SEED, IT, 1.0,
+                               1.0, sppm.base_volume_radius(scene, cfg))
+        assert all(bool(torch.isfinite(a).all()) for a in out[:3]), volume
+        assert int(out[3]["me_pairs"]) > 0, volume

@@ -205,8 +205,24 @@ def test_chain_occlusion_blocker():
 
 
 def test_beam_variant_is_not_ported(me_case):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        manifold.me_shift_beam(me_case["scene"], {}, None)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        manifold.pull_chains(me_case["scene"], me_case["tph"],
-                             torch.zeros(1, dtype=torch.int64), virt={})
+    """The beam variant, ported since (ROADMAP item 14c; its parity with
+    the JAX package is tests/test_torch_beam_me_shift.py): a virtual
+    start vertex that copies a volume photon's own record walks the
+    photon's chain field for field, and the beam shift of that chain to
+    the photon's own position is the identity (every ratio 1, at
+    IDENTITY_ATOL, on the first 64 lanes)."""
+    c, tph = me_case["volume"], me_case["tph"]
+    idx = torch.tensor(c["idx"])
+    virt = {k: tph[k][idx] for k in ("p", "seg_med", "parent_idx",
+                                     "reconnectable", "parent_type",
+                                     "parent_bsdf")}
+    ch = manifold.pull_chains(me_case["scene"], tph, virt=virt)
+    assert set(ch) == set(c["tch"])
+    for name, v in c["tch"].items():
+        assert torch.equal(ch[name], v), name
+    *_, ar, pr, ok = (a[:64].numpy() for a in manifold.me_shift_beam(
+        me_case["scene"], ch, virt["p"], scene_scale=SCALE))
+    atol = IDENTITY_ATOL[me_case["name"]]
+    assert ok.mean() > 0.9
+    np.testing.assert_allclose(ar[ok], 1.0, atol=atol)
+    np.testing.assert_allclose(pr[ok], 1.0, atol=atol)
