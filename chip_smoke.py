@@ -42,7 +42,12 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 test on dense planes, its shifts on the accepted pairs
                 only), visits and shift_ok exactly equal, sums at rtol
                 2e-4 / atol 5e-6, two launches bitwise equal; kernel and
-                plain ms and the bound (`gbeam_bound`).
+                plain ms, the bound (`gbeam_bound`) and the kernel's share
+                of it, its registers and spills; for gbeam1d and gplane0d
+                (csrc/gsweep.cu) the lane use of their shift bodies in
+                one thread a query and in the queued kernel
+                (`gsweep_lane_use`); last, the unchanged kernels' ms as a
+                control line (the primal sweeps and gbeam3d).
   3e. gbeams-me — the same three sweeps' ME instantiations (gbeam1d_me,
                 gbeam3d_me, gplane0d_me) on the inputs of one gvpm pass
                 of each with the default use_manifold=True: the kernel
@@ -53,7 +58,16 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 chord point exactly equal on those rows, sums at rtol
                 2e-4 / atol 5e-6, two launches bitwise equal; kernel and
                 plain ms and the bound (its counts from a dense base test
-                over every pair, `gsweep_stats`).
+                over every pair, `gsweep_stats`), registers and spills.
+  3f. gbeams-stress — gbeam1d, gplane0d and their ME kinds on a small
+                seeded input a render cannot give (`gsweep_stress_inputs`:
+                a query accepting every beam of three tiles, ragged query
+                and beam counts, invalid queries, a medium mismatch,
+                reconnectable, identity and ME-eligible beams), at the
+                wrapper's split plan and in one split (the queue then
+                lives across the beam tiles): counts and ME keys exactly
+                equal to the plain version's, sums at rtol 2e-4 / atol
+                5e-6, two launches bitwise equal.
   4. main     — gvpm.render at the bench headline size (512^2 box_medium,
                 2^18 light paths, bench.py:347-362 without the TPU knobs):
                 first 3 passes with the default use_manifold=True
@@ -510,6 +524,114 @@ def stress_inputs(ev, seed=7, device="cpu"):
             r2, k3, 3, hot)
 
 
+def gsweep_stress_inputs(kind, seed=11, device="cpu"):
+    """A small seeded input of the queued gradient sweeps (beam_sweep.
+    QUEUED: gbeam1d, gplane0d and their _me kinds) that a render cannot
+    be relied on to give. Returns (q, qx, rows, tails, params, hot): 333
+    camera segments (not a multiple of a query tile) in the unit box, a
+    tenth of them invalid and a tenth in another medium, against 1,077
+    beams or planes (not a multiple of a beam tile), a tenth in the
+    other medium. Query `hot` runs along x through the box's middle and
+    accepts each of the 800 beams (planes) from 256 on: every beam of
+    six of gsweep.cu's 128-row tiles (three at 256 rows), so its accepted
+    pairs wrap a warp's 128-pair ring six times. Parents are emitters, surfaces of the four BSDF types and
+    medium vertices; reconnectable and identity beams are mixed and, for
+    an _me kind, ME-eligible ones (-1 in the tail's reconnectable slot,
+    pack_tails), hot beams among them."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    rng = np.random.default_rng(seed)
+    plane = kind.startswith("gplane0d")
+    M, N, hot, hot0, n_hot, r = 333, 1077, 130, 256, 800, 0.05
+
+    def unit(n):
+        v = rng.normal(size=(n, 3))
+        return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+    def fill(n, width, slots, fields):
+        a = np.zeros((n, width), np.float32)
+        for name, v in fields.items():
+            v = np.asarray(v, np.float32).reshape(n, -1)
+            a[:, slots[name]:slots[name] + v.shape[1]] = v
+        return a
+
+    # ---- camera segments and their offset rays
+    o, d = rng.uniform(0, 1, (M, 3)), unit(M)
+    length = rng.uniform(0.3, 1.5, M)
+    o[hot], d[hot], length[hot] = (0.1, 0.5, 0.5), (1.0, 0.0, 0.0), 0.9
+    valid = rng.random(M) < 0.9
+    med = (rng.random(M) < 0.1).astype(np.float32)
+    valid[hot], med[hot] = True, 0.0
+    q = fill(M, bs.QW, bs.QSLOT, dict(
+        o=o, d=d, length=length, med=med, valid=valid,
+        st=rng.uniform(0.2, 1.5, (M, 3)), ss=rng.uniform(0.1, 1.0, (M, 3)),
+        w=rng.uniform(0.3, 1.0, M), g=rng.uniform(-0.5, 0.5, M),
+        pt=rng.choice([0, 1, 2], M)))
+    qx = np.zeros((M, bs.XW), np.float32)
+    for i in range(4):
+        sd = d + 0.05 * unit(M)
+        qx[:, bs.XSTRIDE * i:bs.XSTRIDE * (i + 1)] = fill(
+            M, bs.XSTRIDE, bs.XSLOT, dict(
+                o=o + 0.01 * unit(M),
+                d=sd / np.linalg.norm(sd, axis=1, keepdims=True),
+                length=length * rng.uniform(0.9, 1.1, M),
+                ok=rng.random(M) < 0.85, sens=rng.uniform(0.2, 3.0, M),
+                border=rng.random(M) < 0.1))
+
+    # ---- beams (planes: origin, w0 / l0 in d / length, w1 / l1, sig)
+    ob, db = rng.uniform(0, 1, (N, 3)), unit(N)
+    lb = rng.uniform(0.2, 1.0, N)
+    w1 = np.cross(db, unit(N))
+    w1 /= np.linalg.norm(w1, axis=1, keepdims=True)
+    l1 = rng.uniform(0.1, 0.5, N)
+    hb = slice(hot0, hot0 + n_hot)
+    x = rng.uniform(0.15, 0.95, n_hot)
+    if plane:
+        lb[hb], l1[hb] = 0.4, 0.4
+        ob[hb] = np.stack([x, 0.5 - rng.uniform(0.05, 0.35, n_hot),
+                           0.5 - rng.uniform(0.05, 0.35, n_hot)], 1)
+        db[hb], w1[hb] = (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)
+    else:
+        lb[hb] = 0.6
+        ob[hb] = np.stack([x, np.full(n_hot, 0.2),
+                           0.5 + rng.uniform(-0.8 * r, 0.8 * r, n_hot)], 1)
+        db[hb] = (0.0, 1.0, 0.0)
+    bmed = (rng.random(N) < 0.1).astype(np.float32)
+    bmed[hb] = 0.0
+    rows = fill(N, bs.BW, bs.BSLOT, dict(
+        o=ob, d=db, length=lb, med=bmed, alpha=rng.uniform(0.1, 1.0, (N, 3)),
+        **(dict(w1=w1, l1=l1, sig=rng.uniform(0.2, 2.0, N)) if plane
+           else {})))
+
+    # ---- their parents (the gradient tails)
+    reconn = (rng.random(N) < 0.6).astype(np.float32)
+    elig = (reconn < 0.5) & (rng.random(N) < 0.3)
+    if kind.endswith("_me"):
+        reconn[elig] = -1.0
+    btype = rng.choice([0, 3, 6, 7], N)
+    tails = fill(N, bs.TW, bs.TSLOT, dict(
+        parent_p=ob - db * rng.uniform(0.0, 0.3, (N, 1)),
+        parent_wi=unit(N), parent_ns=unit(N),
+        scatter_base=rng.uniform(0.05, 1, (N, 3))
+        * (rng.random((N, 1)) > 0.05),
+        bp_alb=rng.uniform(0.2, 0.9, (N, 3)),
+        bp_spec=rng.uniform(0.1, 0.5, (N, 3)),
+        bp_eta3=rng.uniform(0.2, 1.5, (N, 3)),
+        bp_sigs=rng.uniform(0.1, 1.0, (N, 3)),
+        pdf_dir_base=rng.uniform(0.05, 1.0, N),
+        parent_type=rng.choice([0, 1, 2], N), reconnectable=reconn,
+        bp_btype=btype,
+        bp_alpha=np.where(btype == 6, rng.uniform(5, 40, N),
+                          rng.uniform(0.1, 0.5, N)),
+        bp_eta1=np.full(N, 1.5), bp_g=rng.uniform(-0.6, 0.6, N),
+        bp_ptype=rng.choice([0, 1, 2], N)))
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+    p = bs.Params(r2=float(np.float32(r * r)),
+                  k=float(np.float32(1.0 / (2.0 * r))))
+    return t(q), t(qx), t(rows), t(tails), p, hot
+
+
 def lane_use(ev, plan, tbl, qrows, r2, k3, md):
     """Measured lane use on these inputs, in tensor code. A lane-per-row
     loop (one warp a query, 32 lanes striding over each run) makes
@@ -717,6 +839,132 @@ def gsweep_stats(kind, q, rows, tails, p):
             stats["reconn"] += int((okb & (r > 0.5)).sum())
             stats["me"] += int((okb & (r < -0.5)).sum())
     return stats
+
+
+def gsweep_stress_against_plain(kind):
+    """The stress input (gsweep_stress_inputs) of a queued gradient sweep
+    (beam_sweep.QUEUED) on the card: the kernel twice at its split plan
+    and twice in one split (whose ring then lives across many beam
+    tiles) against the plain version once: visits, shift_ok and the ME
+    keys and counts exactly equal, sums within TOL, each pair of
+    launches bitwise equal; the hot query must keep its 800 beams.
+    Returns (plain outputs, hot query, max abs error, beams)."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    *args, hot = gsweep_stress_inputs(kind, device="cuda")
+    want = bs.gsweep_plain(kind, *args)
+    target, err = bs.GTARGET_BLOCKS, 0.0
+    try:
+        for bs.GTARGET_BLOCKS in (target, 1):
+            got, again = bs.gsweep(kind, *args), bs.gsweep(kind, *args)
+            torch.cuda.synchronize()
+            for k in range(3, min(len(want), 7)):   # 7: beam3d's chords
+                if got[k].dtype != torch.int32 or not torch.equal(got[k],
+                                                                  want[k]):
+                    raise AssertionError(f"beam_sweep_{kind}: stress count "
+                                         f"{k} differs from the plain "
+                                         "version")
+            for g, w in zip(got[:3], want[:3]):
+                torch.testing.assert_close(g, w, **TOL)
+            if not all(torch.equal(g.view(torch.int32), a.view(torch.int32))
+                       for g, a in zip(got, again) if g is not None):
+                raise AssertionError(f"beam_sweep_{kind}: two launches on "
+                                     "the stress input differ")
+            err = max([err] + [float((g - w).abs().max())
+                               for g, w in zip(got[:3], want[:3])])
+    finally:
+        bs.GTARGET_BLOCKS = target
+    if not int(want[3][hot]) >= 800:
+        raise AssertionError(f"beam_sweep_{kind}: the hot query has "
+                             f"{int(want[3][hot])} visits")
+    return want, hot, err, args[2].shape[0]
+
+
+def gsweep_lane_use(kind, q, rows, tails, p, shape, chunk):
+    """Measured lane use of a gradient sweep's shift bodies on these
+    inputs, in tensor code from the dense base-test planes that
+    gsweep_stats builds.
+
+    One thread a query (beam_sweep.cu's sweep_kernel): a warp holds 32
+    consecutive queries and visits the beams in order; in an iteration
+    where some lane accepts its pair, the shift body runs with the
+    accepting lanes busy (`iterations_with_accept`,
+    `lanes_busy_in_such_iteration`), and its reconnection branch with
+    the lanes whose accepted beam reconnects
+    (`lanes_busy_in_reconnection_branch`, over the iterations with such
+    a lane).
+
+    The queued kernel (gsweep.cu; `shape` = beam_sweep.gsweep_shape(),
+    `chunk` the beams of a split): a block owns a tile of `tq` queries,
+    its warp w the queries w, w + warps, ...; the pairs a warp's queries
+    accept in the block's beam split go into the warp's ring and run in
+    batches of `batch` pairs (32 / batch lanes a pair), the last batch of
+    the split partial, so `batches` = the sum over (query tile, warp,
+    split) of ceil(accepted / batch) and `lanes_busy_in_batch` = accepted
+    / (batches x batch); a batch runs both branches, the reconnection
+    with `lanes_busy_in_batch_reconnection` of the lanes;
+    `lanes_busy_if_flushed_per_tile`: the ring emptied at the end of
+    every beam tile of `tile_b` (a kernel whose batches read the staged
+    beam rows). `barrier_share`: the share of the pairs' shift time that
+    a warp spends waiting at the block's tile barriers if shifts cost
+    the same per pair (1 - sum over query and beam tiles of the warps'
+    mean pairs / sum of their most)."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    M, N = q.shape[0], rows.shape[0]
+    tq, warps, tile_b, batch = (shape[k] for k in ("tq", "warps", "tile_b",
+                                                   "batch"))
+    base_fn, _ = bs.GPAIRS[kind.removesuffix("_me")]
+    rc_all = tails[:, bs.TSLOT["reconnectable"]] > 0.5
+    lcm = 32 * tq // int(np.gcd(32, tq))
+    mc = lcm * max(1, 1024 // lcm)
+    tb = max(1, bs.PLAIN_MAX_PAIRS // mc // tile_b) * tile_b
+    n_tiles = -(-N // tile_b)
+    # accepted pairs a (query tile, warp, beam tile)
+    per = torch.zeros((-(-M // mc) * mc // tq, warps, n_tiles),
+                      dtype=torch.int64, device=q.device)
+    accepted = iters = iters_rc = n_rc = 0
+    for m0 in range(0, M, mc):
+        qc = bs._Cols(q[m0:m0 + mc], bs.QSLOT, (-1, 1))
+        for j0 in range(0, N, tb):
+            pp = dataclasses.replace(p, keys=p.keys[j0:j0 + tb]) \
+                if p.keys is not None else p
+            okb, _, _ = base_fn(
+                qc, bs._Cols(rows[j0:j0 + tb], bs.BSLOT, (1, -1)), pp, m0)
+            rc = rc_all[j0:j0 + tb][None]
+            # pad to whole warps of queries, query tiles and beam tiles
+            pad = (0, (-okb.shape[1]) % tile_b, 0, (-okb.shape[0]) % mc)
+            okb = torch.nn.functional.pad(okb, pad)
+            okr = torch.nn.functional.pad(okb[:, :rc.shape[1]] & rc,
+                                          (0, okb.shape[1] - rc.shape[1]))
+            accepted += int(okb.sum())
+            n_rc += int(okr.sum())
+            iters += int(okb.reshape(-1, 32, okb.shape[1]).any(1).sum())
+            iters_rc += int(okr.reshape(-1, 32, okb.shape[1]).any(1).sum())
+            t0 = j0 // tile_b
+            per[m0 // tq:(m0 + mc) // tq, :,
+                t0:t0 + okb.shape[1] // tile_b] += okb.reshape(
+                    mc // tq, tq // warps, warps, -1, tile_b).sum((1, 4))
+    split = torch.arange(n_tiles, device=q.device) // (chunk // tile_b)
+    per_split = torch.zeros((per.shape[0], warps, int(split[-1]) + 1),
+                            dtype=torch.int64, device=q.device)
+    per_split.index_add_(2, split, per)
+
+    def n_batches(a):
+        return int(((a + batch - 1) // batch).sum())
+    batches = n_batches(per_split)
+    most = per.max(1).values.sum()
+    return dict(accepted=accepted, on_reconnectable_beams=n_rc,
+                iterations_with_accept=iters,
+                lanes_busy_in_such_iteration=accepted / max(iters, 1) / 32,
+                lanes_busy_in_reconnection_branch=n_rc / max(iters_rc, 1)
+                / 32,
+                batch=batch, batches=batches,
+                lanes_busy_in_batch=accepted / max(batches * batch, 1),
+                lanes_busy_in_batch_reconnection=n_rc
+                / max(batches * batch, 1),
+                lanes_busy_if_flushed_per_tile=accepted
+                / max(n_batches(per) * batch, 1),
+                barrier_share=1.0 - float(per.sum()) / warps
+                / max(float(most), 1.0))
 
 
 def gbeams_me_against_plain(kind, args):
@@ -985,6 +1233,7 @@ def main():
     g_pass = dict(n_photons=max(gcfg.surface_photons, gcfg.volume_photons),
                   seed=5, it=0, surf_scale=1.0, vol_scale=1.0,
                   r_vol_base=sppm.base_volume_radius(bscene, gcfg))
+    regs = bs.build_report()
     for kind, args in capture_gsweeps(bscene, gcfg, g_pass).items():
         q, qx, rows, tails, p = args
         want, st, err, plain_ms = gbeams_against_plain(kind, args)
@@ -992,7 +1241,9 @@ def main():
         ms = cuda_ms(lambda: bs.gsweep(kind, *args), 3)
         beam_kernels[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
-        phase("gbeams", f"{kind}: {q.shape[0]} camera queries x "
+        r = regs[kind]
+        src = "gsweep.cu" if kind in bs.QUEUED else "beam_sweep.cu"
+        phase("gbeams", f"{kind} ({src}): {q.shape[0]} camera queries x "
                         f"{rows.shape[0]} beams, visits "
                         f"{int(want[3].sum())} and shift_ok "
                         f"{int(want[4].sum())} equal, max|err| {err:.3g} "
@@ -1000,7 +1251,16 @@ def main():
                         f"equal, kernel {ms:.3f} ms, plain {plain_ms:.1f} "
                         f"ms (shifts on the accepted pairs only), bound "
                         f"{bound_ms:.4f} ms by {bound_by} "
+                        f"({bound_ms / ms:.1%} of it), {r['registers']} "
+                        f"registers, {r['spill_stores']} B spilled "
                         f"{json.dumps(detail)}")
+        if kind in bs.QUEUED:
+            shape = bs.gsweep_shape()
+            lu = gsweep_lane_use(kind, q, rows, tails, p, shape,
+                                 bs.gsplit_plan(q.shape[0], rows.shape[0])[1])
+            phase("gbeams", f"{kind} lane use, one thread a query "
+                            f"(beam_sweep.cu before) and queued (gsweep.cu "
+                            f"{json.dumps(shape)}): {json.dumps(lu)}")
     del q, qx, rows, tails, p, args, want
 
     # ---- 3e. their ME instantiations on one 128^2 gvpm ME pass ----
@@ -1019,7 +1279,11 @@ def main():
                                   bound_ms=bound_ms, bound_by=bound_by)
         n_elig = int((tails[:, bs.TSLOT["reconnectable"]] < -0.5).sum())
         chords = " and chord points" if got[7] is not None else ""
-        phase("gbeams-me", f"{kind}: {q.shape[0]} camera queries x "
+        r = regs[kind]
+        src = "gsweep.cu" if kind in bs.QUEUED else "beam_sweep.cu"
+        phase("gbeams-me", f"{kind} ({src}, {r['registers']} registers, "
+                           f"{r['spill_stores']} B spilled, {bound_ms / ms:.1%}"
+                           f" of bound): {q.shape[0]} camera queries x "
                            f"{rows.shape[0]} beams ({n_elig} ME-eligible), "
                            f"visits {int(got[3].sum())}, "
                            f"shift_ok {int(got[4].sum())}, ME queries "
@@ -1034,6 +1298,22 @@ def main():
                            f"rows, bound {bound_ms:.4f} ms by {bound_by} "
                            f"{json.dumps(detail)}")
     del q, qx, rows, tails, p, args, got
+
+    # ---- 3f. the queued sweeps on their stress input ----
+    for kind in bs.QUEUED:
+        want, hot, err, n_beams = gsweep_stress_against_plain(kind)
+        me = (f", ME queries {int((want[5] != bs.ME_NONE).sum())} with "
+              f"{int(want[6].sum())} ME pairs" if len(want) > 5 else "")
+        phase("gbeams-stress", f"{kind}: {want[0].shape[0]} queries x "
+                               f"{n_beams} beams, visits "
+                               f"{int(want[3].sum())} "
+                               f"({int(want[3][hot])} of them one query's),"
+                               f" shift_ok {int(want[4].sum())}{me} equal at "
+                               f"the split plan and in one split, max|err| "
+                               f"{err:.3g}, two launches bitwise equal")
+    phase("gbeams", "controls (beam_sweep.cu, unchanged): " + json.dumps(
+        {k: round(beam_kernels[k]["ms"], 3)
+         for k in ("beam1d", "beam3d", "plane0d", "gbeam3d", "gbeam3d_me")}))
 
     # ---- 4. the main paths at the headline size ----
     def drive(label, cfg, passes, expect):
@@ -1538,7 +1818,8 @@ def main():
              library_ms=None)
         for n, k in kernels.items()] + [
         dict(name=f"beam_sweep_{n}", route="cuda",
-             source="gvpm_tpu_torch/csrc/beam_sweep.cu",
+             source="gvpm_tpu_torch/csrc/"
+             + ("gsweep.cu" if n in bs.QUEUED else "beam_sweep.cu"),
              replaces={**BEAM_REPLACES, **GBEAM_REPLACES,
                        **GBEAM_ME_REPLACES}[n],
              launches=main_launches[n],

@@ -9,10 +9,10 @@
 //   Plane0D — plane_gather (:401): Moller-Trumbore against the plane
 //
 // Every formula mirrors the plain PyTorch version (ops/beam_sweep.py
-// _beam1d / _beam3d / _plane0d) operation by operation, in the same
-// order, so that a build without FMA contraction (-fmad=false) takes the
-// same accept decisions (the accepted-pair counts match exactly) and the
-// sums agree to the rounding of expf. `pair` returns whether the pair is
+// _beam1d / _beam3d / _plane0d, and the _g* functions) operation by
+// operation, in the same order, so that a build without FMA contraction
+// (-fmad=false) takes the same accept decisions (the accepted-pair
+// counts match exactly) and the sums agree to the rounding of expf. `pair` returns whether the pair is
 // accepted and, if so, its contribution; a rejected pair adds nothing,
 // as the JAX package's where(ok, ., 0). The header also compiles as
 // plain host C++ (with __host__/__device__ defined away), which is how
@@ -316,11 +316,17 @@ struct Primal {
 // pair's chord point y in acc[NF_SUM .. NF_SUM + 2], taken from the
 // split that holds the key, so the host never recomputes it.
 //
+// GBeam3D is a pair visitor for beam_sweep.cu's one thread a query
+// (visit: every pair of a query in beam order into its registers);
+// GBeam1D and GPlane0D come in test / base / shift parts for gsweep.cu's
+// queued sweep (pair_body below), where the ME key is a min over all of
+// a query's eligible pairs.
+//
 // The base test and term are the primal estimator's (with the gradient
 // gathers' phase_params). A pair that passes it reads the beam's
 // gradient tail (TSlot: the shift caches of the vertex that emits the
-// beam and its baked material) and the query's four offset rays (XSlot)
-// from device memory, and shifts the pair to each offset: by
+// beam and its baked material) and the query's four offset rays (XSlot),
+// and shifts the pair to each offset: by
 // reconnection at the beam's origin when that lobe is reconnectable
 // (beam1d / beam3d: re-emit the beam through the mapped point; plane0d:
 // rotate the plane about its origin), else by the identity (the same
@@ -400,112 +406,134 @@ __host__ __device__ inline bool lobe_ratio(const Parent& a, V3 w_new,
   return ok;
 }
 
-// MIS weight of offset i and the pair's S_i / W_i terms
+// MIS weight of offset i: pairwise between the base and the offset
+// densities, 1 on the image border
+__host__ __device__ inline float mis_weight(bool ok_sh, float pr_l,
+                                            float sens, bool border) {
+  float w = 1.0f / (1.0f + clip_(pr_l * sens, 0.0f, 1e12f));
+  w = clip_(ok_sh ? w : 1.0f, 0.0f, 1.0f);
+  return border ? 1.0f : w;
+}
+
+// the pair's S_i / W_i terms of offset i
 __host__ __device__ inline void add_offset(int i, bool ok_sh, float pr_l,
                                            float sens, bool border,
                                            const float c_sh[3],
                                            const float c_base[3],
                                            float* acc) {
-  float w = 1.0f / (1.0f + clip_(pr_l * sens, 0.0f, 1e12f));
-  w = clip_(ok_sh ? w : 1.0f, 0.0f, 1.0f);
-  w = border ? 1.0f : w;
+  const float w = mis_weight(ok_sh, pr_l, sens, border);
   for (int c = 0; c < 3; ++c) {
     acc[3 + 3 * i + c] += w * c_sh[c];
     acc[15 + 3 * i + c] += w * c_base[c];
   }
 }
 
+// GBeam1DT and GPlane0DT come in three parts, for the queued sweep of
+// csrc/gsweep.cu: test(q, b, p, g) is the base test alone (the sweep
+// runs it on every pair) and leaves in g what the rest reuses;
+// base(q, b, p, g, s) the base term of an accepted pair and what its
+// shifts share; shift(q, b, tail, me, x, p, g, s, c_sh, pr_l) one
+// offset's shift (x: the offset's XSTRIDE floats), returning ok_sh; it
+// loads the parent from the tail in its reconnection branch only, so
+// the parent's ~30 values are not live across the four shifts. pair_body
+// below strings them together in the order of the old per-pair visit.
+
 template <bool ME_>
 struct GBeam1DT {
-  static constexpr bool RANDOM = false, GRAD = true, ME = ME_;
+  static constexpr bool ME = ME_;
   static constexpr int NF = NF_GRAD, NC = ME ? 4 : 2, NF_SUM = NF_GRAD;
-  __host__ __device__ static void visit(const Query& q, const float* b,
-                                        const int*, const float* tail,
-                                        const float* qx, const Params& p,
-                                        float* acc, int* cnt, int j = 0) {
-    if (b[B_MED] != q.med) return;
+  struct Geo {
+    Closest h;
+  };
+  // every value computed and every condition evaluated (no early
+  // return), so that the sweep's tests of several beams interleave
+  __host__ __device__ static bool test(const Query& q, const float* b,
+                                       const Params& p, Geo& g) {
     V3 ob = ld3(b, B_O), db = ld3(b, B_D);
-    const float lb = b[B_LEN];
-    const Closest h = closest(q.o, q.d, ob, db);
-    const float tc = h.tc, tb = h.tb;
-    if (h.parallel || !(tc > 1e-5f) || !(tc < q.len) || !(tb > 1e-5f) ||
-        !(tb < lb))
-      return;
+    g.h = closest(q.o, q.d, ob, db);
+    const float tc = g.h.tc, tb = g.h.tb;
     V3 delta = sub3(madd3(q.o, q.d, tc), madd3(ob, db, tb));
-    if (!(dot3(delta, delta) < p.r2)) return;
-    // ---- base term ----
-    float sin_t = sqrtf(cmin_(h.denom, 1e-12f));
-    float surv_b = survival(q, tb);
+    return (b[B_MED] == q.med) & !g.h.parallel & (tc > 1e-5f) &
+           (tc < q.len) & (tb > 1e-5f) & (tb < b[B_LEN]) &
+           (dot3(delta, delta) < p.r2);
+  }
+  struct Base {
+    float c[3], tr_c[3], sin_t, surv_b;
+    V3 delta;
+  };
+  __host__ __device__ static void base(const Query& q, const float* b,
+                                       const Params& p, const Geo& g,
+                                       Base& s) {
+    const Closest& h = g.h;
+    V3 ob = ld3(b, B_O), db = ld3(b, B_D);
+    s.delta = sub3(madd3(q.o, q.d, h.tc), madd3(ob, db, h.tb));
+    s.sin_t = sqrtf(cmin_(h.denom, 1e-12f));
+    s.surv_b = survival(q, h.tb);
     float s_b = phase_params(-h.bb, q.g, q.pt) * p.k /
-                (sin_t * cmin_(surv_b, 1e-9f));
-    float tr_c[3], c_base[3];
+                (s.sin_t * cmin_(s.surv_b, 1e-9f));
     for (int c = 0; c < 3; ++c) {
-      tr_c[c] = expf(-q.st[c] * tc);
-      c_base[c] = b[B_ALPHA + c] *
-                  (s_b * tr_c[c] * expf(-q.st[c] * tb) * q.ss[c]);
-      acc[c] += c_base[c];
+      s.tr_c[c] = expf(-q.st[c] * h.tc);
+      s.c[c] = b[B_ALPHA + c] *
+               (s_b * s.tr_c[c] * expf(-q.st[c] * h.tb) * q.ss[c]);
     }
-    ++cnt[0];
-    const bool me = ME && tail[T_RECONN] < -0.5f;
-    if (me) me_first(j, cnt);
-    // ---- the four shifts ----
-    const Parent a = load_parent(tail);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* x = qx + XSTRIDE * i;
-      V3 so = ld3(x, X_O), sd = ld3(x, X_D);
-      const float slen = x[X_LEN];
-      const bool sval = x[X_OK] > 0.5f;
-      float c_sh[3], pr_l;
-      bool ok_sh;
-      if (a.reconn) {
-        // re-emit the beam from its origin through y_i = pc_i - delta
-        V3 dv = sub3(sub3(madd3(so, sd, tc), delta), a.A);
-        float t_new2 = cmin_(dot3(dv, dv), 1e-12f);
-        float t_new = sqrtf(t_new2);
-        V3 w_new = {dv.x / t_new, dv.y / t_new, dv.z / t_new};
-        float sc_r[3], pdf_new;
-        bool ok_l = lobe_ratio(a, w_new, sc_r, pdf_new);
-        float cos_x = w_new.x * sd.x + w_new.y * sd.y + w_new.z * sd.z;
-        float sin_n = sqrtf(cmin_(1.0f - cos_x * cos_x, 1e-8f));
-        float surv_n = survival(q, t_new);
-        ok_sh = ok_l && sval && (tc < slen) && (t_new < lb);
-        float s_n = phase_params(-cos_x, q.g, q.pt) * p.k /
-                    (sin_n * cmin_(surv_n, 1e-9f));
-        for (int c = 0; c < 3; ++c)
-          c_sh[c] = ok_sh ? b[B_ALPHA + c] * sc_r[c] *
-                                (s_n * tr_c[c] * expf(-q.st[c] * t_new) *
-                                 q.ss[c])
-                          : 0.0f;
-        pr_l = pdf_new / cmin_(a.pdf_old, 1e-20f) *
-               (surv_n / cmin_(surv_b, 1e-9f)) * (tb * tb / t_new2) *
-               (sin_t / sin_n);
-        cnt[1] += ok_sh ? 1 : 0;
-      } else if (me) {
-        // resolved by the ME stage: no identity shift
-        ok_sh = false;
-        c_sh[0] = c_sh[1] = c_sh[2] = 0.0f;
-        pr_l = 1.0f;
-      } else {
-        // identity: the same beam against the offset ray
-        const Closest hi = closest(so, sd, ob, db);
-        const float tci = hi.tc, tbi = hi.tb;
-        V3 di = sub3(madd3(so, sd, tci), madd3(ob, db, tbi));
-        ok_sh = !hi.parallel && sval && (tci > 1e-5f) && (tci < slen) &&
-                (tbi > 1e-5f) && (tbi < lb) && (dot3(di, di) < p.r2);
-        float sin_i = sqrtf(cmin_(hi.denom, 1e-12f));
-        float s_i = phase_params(-hi.bb, q.g, q.pt) * p.k /
-                    (sin_i * cmin_(survival(q, tbi), 1e-9f));
-        for (int c = 0; c < 3; ++c)
-          c_sh[c] = ok_sh ? b[B_ALPHA + c] *
-                                (s_i * expf(-q.st[c] * tci) *
-                                 expf(-q.st[c] * tbi) * q.ss[c])
-                          : 0.0f;
-        pr_l = 1.0f;
-      }
-      add_offset(i, ok_sh, pr_l, x[X_SENS], x[X_BORDER] > 0.5f, c_sh,
-                 c_base, acc);
+  }
+  __host__ __device__ static bool shift(const Query& q, const float* b,
+                                        const float* tail, bool me,
+                                        const float* x, const Params& p,
+                                        const Geo& g, const Base& s,
+                                        float c_sh[3], float& pr_l) {
+    const float tc = g.h.tc, tb = g.h.tb, lb = b[B_LEN];
+    V3 so = ld3(x, X_O), sd = ld3(x, X_D);
+    const float slen = x[X_LEN];
+    const bool sval = x[X_OK] > 0.5f;
+    bool ok_sh;
+    if (tail[T_RECONN] > 0.5f) {
+      // re-emit the beam from its origin through y_i = pc_i - delta
+      const Parent a = load_parent(tail);
+      V3 dv = sub3(sub3(madd3(so, sd, tc), s.delta), a.A);
+      float t_new2 = cmin_(dot3(dv, dv), 1e-12f);
+      float t_new = sqrtf(t_new2);
+      V3 w_new = {dv.x / t_new, dv.y / t_new, dv.z / t_new};
+      float sc_r[3], pdf_new;
+      bool ok_l = lobe_ratio(a, w_new, sc_r, pdf_new);
+      float cos_x = w_new.x * sd.x + w_new.y * sd.y + w_new.z * sd.z;
+      float sin_n = sqrtf(cmin_(1.0f - cos_x * cos_x, 1e-8f));
+      float surv_n = survival(q, t_new);
+      ok_sh = ok_l && sval && (tc < slen) && (t_new < lb);
+      float s_n = phase_params(-cos_x, q.g, q.pt) * p.k /
+                  (sin_n * cmin_(surv_n, 1e-9f));
+      for (int c = 0; c < 3; ++c)
+        c_sh[c] = ok_sh ? b[B_ALPHA + c] * sc_r[c] *
+                              (s_n * s.tr_c[c] * expf(-q.st[c] * t_new) *
+                               q.ss[c])
+                        : 0.0f;
+      pr_l = pdf_new / cmin_(a.pdf_old, 1e-20f) *
+             (surv_n / cmin_(s.surv_b, 1e-9f)) * (tb * tb / t_new2) *
+             (s.sin_t / sin_n);
+    } else if (me) {
+      // resolved by the ME stage: no identity shift
+      ok_sh = false;
+      c_sh[0] = c_sh[1] = c_sh[2] = 0.0f;
+      pr_l = 1.0f;
+    } else {
+      // identity: the same beam against the offset ray
+      V3 ob = ld3(b, B_O), db = ld3(b, B_D);
+      const Closest hi = closest(so, sd, ob, db);
+      const float tci = hi.tc, tbi = hi.tb;
+      V3 di = sub3(madd3(so, sd, tci), madd3(ob, db, tbi));
+      ok_sh = !hi.parallel && sval && (tci > 1e-5f) && (tci < slen) &&
+              (tbi > 1e-5f) && (tbi < lb) && (dot3(di, di) < p.r2);
+      float sin_i = sqrtf(cmin_(hi.denom, 1e-12f));
+      float s_i = phase_params(-hi.bb, q.g, q.pt) * p.k /
+                  (sin_i * cmin_(survival(q, tbi), 1e-9f));
+      for (int c = 0; c < 3; ++c)
+        c_sh[c] = ok_sh ? b[B_ALPHA + c] *
+                              (s_i * expf(-q.st[c] * tci) *
+                               expf(-q.st[c] * tbi) * q.ss[c])
+                        : 0.0f;
+      pr_l = 1.0f;
     }
+    return ok_sh;
   }
 };
 
@@ -628,124 +656,172 @@ __host__ __device__ inline V3 rodrigues(V3 v, V3 k, float cos_r,
 
 template <bool ME_>
 struct GPlane0DT {
-  static constexpr bool RANDOM = false, GRAD = true, ME = ME_;
+  static constexpr bool ME = ME_;
   static constexpr int NF = NF_GRAD, NC = ME ? 4 : 2, NF_SUM = NF_GRAD;
-  __host__ __device__ static void visit(const Query& q, const float* b,
-                                        const int*, const float* tail,
-                                        const float* qx, const Params& p,
-                                        float* acc, int* cnt, int j = 0) {
-    if (b[B_MED] != q.med) return;
+  struct Geo {
+    float u0, u1, tcam;
+  };
+  // plane_hit's arithmetic with every value computed and every
+  // condition evaluated (no early return), as GBeam1DT::test
+  __host__ __device__ static bool test(const Query& q, const float* b,
+                                       const Params& /*p*/, Geo& g) {
+    V3 e0 = scale3(ld3(b, B_D), b[B_LEN]), e1 = scale3(ld3(b, B_W1), b[B_L1]);
+    V3 pv = cross3(q.d, e1);
+    float det = dot3(e0, pv);
+    float inv_det = 1.0f / det;
+    V3 tt = sub3(q.o, ld3(b, B_O));
+    g.u0 = dot3(tt, pv) * inv_det;
+    V3 qq = cross3(tt, e0);
+    g.u1 = dot3(q.d, qq) * inv_det;
+    g.tcam = dot3(e1, qq) * inv_det;
+    return (b[B_MED] == q.med) & (fabsf(det) > 1e-7f) & (g.u0 >= 0.0f) &
+           (g.u0 <= 1.0f) & (g.u1 >= 0.0f) & (g.u1 <= 1.0f) &
+           (g.tcam > 1e-5f) & (g.tcam < q.len);
+  }
+  struct Base {
+    float c[3], tr_cam[3], t0, t1, surv0, surv1, jac, lb_r;
+    V3 a_dir;
+  };
+  __host__ __device__ static void base(const Query& q, const float* b,
+                                       const Params& /*p*/, const Geo& g,
+                                       Base& s) {
+    V3 pw0 = ld3(b, B_D), pw1 = ld3(b, B_W1);
+    s.t0 = g.u0 * b[B_LEN];
+    s.t1 = g.u1 * b[B_L1];
+    s.surv0 = survival(q, s.t0);
+    s.surv1 = expf(-b[B_SIG] * s.t1);
+    s.jac = fabsf(dot3(pw0, cross3(pw1, q.d)));
+    float k_b = phase_params(-dot3(pw1, q.d), q.g, q.pt) /
+                (cmin_(s.surv0, 1e-9f) * cmin_(s.surv1, 1e-9f) *
+                 cmin_(s.jac, 1e-6f));
+    for (int c = 0; c < 3; ++c) {
+      s.tr_cam[c] = expf(-q.st[c] * g.tcam);
+      s.c[c] = b[B_ALPHA + c] *
+               (s.tr_cam[c] * expf(-q.st[c] * s.t0) *
+                expf(-q.st[c] * s.t1) * q.ss[c] * q.ss[c] * k_b);
+    }
+    // the base point's direction from the plane's origin
+    V3 rel_b = sub3(madd3(q.o, q.d, g.tcam), ld3(b, B_O));
+    s.lb_r = sqrtf(cmin_(dot3(rel_b, rel_b), 1e-16f));
+    s.a_dir = {rel_b.x / s.lb_r, rel_b.y / s.lb_r, rel_b.z / s.lb_r};
+  }
+  __host__ __device__ static bool shift(const Query& q, const float* b,
+                                        const float* tail, bool me,
+                                        const float* x, const Params& /*p*/,
+                                        const Geo& g, const Base& s,
+                                        float c_sh[3], float& pr_l) {
     V3 po = ld3(b, B_O), pw0 = ld3(b, B_D), pw1 = ld3(b, B_W1);
     const float pl0 = b[B_LEN], pl1 = b[B_L1], psig = b[B_SIG];
-    V3 e0 = scale3(pw0, pl0), e1 = scale3(pw1, pl1);
-    float u0, u1, tcam;
-    if (!plane_hit(q.o, q.d, po, e0, e1, u0, u1, tcam)) return;
-    if (!(u0 >= 0.0f) || !(u0 <= 1.0f) || !(u1 >= 0.0f) || !(u1 <= 1.0f) ||
-        !(tcam > 1e-5f) || !(tcam < q.len))
-      return;
-    // ---- base term ----
-    const float t0 = u0 * pl0, t1 = u1 * pl1;
-    float surv0 = survival(q, t0);
-    float surv1 = expf(-psig * t1);
-    float jac = fabsf(dot3(pw0, cross3(pw1, q.d)));
-    float k_b = phase_params(-dot3(pw1, q.d), q.g, q.pt) /
-                (cmin_(surv0, 1e-9f) * cmin_(surv1, 1e-9f) *
-                 cmin_(jac, 1e-6f));
-    float tr_cam[3], c_base[3];
-    for (int c = 0; c < 3; ++c) {
-      tr_cam[c] = expf(-q.st[c] * tcam);
-      c_base[c] = b[B_ALPHA + c] *
-                  (tr_cam[c] * expf(-q.st[c] * t0) * expf(-q.st[c] * t1) *
-                   q.ss[c] * q.ss[c] * k_b);
-      acc[c] += c_base[c];
+    const float tcam = g.tcam;
+    V3 so = ld3(x, X_O), sd = ld3(x, X_D);
+    const float slen = x[X_LEN];
+    const bool sval = x[X_OK] > 0.5f;
+    bool ok_sh;
+    if (tail[T_RECONN] > 0.5f) {
+      // rotate the plane about its origin so that it holds the offset
+      // point at the same camera distance
+      const Parent a = load_parent(tail);
+      V3 rel_o = sub3(madd3(so, sd, tcam), po);
+      float lo_r = sqrtf(cmin_(dot3(rel_o, rel_o), 1e-16f));
+      V3 b_dir = {rel_o.x / lo_r, rel_o.y / lo_r, rel_o.z / lo_r};
+      float cos_r = dot3(s.a_dir, b_dir);
+      V3 ax = cross3(s.a_dir, b_dir);
+      float sin_r = sqrtf(cmin_(dot3(ax, ax), 0.0f));
+      bool safe = sin_r > 1e-7f;
+      float sk = cmin_(sin_r, 1e-7f);
+      V3 k_hat = {ax.x / sk, ax.y / sk, ax.z / sk};
+      V3 w0_r = safe ? rodrigues(pw0, k_hat, cos_r, sin_r) : pw0;
+      V3 w1_r = safe ? rodrigues(pw1, k_hat, cos_r, sin_r) : pw1;
+      float scale = lo_r / s.lb_r;
+      float t0_n = s.t0 * scale, t1_n = s.t1 * scale;
+      bool ok_geo = (safe || (cos_r > 0.0f)) && (t0_n <= pl0) &&
+                    (t1_n <= pl1);
+      float sc_r[3], pdf_new;
+      bool ok_l = lobe_ratio(a, w0_r, sc_r, pdf_new);
+      float cos_ci = w1_r.x * sd.x + w1_r.y * sd.y + w1_r.z * sd.z;
+      float surv0n = survival(q, t0_n);
+      float surv1n = expf(-psig * t1_n);
+      V3 cw = cross3(w1_r, sd);
+      float jac_n = fabsf(w0_r.x * cw.x + w0_r.y * cw.y + w0_r.z * cw.z);
+      ok_sh = ok_l && sval && ok_geo && (tcam < slen) && (jac_n > 1e-6f);
+      float k_n = phase_params(-cos_ci, q.g, q.pt) /
+                  (cmin_(surv0n, 1e-9f) * cmin_(surv1n, 1e-9f) *
+                   cmin_(jac_n, 1e-6f));
+      for (int c = 0; c < 3; ++c)
+        c_sh[c] = ok_sh ? b[B_ALPHA + c] * sc_r[c] *
+                              (s.tr_cam[c] * expf(-q.st[c] * t0_n) *
+                               expf(-q.st[c] * t1_n) * q.ss[c] * q.ss[c] *
+                               k_n)
+                        : 0.0f;
+      pr_l = pdf_new / cmin_(a.pdf_old, 1e-20f) *
+             (surv0n / cmin_(s.surv0, 1e-9f)) *
+             (surv1n / cmin_(s.surv1, 1e-9f)) *
+             (s.jac / cmin_(jac_n, 1e-6f)) / cmin_(scale * scale, 1e-12f);
+    } else if (me) {
+      // resolved by the ME stage: no identity shift
+      ok_sh = false;
+      c_sh[0] = c_sh[1] = c_sh[2] = 0.0f;
+      pr_l = 1.0f;
+    } else {
+      // identity: the same plane against the offset ray
+      V3 e0 = scale3(pw0, pl0), e1 = scale3(pw1, pl1);
+      float u0i = 0.0f, u1i = 0.0f, tci = 0.0f;
+      const bool oki = plane_hit(so, sd, po, e0, e1, u0i, u1i, tci);
+      ok_sh = oki && sval && (u0i >= 0.0f) && (u0i <= 1.0f) &&
+              (u1i >= 0.0f) && (u1i <= 1.0f) && (tci > 1e-5f) &&
+              (tci < slen);
+      float t0i = u0i * pl0, t1i = u1i * pl1;
+      float jaci = fabsf(dot3(pw0, cross3(pw1, sd)));
+      float k_i = phase_params(-dot3(pw1, sd), q.g, q.pt) /
+                  (cmin_(survival(q, t0i), 1e-9f) *
+                   cmin_(expf(-psig * t1i), 1e-9f) * cmin_(jaci, 1e-6f));
+      for (int c = 0; c < 3; ++c)
+        c_sh[c] = ok_sh ? b[B_ALPHA + c] *
+                              (expf(-q.st[c] * tci) * expf(-q.st[c] * t0i) *
+                               expf(-q.st[c] * t1i) * q.ss[c] * q.ss[c] *
+                               k_i)
+                        : 0.0f;
+      pr_l = 1.0f;
     }
-    ++cnt[0];
-    const bool me = ME && tail[T_RECONN] < -0.5f;
-    if (me) me_first(j, cnt);
-    // the base point's direction from the plane's origin
-    V3 rel_b = sub3(madd3(q.o, q.d, tcam), po);
-    float lb_r = sqrtf(cmin_(dot3(rel_b, rel_b), 1e-16f));
-    V3 a_dir = {rel_b.x / lb_r, rel_b.y / lb_r, rel_b.z / lb_r};
-    // ---- the four shifts ----
-    const Parent a = load_parent(tail);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* x = qx + XSTRIDE * i;
-      V3 so = ld3(x, X_O), sd = ld3(x, X_D);
-      const float slen = x[X_LEN];
-      const bool sval = x[X_OK] > 0.5f;
-      float c_sh[3], pr_l;
-      bool ok_sh;
-      if (a.reconn) {
-        // rotate the plane about its origin so that it holds the offset
-        // point at the same camera distance
-        V3 rel_o = sub3(madd3(so, sd, tcam), po);
-        float lo_r = sqrtf(cmin_(dot3(rel_o, rel_o), 1e-16f));
-        V3 b_dir = {rel_o.x / lo_r, rel_o.y / lo_r, rel_o.z / lo_r};
-        float cos_r = dot3(a_dir, b_dir);
-        V3 ax = cross3(a_dir, b_dir);
-        float sin_r = sqrtf(cmin_(dot3(ax, ax), 0.0f));
-        bool safe = sin_r > 1e-7f;
-        float sk = cmin_(sin_r, 1e-7f);
-        V3 k_hat = {ax.x / sk, ax.y / sk, ax.z / sk};
-        V3 w0_r = safe ? rodrigues(pw0, k_hat, cos_r, sin_r) : pw0;
-        V3 w1_r = safe ? rodrigues(pw1, k_hat, cos_r, sin_r) : pw1;
-        float scale = lo_r / lb_r;
-        float t0_n = t0 * scale, t1_n = t1 * scale;
-        bool ok_geo = (safe || (cos_r > 0.0f)) && (t0_n <= pl0) &&
-                      (t1_n <= pl1);
-        float sc_r[3], pdf_new;
-        bool ok_l = lobe_ratio(a, w0_r, sc_r, pdf_new);
-        float cos_ci = w1_r.x * sd.x + w1_r.y * sd.y + w1_r.z * sd.z;
-        float surv0n = survival(q, t0_n);
-        float surv1n = expf(-psig * t1_n);
-        V3 cw = cross3(w1_r, sd);
-        float jac_n = fabsf(w0_r.x * cw.x + w0_r.y * cw.y + w0_r.z * cw.z);
-        ok_sh = ok_l && sval && ok_geo && (tcam < slen) && (jac_n > 1e-6f);
-        float k_n = phase_params(-cos_ci, q.g, q.pt) /
-                    (cmin_(surv0n, 1e-9f) * cmin_(surv1n, 1e-9f) *
-                     cmin_(jac_n, 1e-6f));
-        for (int c = 0; c < 3; ++c)
-          c_sh[c] = ok_sh ? b[B_ALPHA + c] * sc_r[c] *
-                                (tr_cam[c] * expf(-q.st[c] * t0_n) *
-                                 expf(-q.st[c] * t1_n) * q.ss[c] * q.ss[c] *
-                                 k_n)
-                          : 0.0f;
-        pr_l = pdf_new / cmin_(a.pdf_old, 1e-20f) *
-               (surv0n / cmin_(surv0, 1e-9f)) *
-               (surv1n / cmin_(surv1, 1e-9f)) * (jac / cmin_(jac_n, 1e-6f)) /
-               cmin_(scale * scale, 1e-12f);
-        cnt[1] += ok_sh ? 1 : 0;
-      } else if (me) {
-        // resolved by the ME stage: no identity shift
-        ok_sh = false;
-        c_sh[0] = c_sh[1] = c_sh[2] = 0.0f;
-        pr_l = 1.0f;
-      } else {
-        // identity: the same plane against the offset ray
-        float u0i = 0.0f, u1i = 0.0f, tci = 0.0f;
-        const bool oki = plane_hit(so, sd, po, e0, e1, u0i, u1i, tci);
-        ok_sh = oki && sval && (u0i >= 0.0f) && (u0i <= 1.0f) &&
-                (u1i >= 0.0f) && (u1i <= 1.0f) && (tci > 1e-5f) &&
-                (tci < slen);
-        float t0i = u0i * pl0, t1i = u1i * pl1;
-        float jaci = fabsf(dot3(pw0, cross3(pw1, sd)));
-        float k_i = phase_params(-dot3(pw1, sd), q.g, q.pt) /
-                    (cmin_(survival(q, t0i), 1e-9f) *
-                     cmin_(expf(-psig * t1i), 1e-9f) * cmin_(jaci, 1e-6f));
-        for (int c = 0; c < 3; ++c)
-          c_sh[c] = ok_sh ? b[B_ALPHA + c] *
-                                (expf(-q.st[c] * tci) * expf(-q.st[c] * t0i) *
-                                 expf(-q.st[c] * t1i) * q.ss[c] * q.ss[c] *
-                                 k_i)
-                          : 0.0f;
-        pr_l = 1.0f;
-      }
-      add_offset(i, ok_sh, pr_l, x[X_SENS], x[X_BORDER] > 0.5f, c_sh,
-                 c_base, acc);
-    }
+    return ok_sh;
   }
 };
+
+// One accepted pair of a test / base / shift functor F in a shift batch:
+// its base term, then its shifts to the offsets i = first, first +
+// STRIDE, ... < 4 (STRIDE 1: all four in one lane; 4: one offset a
+// lane). Its sums leave through the sink: base(c, v) the base term,
+// offset(3 + 3i + c, v) / offset(15 + 3i + c, v) S_i and W_i, visit(me,
+// j) the pair's visit and its ME count and key (j: the beam's packed
+// index), reconnected(n) its successful reconnections. The sink keeps
+// one lane's share of each pair's base, visit and ME counts.
+template <class F, int STRIDE, class Sink>
+__host__ __device__ inline void pair_body(const Query& q, const float* b,
+                                          const float* tail,
+                                          const float* qx, const Params& p,
+                                          const typename F::Geo& g,
+                                          int first, int j, Sink& sink) {
+  typename F::Base s;
+  F::base(q, b, p, g, s);
+  const bool me = F::ME && tail[T_RECONN] < -0.5f;
+  for (int c = 0; c < 3; ++c) sink.base(c, s.c[c]);
+  sink.visit(me, j);
+  int n_rc = 0;
+#pragma unroll 1
+  for (int k = 0; k < 4 / STRIDE; ++k) {
+    const int i = first + k * STRIDE;
+    const float* x = qx + XSTRIDE * i;
+    float c_sh[3], pr_l;
+    const bool ok_sh = F::shift(q, b, tail, me, x, p, g, s, c_sh, pr_l);
+    n_rc += (tail[T_RECONN] > 0.5f && ok_sh) ? 1 : 0;
+    const float w = mis_weight(ok_sh, pr_l, x[X_SENS], x[X_BORDER] > 0.5f);
+    for (int c = 0; c < 3; ++c) {
+      sink.offset(3 + 3 * i + c, w * c_sh[c]);
+      sink.offset(15 + 3 * i + c, w * s.c[c]);
+    }
+  }
+  sink.reconnected(n_rc);
+}
 
 using GBeam1D = GBeam1DT<false>;
 using GBeam3D = GBeam3DT<false>;

@@ -5,13 +5,13 @@
 // Replaces the XLA tile loops (lax.scan over all beam slots in tiles of
 // beam_tile) of gvpm_tpu/integrators/estimators.py: beam_beam_gather
 // (:481, beam1d), beam_point_gather (:262, beam3d) and plane_gather
-// (:401, plane0d), and of gvpm_tpu/integrators/gradient_gather.py with
-// use_manifold=False: beam_gradient_gather (:1232, gbeam1d),
-// beam3d_gradient_gather (:1580, gbeam3d) and plane_gradient_gather
-// (:1960, gplane0d), and their use_manifold=True instantiations
-// (gbeam1d_me, gbeam3d_me, gplane0d_me), which also collect each query's
-// first ME-eligible accepted beam for the host's ME stage
-// (integrators/gradient_gather.py). The TPU has no kernel for them.
+// (:401, plane0d), and of gvpm_tpu/integrators/gradient_gather.py
+// beam3d_gradient_gather (:1580, gbeam3d; use_manifold=False) and its
+// use_manifold=True instantiation (gbeam3d_me), which also collects each
+// query's first ME-eligible accepted beam and its chord point for the
+// host's ME stage (integrators/gradient_gather.py). The TPU has no
+// kernel for them. The other two gradient sweeps, gbeam1d and gplane0d,
+// run on the queued kernel of gsweep.cu.
 //
 // What bounds it: operations. Each pair reads one beam row from shared
 // memory and does ~50-200 float (beam3d: plus ~110 integer, threefry for
@@ -28,7 +28,8 @@
 // offsets, visits and shift_ok) in beam order. To fill the card when
 // queries are few, the beam range is split into `splits` chunks of whole
 // tiles (blockIdx.y); each (split, query) writes its partial sums and
-// counts, and a second kernel adds the splits in order. An ME
+// counts, and a second kernel adds the splits in order (splits.cuh). An
+// ME
 // instantiation's key (the lowest packed index of an ME-eligible accepted
 // beam, ME_NONE for none) is reduced by min over the splits instead, and
 // gbeam3d_me's chord point comes from the split that holds the key. No
@@ -36,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include "beam_eval.cuh"
+#include "splits.cuh"
 
 namespace {
 
@@ -97,43 +99,6 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-// one thread per (query, accumulator): the splits in order
-template <class F>
-__global__ void reduce_splits(const float* __restrict__ part,
-                              const int* __restrict__ part_cnt, int splits,
-                              long long M, float* __restrict__ out,
-                              int* __restrict__ cnt) {
-  constexpr int NF = F::NF, NC = F::NC;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M * (NF + NC)) return;
-  const long long m = i / (NF + NC);
-  const int f = (int)(i % (NF + NC));
-  if (F::ME && ((f >= F::NF_SUM && f < NF) || f == NF + beam::C_KEY)) {
-    // the lowest key, and the chord point of the split that holds it
-    int key = beam::ME_NONE;
-    float a = 0.0f;
-    for (int s = 0; s < splits; ++s) {
-      const int k = part_cnt[(s * M + m) * NC + beam::C_KEY];
-      if (k < key) {
-        key = k;
-        if (f < NF) a = part[(s * M + m) * NF + f];
-      }
-    }
-    if (f < NF)
-      out[m * NF + f] = a;
-    else
-      cnt[m * NC + beam::C_KEY] = key;
-  } else if (f < NF) {
-    float a = 0.0f;
-    for (int s = 0; s < splits; ++s) a += part[(s * M + m) * NF + f];
-    out[m * NF + f] = a;
-  } else {
-    int n = 0;
-    for (int s = 0; s < splits; ++s) n += part_cnt[(s * M + m) * NC + f - NF];
-    cnt[m * NC + f - NF] = n;
-  }
-}
-
 template <class F>
 int launch(const float* q, long long M, const float* rows, const int* keys,
            const float* tails, const float* qext, long long N, int tile,
@@ -147,7 +112,7 @@ int launch(const float* q, long long M, const float* rows, const int* keys,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long items = M * (F::NF + F::NC);
-  reduce_splits<F><<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(
+  beam::reduce_splits<F><<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(
       part, part_cnt, splits, M, out, cnt);
   return (int)cudaGetLastError();
 }
@@ -167,9 +132,5 @@ int launch(const float* q, long long M, const float* rows, const int* keys,
 SWEEP_ENTRY(beam1d, beam::Primal<beam::Beam1D>)
 SWEEP_ENTRY(beam3d, beam::Primal<beam::Beam3D>)
 SWEEP_ENTRY(plane0d, beam::Primal<beam::Plane0D>)
-SWEEP_ENTRY(gbeam1d, beam::GBeam1D)
 SWEEP_ENTRY(gbeam3d, beam::GBeam3D)
-SWEEP_ENTRY(gplane0d, beam::GPlane0D)
-SWEEP_ENTRY(gbeam1d_me, beam::GBeam1DME)
 SWEEP_ENTRY(gbeam3d_me, beam::GBeam3DME)
-SWEEP_ENTRY(gplane0d_me, beam::GPlane0DME)

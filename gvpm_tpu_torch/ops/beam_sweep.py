@@ -26,9 +26,12 @@ the host's ME stage resolves that pair (integrators/gradient_gather.py).
 
 The JAX package leaves these to XLA as dense lax.scan tile loops over
 all beam slots; the TPU has no kernel for them. Here `sweep` / `gsweep`
-launch one CUDA kernel (csrc/beam_sweep.cu, per-pair math in
-csrc/beam_eval.cuh) for CUDA tensors and run the plain PyTorch version
-(`sweep_plain` / `gsweep_plain`) only for CPU tensors. `sweep` returns
+launch a CUDA kernel for CUDA tensors and run the plain PyTorch version
+(`sweep_plain` / `gsweep_plain`) only for CPU tensors: gbeam1d and
+gplane0d (and their _me kinds, QUEUED) the queued sweep of
+csrc/gsweep.cu, which tests pairs 32 lanes to a query and shifts the
+accepted ones 8 pairs x 4 offsets at a time; the others
+csrc/beam_sweep.cu's one thread a query. Per-pair math for both in csrc/beam_eval.cuh. `sweep` returns
 per query the summed contribution [M,3] and the number of accepted
 pairs [M] (int32); `gsweep` the base sum [M,3], the shifted and the
 MIS-weighted base sums of each offset [4,M,3], the accepted pairs and
@@ -51,8 +54,9 @@ package's word: position m * tile + j % tile of
 uniform(fold_in(k_s, j // tile), [M, tile]); `beam_keys` gives each
 kept beam its tile key and lane, and the kernel computes the words.
 
-The kernel is built with nvcc (-fmad=false, no fast math, sm_90a) at
-first use into gvpm_tpu_torch/_build/ (ops/nvcc.py).
+The kernels are built with nvcc (-fmad=false, no fast math, sm_90a) at
+first use into gvpm_tpu_torch/_build/ (ops/nvcc.py), one library a
+launcher source, the two compiled at once.
 """
 
 from __future__ import annotations
@@ -75,6 +79,8 @@ from ..scene.types import PHASE_HG, PHASE_RAYLEIGH
 KINDS = ("beam1d", "beam3d", "plane0d")
 GKINDS = ("gbeam1d", "gbeam3d", "gplane0d")
 GKINDS_ME = tuple(k + "_me" for k in GKINDS)
+# the kinds csrc/gsweep.cu runs; the others run on csrc/beam_sweep.cu
+QUEUED = ("gbeam1d", "gplane0d", "gbeam1d_me", "gplane0d_me")
 # kernel launches per kind, counted by the wrapper where it launches
 LAUNCHES = dict.fromkeys(KINDS + GKINDS + GKINDS_ME, 0)
 
@@ -104,12 +110,18 @@ NF_GRAD = 27         # base 3, S 4 x 3, W 4 x 3 floats a gradient query
 BLOCK = 128          # queries (threads) a block: csrc/beam_sweep.cu
 TILE_B = 128         # beams a shared-memory tile
 TARGET_BLOCKS = 1056  # 8 blocks an SM of 132: beam splits fill the card
+# csrc/gsweep.cu's blocks (of gsweep_shape()["tq"] queries) a launch
+# aims at: about 4,000, so that the blocks that hold valid queries (the
+# segment compaction puts them first) still make several waves of 4
+# blocks on each of 132 SMs
+GTARGET_BLOCKS = 4096
 PLAIN_MAX_PAIRS = 1 << 24   # pairs per chunk of the plain version
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("beam_sweep.cu", "beam_eval.cuh", "shift_math.cuh")
+SOURCES = ("beam_sweep.cu", "beam_eval.cuh", "shift_math.cuh", "splits.cuh")
+GSOURCES = ("gsweep.cu",) + SOURCES[1:]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -843,28 +855,60 @@ _LOCK = threading.Lock()
 
 
 def build():
-    """Compile csrc/beam_sweep.cu with nvcc into _build/ (once; ops/
-    nvcc.py) and load it; returns the ctypes library."""
+    """Compile csrc/beam_sweep.cu and csrc/gsweep.cu with nvcc into
+    _build/ (once each, the two at the same time; ops/nvcc.py) and load
+    them; returns {"beam_sweep": library, "gsweep": library}."""
     with _LOCK:
-        if "lib" in _LIB:
-            return _LIB["lib"]
-        lib = ctypes.CDLL(nvcc.build_library(_CSRC, SOURCES, _BUILD,
-                                             NVCC_FLAGS, "beam_sweep"))
+        if "libs" in _LIB:
+            return _LIB["libs"]
+        paths, errors = {}, []
+
+        def one(name, sources):
+            try:
+                paths[name] = nvcc.build_library(_CSRC, sources, _BUILD,
+                                                 NVCC_FLAGS, name)
+            except Exception as e:          # noqa: BLE001 -- raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=one, args=a)
+                   for a in (("beam_sweep", SOURCES), ("gsweep", GSOURCES))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
+        libs = {name: ctypes.CDLL(path) for name, path in paths.items()}
         vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_float, ctypes.c_int)
         for kind in LAUNCHES:
-            fn = getattr(lib, f"gvpm_beam_sweep_{kind}")
+            fn = getattr(libs[_library(kind)], f"gvpm_beam_sweep_{kind}")
             fn.argtypes = [vp, i64, vp, vp, vp, vp, i64, i32, f32, f32, i32,
                            i64, vp, vp, vp, vp, vp]
             fn.restype = ctypes.c_int
-        _LIB["lib"] = lib
-        return lib
+        libs["gsweep"].gvpm_gsweep_shape.argtypes = [vp]
+        libs["gsweep"].gvpm_gsweep_shape.restype = None
+        _LIB["libs"] = libs
+        return libs
+
+
+def _library(kind):
+    return "gsweep" if kind in QUEUED else "beam_sweep"
+
+
+def gsweep_shape():
+    """csrc/gsweep.cu's launch shape, read from the built library:
+    dict(tq, warps, tile_b, batch, ring, min_blocks, carry, sweep_u)."""
+    out = (ctypes.c_int * 8)()
+    build()["gsweep"].gvpm_gsweep_shape(out)
+    return dict(zip(("tq", "warps", "tile_b", "batch", "ring",
+                     "min_blocks", "carry", "sweep_u"), out))
 
 
 def build_report():
-    """ptxas's resources of the nine sweep_kernel<Pair>
-    instantiations: {kind: dict(registers, spill_stores, spill_loads,
-    stack, smem)}."""
+    """ptxas's resources of each kind's sweep kernel instantiation
+    (beam_sweep.cu's sweep_kernel<Pair>, gsweep.cu's gsweep_kernel<F>):
+    {kind: dict(registers, spill_stores, spill_loads, stack, smem)}."""
     build()
     # mangled names: the primal ones as Primal<Beam1D>, the gradient ones
     # as GBeam1DT<false> ("ILb0E") and GBeam1DT<true> ("ILb1E") etc.
@@ -872,22 +916,32 @@ def build_report():
             for t, k in (("GBeam1D", "gbeam1d"), ("GBeam3D", "gbeam3d"),
                          ("GPlane0D", "gplane0d")) for me in (True, False)}
     tags.update(Beam1D="beam1d", Beam3D="beam3d", Plane0D="plane0d")
-    return {next(k for t, k in tags.items() if t in name): r
-            for name, r in nvcc.build_report(_CSRC, SOURCES, _BUILD,
-                                             NVCC_FLAGS).items()
-            if "sweep_kernel" in name}
+    out = {}
+    for sources, kernel in ((SOURCES, "12sweep_kernel"),
+                            (GSOURCES, "13gsweep_kernel")):
+        for name, r in nvcc.build_report(_CSRC, sources, _BUILD,
+                                         NVCC_FLAGS).items():
+            if kernel in name:
+                out[next(k for t, k in tags.items() if t in name)] = r
+    return out
 
 
-def split_plan(M, N):
+def split_plan(M, N, block=BLOCK, tile=TILE_B, target=TARGET_BLOCKS):
     """(splits, beams per split): the beam range is cut into `splits`
     parts of whole shared-memory tiles so that the grid holds about
-    TARGET_BLOCKS blocks; a function of the shapes only, so the order of
-    the sums is fixed."""
-    blocks_x = -(-M // BLOCK)
-    tiles = -(-N // TILE_B)
-    splits = max(1, min(tiles, -(-TARGET_BLOCKS // blocks_x)))
-    chunk = -(-tiles // splits) * TILE_B
+    `target` blocks of `block` queries; a function of the shapes only, so
+    the order of the sums is fixed."""
+    blocks_x = -(-M // block)
+    tiles = -(-N // tile)
+    splits = max(1, min(tiles, -(-target // blocks_x)))
+    chunk = -(-tiles // splits) * tile
     return -(-N // chunk), chunk
+
+
+def gsplit_plan(M, N):
+    """split_plan for csrc/gsweep.cu's blocks and beam tiles."""
+    shape = gsweep_shape()
+    return split_plan(M, N, shape["tq"], shape["tile_b"], GTARGET_BLOCKS)
 
 
 def launch_kernel(kind, q, rows, p: Params, qx=None, tails=None):
@@ -934,10 +988,11 @@ def launch_kernel(kind, q, rows, p: Params, qx=None, tails=None):
         if nc == 4:
             cnt[:, 2] = ME_NONE
         return out, cnt if grad else cnt[:, 0]
-    splits, chunk = split_plan(M, N)
+    splits, chunk = gsplit_plan(M, N) if kind in QUEUED \
+        else split_plan(M, N)
     part = torch.empty((splits, M, nf), dtype=torch.float32, device=dev)
     part_cnt = torch.empty((splits, M, nc), dtype=torch.int32, device=dev)
-    err = getattr(build(), f"gvpm_beam_sweep_{kind}")(
+    err = getattr(build()[_library(kind)], f"gvpm_beam_sweep_{kind}")(
         q.data_ptr(), M, rows.data_ptr(), keys,
         tails.data_ptr() if grad else None,
         qx.data_ptr() if grad else None, N,

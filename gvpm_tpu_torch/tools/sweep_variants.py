@@ -8,17 +8,32 @@ at the goldens' 128^2 check config with ME off (the inputs chip_smoke.py
 times the kernels on), then, for each variant, copies csrc/ into
 _build/sweep_variants/<name>/ with the variant's text substitutions
 applied, builds it through ops.beam_sweep.build and times the three
-gradient instantiations (gbeam1d, gbeam3d, gplane0d) through the same
-wrapper, with chip_smoke.cuda_ms. A variant is a list of (old, new)
-source substitutions: each must match, so a variant that the sources
-have outgrown fails loudly. `shifts_out` returns after the base term
-(no tail load, no shifts): its S, W and shift_ok are wrong on purpose
-and say what the shifts cost; `shifts_skipped` returns there at run
-time only, so the kernel keeps the shifts' registers: it says what the
-base loop costs at the gradient kernel's occupancy. Every other variant must agree with
-`base` (visits and shift_ok equal, sums at rtol 2e-4 / atol 5e-6) or
-the script raises. Prints one line per variant: ms per launch,
-registers a thread and spill bytes per instantiation.
+gradient sweeps (gbeam1d and gplane0d on csrc/gsweep.cu, gbeam3d on
+csrc/beam_sweep.cu's one thread a query) through the same wrapper, with
+chip_smoke.cuda_ms. A variant is a list of (old, new) source
+substitutions: each must match, so a variant that the sources have
+outgrown fails loudly.
+
+gsweep.cu's knobs (its defaults: TQ 64, TILE_B 128, BATCH 8, SWEEP_U
+2, RING 128, MIN_BLOCKS 4, tails read from device memory): `batch_32`
+(32 pairs a batch, a pair's four offsets in one lane, against 8 pairs x
+4 offsets), `carry` (the base test's values ride in the ring instead of
+being recomputed in the batch), the query tile (`tq_32`, `tq_128`),
+the beam tile (`tile_b_256`, `tile_b_512`), the ring (`ring_256`), the
+32-beam slots a lane tests a sweep step (`sweep_u_1`, `sweep_u_4`), the
+register cap (`regs_168` / `regs_255`:
+3 / 2 blocks of 128 threads an SM), `offsets_unrolled` (the shift loop
+unrolled), `batch_noinline` (the batch a function of its own), and
+`shifts_out`, which returns before a batch's pair bodies: its sums and
+counts are wrong on purpose and say what the sweep, the queue and the
+batches' loads cost alone. beam_sweep.cu's (gbeam3d): `thread_regs_128`
+/ `thread_regs_85` (4 / 6 blocks of 128 an SM), `thread_shifts_out`
+(returns after the base term) and `thread_shifts_skipped` (returns there
+at run time only, keeping the shifts' registers). Every variant but
+those wrong on purpose must agree with `base` (visits and shift_ok
+equal, sums at rtol 2e-4 / atol 5e-6) or the script raises. Prints one
+line per variant: ms per launch, registers a thread and spill bytes per
+kernel.
 """
 
 import os
@@ -29,20 +44,46 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-TAIL = "    const Parent a = load_parent(tail);\n"
+TAIL = ("    // ---- the four shifts ----\n"
+        "    const Parent a = load_parent(tail);\n")     # GBeam3DT's visit
 BOUNDS = "__global__ void __launch_bounds__(BLOCK)\n"
+
+
+def shape(name, old, new, kind="int"):
+    return (f"constexpr {kind} {name} = {old};",
+            f"constexpr {kind} {name} = {new};")
+
 
 VARIANTS = {
     "base": [],
-    # at most 128 / 85 registers a thread: 4 / 6 blocks of 128 an SM
-    "regs_128": [(BOUNDS, "__global__ void __launch_bounds__(BLOCK, 4)\n")],
-    "regs_85": [(BOUNDS, "__global__ void __launch_bounds__(BLOCK, 6)\n")],
-    "shifts_out": [(TAIL, "    return;\n" + TAIL)],
+    "batch_32": [shape("BATCH", 8, 32)],
+    "carry": [shape("CARRY", "false", "true", "bool")],
+    "tq_32": [shape("TQ", 64, 32)],
+    "tq_128": [shape("TQ", 64, 128)],
+    "tile_b_256": [shape("TILE_B", 128, 256)],
+    "tile_b_512": [shape("TILE_B", 128, 512)],
+    "ring_256": [shape("RING", 128, 256)],
+    "sweep_u_1": [shape("SWEEP_U", 2, 1)],
+    "sweep_u_4": [shape("SWEEP_U", 2, 4), shape("RING", 128, 256)],
+    "regs_168": [shape("MIN_BLOCKS", 4, 3)],
+    "regs_255": [shape("MIN_BLOCKS", 4, 2)],
+    "offsets_unrolled": [("#pragma unroll 1\n  for (int k = 0; k < 4 / STRIDE",
+                          "#pragma unroll\n  for (int k = 0; k < 4 / STRIDE")],
+    "batch_noinline": [("__device__ __forceinline__ void shift_batch",
+                        "__device__ __noinline__ void shift_batch")],
+    "shifts_out": [("  beam::pair_body<F, STRIDE>(",
+                    "  if (p.k != -1.0f) return;\n  beam::pair_body<F, STRIDE>(")],
+    "thread_regs_128": [(BOUNDS,
+                         "__global__ void __launch_bounds__(BLOCK, 4)\n")],
+    "thread_regs_85": [(BOUNDS,
+                        "__global__ void __launch_bounds__(BLOCK, 6)\n")],
+    "thread_shifts_out": [(TAIL, "    return;\n" + TAIL)],
     # the shifts compiled (and their registers allocated) but skipped at
     # run time: k is never -1
-    "shifts_skipped": [(TAIL, "    if (p.k != -1.0f) return;\n" + TAIL)],
+    "thread_shifts_skipped": [(TAIL, "    if (p.k != -1.0f) return;\n"
+                               + TAIL)],
 }
-WRONG_ON_PURPOSE = ("shifts_out", "shifts_skipped")
+WRONG_ON_PURPOSE = ("shifts_out", "thread_shifts_out", "thread_shifts_skipped")
 
 
 def main(names):
@@ -71,7 +112,7 @@ def main(names):
         src_dir = os.path.join(bs._BUILD, "sweep_variants", name)
         os.makedirs(src_dir, exist_ok=True)
         subs = list(VARIANTS[name])
-        for f in bs.SOURCES:
+        for f in sorted(set(bs.SOURCES + bs.GSOURCES)):
             with open(os.path.join(csrc, f)) as fh:
                 text = fh.read()
             for old, new in list(subs):

@@ -431,3 +431,281 @@ def port_beam_me_gather(kind, scene, inp, seg_tile, budget):
     finally:
         setattr(gg, name, orig)
     return res, pairs
+
+
+# ---------------------------------------------------------------------------
+# the queued gradient sweeps (csrc/gsweep.cu) on the host
+# ---------------------------------------------------------------------------
+# beam_eval.cuh's test / base / shift parts, compiled with g++ (with
+# __host__ / __device__ defined away) and driven in two orders: each
+# query against every beam, as the plain version visits them
+# (plain_order), and csrc/gsweep.cu's (queued): blocks of TQ queries,
+# beam splits of `chunk`, tiles of TILE_B; warp w takes the queries w, w
+# + WARPS, ... of its block, tests them against each tile 32 x SWEEP_U
+# beams a step, queues the passing pairs in its ring (which lives on
+# across tiles) and runs them `batch` at a time (32 / batch lanes a pair,
+# lane group g taking offsets g, g + 32 / batch, ...; only group 0 counts
+# the base term and the visit), the block's last batch partial; then the
+# splits are added in order and the ME keys reduced by min. The sums are
+# taken pair after pair into the query's accumulator: the card's term
+# buffer, added column by column in ring order, and its ring indexing
+# modulo RING are not modelled here and are held only on the card
+# (chip_smoke.py [gbeams-stress] and the gpu-marked tests, at the split
+# plan and in one split).
+QUEUED_HOST_CPP = r"""
+#define __host__
+#define __device__
+#include <algorithm>
+#include <utility>
+#include <vector>
+#include "beam_eval.cuh"
+
+struct HostSink {
+  float* acc;
+  int* cnt;
+  bool lead;
+  void base(int c, float v) { if (lead) acc[c] += v; }
+  void offset(int k, float v) { acc[k] += v; }
+  void visit(bool me, int j) {
+    if (!lead) return;
+    ++cnt[0];
+    if (me) {
+      ++cnt[beam::C_ME];
+      if (j < cnt[beam::C_KEY]) cnt[beam::C_KEY] = j;
+    }
+  }
+  void reconnected(int n) { cnt[1] += n; }
+};
+
+template <class F>
+static void plain_order(const float* q, long long M, const float* rows,
+                        const float* tails, const float* qx, long long N,
+                        beam::Params p, float* out, int* cnt) {
+  for (long long m = 0; m < M; ++m) {
+    const beam::Query qq = beam::load_query(q + m * beam::QW, (uint32_t)m);
+    float acc[beam::NF_GRAD] = {};
+    int c[4] = {0, 0, beam::ME_NONE, 0};
+    if (qq.valid)
+      for (long long j = 0; j < N; ++j) {
+        typename F::Geo g;
+        if (!F::test(qq, rows + j * beam::BW, p, g)) continue;
+        HostSink sink{acc, c, true};
+        beam::pair_body<F, 1>(qq, rows + j * beam::BW, tails + j * beam::TW,
+                              qx + m * beam::XW, p, g, 0, (int)j, sink);
+      }
+    for (int f = 0; f < beam::NF_GRAD; ++f) out[m * beam::NF_GRAD + f] = acc[f];
+    for (int k = 0; k < F::NC; ++k) cnt[m * F::NC + k] = c[k];
+  }
+}
+
+template <class F, int STRIDE>
+static int queued(const float* q, long long M, const float* rows,
+                  const float* tails, const float* qx, long long N,
+                  beam::Params p, int tq, int warps, int tile_b,
+                  int step, long long chunk, float* out, int* cnt) {
+  constexpr int NF = beam::NF_GRAD, BATCH = 32 / STRIDE;
+  const long long splits = (N + chunk - 1) / chunk;
+  std::vector<float> part(splits * M * NF, 0.0f);
+  std::vector<int> pc(splits * M * 4, 0);
+  int most = 0;
+  for (long long s = 0; s < splits; ++s) {
+    const long long j0 = s * chunk, j1 = std::min(N, j0 + chunk);
+    for (long long q0 = 0; q0 < M; q0 += tq) {
+      const int nq = (int)std::min((long long)tq, M - q0);
+      float* acc = &part[(s * M + q0) * NF];
+      int* c = &pc[(s * M + q0) * 4];
+      for (int qi = 0; qi < nq; ++qi) c[qi * 4 + beam::C_KEY] = beam::ME_NONE;
+      for (int w = 0; w < warps; ++w) {
+        std::vector<std::pair<int, long long>> ring;
+        size_t lo = 0;
+        auto run = [&](size_t n) {
+          for (int grp = 0; grp < STRIDE; ++grp)
+            for (size_t k = 0; k < n; ++k) {
+              const int qi = ring[lo + k].first;
+              const long long j = ring[lo + k].second;
+              const beam::Query qq =
+                  beam::load_query(q + (q0 + qi) * beam::QW, (uint32_t)(q0 + qi));
+              typename F::Geo g;
+              F::test(qq, rows + j * beam::BW, p, g);
+              HostSink sink{acc + qi * NF, c + qi * 4, grp == 0};
+              beam::pair_body<F, STRIDE>(qq, rows + j * beam::BW,
+                                         tails + j * beam::TW,
+                                         qx + (q0 + qi) * beam::XW, p, g,
+                                         grp, (int)j, sink);
+            }
+          lo += n;
+        };
+        for (long long t0 = j0; t0 < j1; t0 += tile_b) {
+          const int n = (int)std::min((long long)tile_b, j1 - t0);
+          for (int qi = w; qi < nq; qi += warps) {
+            const beam::Query qq =
+                beam::load_query(q + (q0 + qi) * beam::QW, (uint32_t)(q0 + qi));
+            if (!qq.valid) continue;
+            for (int u = 0; u < n; u += step) {
+              for (int lane = 0; lane < step && u + lane < n; ++lane) {
+                const long long j = t0 + u + lane;
+                typename F::Geo g;
+                if (F::test(qq, rows + j * beam::BW, p, g))
+                  ring.push_back({qi, j});
+              }
+              most = std::max(most, (int)(ring.size() - lo));
+              while (ring.size() - lo >= (size_t)BATCH) run(BATCH);
+            }
+          }
+        }
+        while (ring.size() > lo)
+          run(std::min((size_t)BATCH, ring.size() - lo));
+      }
+    }
+  }
+  for (long long m = 0; m < M; ++m) {
+    for (int f = 0; f < NF; ++f) {
+      float a = 0.0f;
+      for (long long s = 0; s < splits; ++s) a += part[(s * M + m) * NF + f];
+      out[m * NF + f] = a;
+    }
+    int sums[4] = {0, 0, beam::ME_NONE, 0};
+    for (long long s = 0; s < splits; ++s) {
+      const int* c = &pc[(s * M + m) * 4];
+      sums[0] += c[0], sums[1] += c[1], sums[3] += c[3];
+      sums[2] = std::min(sums[2], c[2]);
+    }
+    for (int k = 0; k < F::NC; ++k) cnt[m * F::NC + k] = sums[k];
+  }
+  return most;
+}
+
+#define QUEUED_KINDS(X)            \
+  X(0, beam::GBeam1D)              \
+  X(1, beam::GPlane0D)             \
+  X(2, beam::GBeam1DME)            \
+  X(3, beam::GPlane0DME)
+
+extern "C" void host_plain_order(int kind, const float* q, long long M,
+                                 const float* rows, const float* tails,
+                                 const float* qx, long long N, float r2,
+                                 float k, float* out, int* cnt) {
+  beam::Params p{r2, k, 0u};
+#define PLAIN(I, F) \
+  if (kind == I) plain_order<F>(q, M, rows, tails, qx, N, p, out, cnt);
+  QUEUED_KINDS(PLAIN)
+}
+
+extern "C" int host_queued(int kind, int batch, const float* q, long long M,
+                           const float* rows, const float* tails,
+                           const float* qx, long long N, float r2, float k,
+                           int tq, int warps, int tile_b, int step,
+                           long long chunk, float* out, int* cnt) {
+  beam::Params p{r2, k, 0u};
+#define QUEUE(I, F)                                                        \
+  if (kind == I)                                                           \
+    return batch == 32 ? queued<F, 1>(q, M, rows, tails, qx, N, p, tq,     \
+                                      warps, tile_b, step, chunk, out,     \
+                                      cnt)                                 \
+                       : queued<F, 4>(q, M, rows, tails, qx, N, p, tq,     \
+                                      warps, tile_b, step, chunk, out,     \
+                                      cnt);
+  QUEUED_KINDS(QUEUE)
+  return -1;
+}
+"""
+
+
+def gsweep_source_shape():
+    """csrc/gsweep.cu's launch shape as its source states it: dict(tq,
+    warps, tile_b, batch, ring, sweep_u)."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "gvpm_tpu_torch", "csrc", "gsweep.cu")
+    with open(path) as f:
+        text = f.read()
+    return {k.lower(): int(re.search(rf"constexpr int {name} = (\d+);",
+                                     text).group(1))
+            for k, name in (("tq", "TQ"), ("warps", "WARPS"),
+                            ("tile_b", "TILE_B"), ("batch", "BATCH"),
+                            ("ring", "RING"), ("sweep_u", "SWEEP_U"))}
+
+
+def build_host_library(tmp_path_factory, name, cpp):
+    """`cpp` compiled with g++ against gvpm_tpu_torch/csrc into a shared
+    library (no FMA contraction, as the kernels' -fmad=false) and loaded;
+    skips without g++. host_plain_order / host_queued get their
+    argument types when `cpp` holds QUEUED_HOST_CPP."""
+    import ctypes
+    import os
+    import shutil
+    import subprocess
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    csrc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "gvpm_tpu_torch", "csrc")
+    d = tmp_path_factory.mktemp(name)
+    src = d / "host.cpp"
+    src.write_text(cpp)
+    so = d / "libhost.so"
+    subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off",
+                    "-fPIC", "-shared", "-I", csrc, str(src), "-o",
+                    str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
+                         ctypes.c_int)
+    if "host_queued" in cpp:
+        lib.host_plain_order.argtypes = [i32, vp, i64, vp, vp, vp, i64, f32,
+                                         f32, vp, vp]
+        lib.host_plain_order.restype = None
+        lib.host_queued.argtypes = [i32, i32, vp, i64, vp, vp, vp, i64, f32,
+                                    f32, i32, i32, i32, i32, i64, vp, vp]
+        lib.host_queued.restype = i32
+    return lib
+
+
+def host_queued_sweep(lib, kind, args, batch=None, chunk=None):
+    """gsweep.cu's order on the host for queued kind `kind` (beam_sweep.
+    QUEUED) on gsweep's arguments (q, qx, rows, tails, params); batch and
+    chunk default to the source's batch and one split. Returns (gsweep's
+    tuple, the most pairs the ring held at once), or with batch=0 the
+    plain order's tuple and None."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    q, qx, rows, tails, p = args
+    M, N = q.shape[0], rows.shape[0]
+    nf, nc = bs._widths(kind)
+    out = torch.zeros((M, nf))
+    cnt = torch.zeros((M, nc), dtype=torch.int32)
+    i = bs.QUEUED.index(kind)
+    ptrs = (q.data_ptr(), M, rows.data_ptr(), tails.data_ptr(),
+            qx.data_ptr(), N, float(p.r2), float(p.k))
+    most = None
+    if batch == 0:
+        lib.host_plain_order(i, *ptrs, out.data_ptr(), cnt.data_ptr())
+    else:
+        shape = gsweep_source_shape()
+        most = lib.host_queued(i, batch or shape["batch"], *ptrs,
+                               shape["tq"], shape["warps"], shape["tile_b"],
+                               32 * shape["sweep_u"], chunk or max(N, 1),
+                               out.data_ptr(), cnt.data_ptr())
+    return bs._grad_out(out, cnt), most
+
+
+def hold_gsweep(got, want):
+    """gsweep tuples: the counts (and ME keys) exactly, the sums at rtol
+    2e-4 / atol 5e-6."""
+    for k, name in ((3, "visits"), (4, "shift_ok"), (5, "ME key"),
+                    (6, "ME pairs"))[:len(want) - 3]:
+        assert torch.equal(got[k], want[k]), name
+    for g, w, name in zip(got[:3], want[:3], ("primal", "S", "W")):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=5e-6, msg=name)
+
+
+def queued_against_plain(lib, kind, args, batch):
+    """The queued order (one split, then splits of one beam tile) against
+    gsweep_plain; the ring never holds more than a partial batch and one
+    sweep step of 32 x SWEEP_U beams. Returns the plain outputs."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    want = bs.gsweep_plain(kind, *args)
+    shape = gsweep_source_shape()
+    for chunk in (None, shape["tile_b"]):
+        got, most = host_queued_sweep(lib, kind, args, batch, chunk)
+        hold_gsweep(got, want)
+        assert most <= batch - 1 + 32 * shape["sweep_u"] <= shape["ring"]
+    return want

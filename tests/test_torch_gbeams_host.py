@@ -1,36 +1,36 @@
-"""The gradient beam / plane functors of the sweep kernel
+"""The gradient beam / plane functors of the sweep kernels
 (gvpm_tpu_torch/csrc/beam_eval.cuh: GBeam1D, GBeam3D, GPlane0D),
 compiled as host C++ with g++ and driven from ctypes, against the plain
 PyTorch version of ops/beam_sweep.py (gsweep_plain) on the sweep inputs
 of one 16x16 gvpm pass of each beam volume (tests/test_torch_common.py's
-config, use_manifold=False). The host loop visits the pairs as one
-kernel thread does: each query against every beam in order. This is the
-only way the CUDA source's gradient math runs before it reaches the
-card. Bar: visits and shift_ok exactly equal; sums at rtol 2e-4 / atol
-5e-6 (the order of the sums and the rounding of expf differ)."""
+config, use_manifold=False) and on chip_smoke.gsweep_stress_inputs. The
+host loops visit the pairs as one kernel thread of beam_sweep.cu does
+(each query against every beam in order: GBeam3D's visit, the others'
+test / base / shift parts) and, for gbeam1d and gplane0d, in csrc/
+gsweep.cu's order (tiles, a ring per warp, batches of 32 pairs or of 8
+pairs x 4 offsets; test_torch_common.QUEUED_HOST_CPP). This is the only
+way the CUDA source's gradient math runs before it reaches the card.
+Bar: visits and shift_ok exactly equal; sums at rtol 2e-4 / atol 5e-6
+(the order of the sums and the rounding of expf differ)."""
 
 import ctypes
-import os
-import shutil
-import subprocess
 
 import pytest
 import torch
 
+from chip_smoke import gsweep_stress_inputs
 from gvpm_tpu_torch import scenes
 from gvpm_tpu_torch.integrators import gvpm, sppm
 from gvpm_tpu_torch.ops import beam_sweep as bs
 from tests.test_torch_common import (torch_threads,  # noqa: F401
-                                     IT, N_PHOTONS, SEED, SIDE, TORCH_CFG)
+                                     IT, N_PHOTONS, QUEUED_HOST_CPP, SEED,
+                                     SIDE, TORCH_CFG, build_host_library,
+                                     gsweep_source_shape, host_queued_sweep,
+                                     queued_against_plain)
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "gvpm_tpu_torch", "csrc")
 VOLUMES = dict(gbeam1d="beam1d", gbeam3d="beam3d", gplane0d="plane0d")
 
-HOST_CPP = r"""
-#define __host__
-#define __device__
-#include "beam_eval.cuh"
+HOST_CPP = QUEUED_HOST_CPP + r"""
 template <class F>
 static void run(const float* q, long long M, const float* rows,
                 const int* keys, const float* tails, const float* qx,
@@ -47,37 +47,23 @@ static void run(const float* q, long long M, const float* rows,
     for (int k = 0; k < F::NC; ++k) cnt[m * F::NC + k] = c[k];
   }
 }
-extern "C" void host_gsweep(int kind, const float* q, long long M,
+extern "C" void host_gsweep(const float* q, long long M,
                             const float* rows, const int* keys,
                             const float* tails, const float* qx,
                             long long N, int tile, float r2, float k,
                             float* out, int* cnt) {
   beam::Params p{r2, k, (uint32_t)tile};
-  if (kind == 0)
-    run<beam::GBeam1D>(q, M, rows, keys, tails, qx, N, p, out, cnt);
-  else if (kind == 1)
-    run<beam::GBeam3D>(q, M, rows, keys, tails, qx, N, p, out, cnt);
-  else
-    run<beam::GPlane0D>(q, M, rows, keys, tails, qx, N, p, out, cnt);
+  run<beam::GBeam3D>(q, M, rows, keys, tails, qx, N, p, out, cnt);
 }
 """
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is not installed")
-    d = tmp_path_factory.mktemp("gbeam_eval_host")
-    src = d / "host.cpp"
-    src.write_text(HOST_CPP)
-    so = d / "libhost.so"
-    subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off",
-                    "-fPIC", "-shared", "-I", CSRC, str(src), "-o",
-                    str(so)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    lib = build_host_library(tmp_path_factory, "gbeam_eval_host", HOST_CPP)
     vp, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    lib.host_gsweep.argtypes = [ctypes.c_int, vp, i64, vp, vp, vp, vp, i64,
-                                ctypes.c_int, f32, f32, vp, vp]
+    lib.host_gsweep.argtypes = [vp, i64, vp, vp, vp, vp, i64, ctypes.c_int,
+                                f32, f32, vp, vp]
     lib.host_gsweep.restype = None
     return lib
 
@@ -112,22 +98,47 @@ def test_host_compiled_gradient_math_matches_plain(host_lib, gsweep_inputs,
     M, N = q.shape[0], rows.shape[0]
     for a, w in ((q, bs.QW), (qx, bs.XW), (rows, bs.BW), (tails, bs.TW)):
         assert a.is_contiguous() and a.shape[1] == w
-    out = torch.empty((M, bs.NF_GRAD))
-    cnt = torch.empty((M, 2), dtype=torch.int32)
-    keys = p.keys.contiguous() if p.keys is not None else None
-    host_lib.host_gsweep(bs.GKINDS.index(kind), q.data_ptr(), M,
-                         rows.data_ptr(),
-                         keys.data_ptr() if keys is not None else None,
-                         tails.data_ptr(), qx.data_ptr(), N, int(p.tile),
-                         float(p.r2), float(p.k), out.data_ptr(),
-                         cnt.data_ptr())
-    got = bs._grad_out(out, cnt)
+    if kind in bs.QUEUED:       # test / base / shift, in the plain order
+        got, _ = host_queued_sweep(host_lib, kind, gsweep_inputs[kind],
+                                   batch=0)
+    else:
+        out = torch.empty((M, bs.NF_GRAD))
+        cnt = torch.empty((M, 2), dtype=torch.int32)
+        host_lib.host_gsweep(q.data_ptr(), M, rows.data_ptr(),
+                             p.keys.contiguous().data_ptr(),
+                             tails.data_ptr(), qx.data_ptr(), N, int(p.tile),
+                             float(p.r2), float(p.k), out.data_ptr(),
+                             cnt.data_ptr())
+        got = bs._grad_out(out, cnt)
     want = bs.gsweep_plain(kind, q, qx, rows, tails, p)
     assert int(want[3].sum()) > 50 and int(want[4].sum()) > 50
     assert torch.equal(got[3], want[3]), "visits"
     assert torch.equal(got[4], want[4]), "shift_ok"
     for g, w, name in zip(got[:3], want[:3], ("primal", "S", "W")):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=5e-6, msg=name)
+
+
+@pytest.mark.parametrize("batch", (32, 8))
+@pytest.mark.parametrize("kind", ("gbeam1d", "gplane0d"))
+def test_queued_order_matches_plain(host_lib, gsweep_inputs, kind, batch):
+    want = queued_against_plain(host_lib, kind, gsweep_inputs[kind], batch)
+    assert int(want[3].sum()) > 50 and int(want[4].sum()) > 50
+
+
+@pytest.mark.parametrize("batch", (32, 8))
+@pytest.mark.parametrize("kind", ("gbeam1d", "gplane0d"))
+def test_queued_order_on_stress_input(host_lib, kind, batch):
+    """A query accepting every beam of three tiles, a tile whose pairs
+    wrap the ring many times, ragged query and beam counts, invalid
+    queries, a medium mismatch, reconnectable and identity beams."""
+    *args, hot = gsweep_stress_inputs(kind)
+    want = queued_against_plain(host_lib, kind, args, batch)
+    assert int(want[3][hot]) >= 800 > 3 * gsweep_source_shape()["tile_b"]
+    q, rows = args[0], args[2]
+    assert q.shape[0] % gsweep_source_shape()["tq"] != 0
+    assert rows.shape[0] % gsweep_source_shape()["tile_b"] != 0
+    assert int(want[3][q[:, bs.QSLOT["valid"]] < 0.5].sum()) == 0
+    assert int(want[4].sum()) > 1000
 
 
 def test_cpu_tensors_take_the_gradient_plain_version(gsweep_inputs):

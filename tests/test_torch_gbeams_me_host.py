@@ -4,9 +4,12 @@ compiled as host C++ with g++ and driven from ctypes, against the plain
 PyTorch version of ops/beam_sweep.py (gsweep_plain with the _me kinds)
 on the sweep inputs of one 16x16 gvpm pass of each beam volume with
 manifold shifts (tests/test_torch_common.py's BEAM_ME_KW in box_medium,
-where beams leave the mirror sphere). The host loop visits the pairs as
-one kernel thread does, each query against every beam in order, its ME
-key starting at ME_NONE.
+where beams leave the mirror sphere) and on chip_smoke.
+gsweep_stress_inputs. The host loops visit the pairs as one kernel
+thread of beam_sweep.cu does, each query against every beam in order,
+its ME key starting at ME_NONE (GBeam3DME's visit, the others' test /
+base / shift parts), and for gbeam1d_me and gplane0d_me in csrc/
+gsweep.cu's order (test_torch_common.QUEUED_HOST_CPP).
 
 Bar: visits, shift_ok, the ME key (the lowest packed index of an
 ME-eligible accepted beam), the ME pair count and gbeam3d_me's chord
@@ -14,29 +17,24 @@ point bit-equal; sums at rtol 2e-4 / atol 5e-6 (the order of the sums
 and the rounding of expf differ)."""
 
 import ctypes
-import os
-import shutil
-import subprocess
 
 import pytest
 import torch
 
+from chip_smoke import gsweep_stress_inputs
 from gvpm_tpu_torch import scenes
 from gvpm_tpu_torch.integrators import gvpm, sppm
 from gvpm_tpu_torch.ops import beam_sweep as bs
 from tests.test_torch_common import (torch_threads,  # noqa: F401
-                                     BEAM_ME_TORCH_CFG, IT, N_PHOTONS, SEED,
-                                     SIDE)
+                                     BEAM_ME_TORCH_CFG, IT, N_PHOTONS,
+                                     QUEUED_HOST_CPP, SEED, SIDE,
+                                     build_host_library, gsweep_source_shape,
+                                     host_queued_sweep, queued_against_plain)
 
-CSRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "gvpm_tpu_torch", "csrc")
 VOLUMES = dict(gbeam1d_me="beam1d", gbeam3d_me="beam3d",
                gplane0d_me="plane0d")
 
-HOST_CPP = r"""
-#define __host__
-#define __device__
-#include "beam_eval.cuh"
+HOST_CPP = QUEUED_HOST_CPP + r"""
 template <class F>
 static void run(const float* q, long long M, const float* rows,
                 const int* keys, const float* tails, const float* qx,
@@ -54,37 +52,24 @@ static void run(const float* q, long long M, const float* rows,
     for (int k = 0; k < F::NC; ++k) cnt[m * F::NC + k] = c[k];
   }
 }
-extern "C" void host_gsweep_me(int kind, const float* q, long long M,
+extern "C" void host_gsweep_me(const float* q, long long M,
                                const float* rows, const int* keys,
                                const float* tails, const float* qx,
                                long long N, int tile, float r2, float k,
                                float* out, int* cnt) {
   beam::Params p{r2, k, (uint32_t)tile};
-  if (kind == 0)
-    run<beam::GBeam1DME>(q, M, rows, keys, tails, qx, N, p, out, cnt);
-  else if (kind == 1)
-    run<beam::GBeam3DME>(q, M, rows, keys, tails, qx, N, p, out, cnt);
-  else
-    run<beam::GPlane0DME>(q, M, rows, keys, tails, qx, N, p, out, cnt);
+  run<beam::GBeam3DME>(q, M, rows, keys, tails, qx, N, p, out, cnt);
 }
 """
 
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is not installed")
-    d = tmp_path_factory.mktemp("gbeam_me_eval_host")
-    src = d / "host.cpp"
-    src.write_text(HOST_CPP)
-    so = d / "libhost.so"
-    subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off",
-                    "-fPIC", "-shared", "-I", CSRC, str(src), "-o",
-                    str(so)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    lib = build_host_library(tmp_path_factory, "gbeam_me_eval_host",
+                             HOST_CPP)
     vp, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    lib.host_gsweep_me.argtypes = [ctypes.c_int, vp, i64, vp, vp, vp, vp,
-                                   i64, ctypes.c_int, f32, f32, vp, vp]
+    lib.host_gsweep_me.argtypes = [vp, i64, vp, vp, vp, vp, i64,
+                                   ctypes.c_int, f32, f32, vp, vp]
     lib.host_gsweep_me.restype = None
     return lib
 
@@ -119,16 +104,18 @@ def test_host_compiled_me_functors_match_plain(host_lib, gsweep_inputs,
     q, qx, rows, tails, p = gsweep_inputs[kind]
     M, N = q.shape[0], rows.shape[0]
     nf = bs.NF_GRAD + (3 if kind == "gbeam3d_me" else 0)
-    out = torch.empty((M, nf))
-    cnt = torch.empty((M, 4), dtype=torch.int32)
-    keys = p.keys.contiguous() if p.keys is not None else None
-    host_lib.host_gsweep_me(bs.GKINDS_ME.index(kind), q.data_ptr(), M,
-                            rows.data_ptr(),
-                            keys.data_ptr() if keys is not None else None,
-                            tails.data_ptr(), qx.data_ptr(), N, int(p.tile),
-                            float(p.r2), float(p.k), out.data_ptr(),
-                            cnt.data_ptr())
-    got = bs._grad_out(out, cnt)
+    if kind in bs.QUEUED:       # test / base / shift, in the plain order
+        got, _ = host_queued_sweep(host_lib, kind, gsweep_inputs[kind],
+                                   batch=0)
+    else:
+        out = torch.empty((M, nf))
+        cnt = torch.empty((M, 4), dtype=torch.int32)
+        host_lib.host_gsweep_me(q.data_ptr(), M, rows.data_ptr(),
+                                p.keys.contiguous().data_ptr(),
+                                tails.data_ptr(), qx.data_ptr(), N,
+                                int(p.tile), float(p.r2), float(p.k),
+                                out.data_ptr(), cnt.data_ptr())
+        got = bs._grad_out(out, cnt)
     want = bs.gsweep_plain(kind, q, qx, rows, tails, p)
     assert len(got) == len(want) == 8
     assert int(want[3].sum()) > 50 and int(want[4].sum()) > 50
@@ -145,6 +132,28 @@ def test_host_compiled_me_functors_match_plain(host_lib, gsweep_inputs,
         assert got[7] is None and want[7] is None
     for g, w, name in zip(got[:3], want[:3], ("primal", "S", "W")):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=5e-6, msg=name)
+
+
+@pytest.mark.parametrize("batch", (32, 8))
+@pytest.mark.parametrize("kind", ("gbeam1d_me", "gplane0d_me"))
+def test_queued_me_order_matches_plain(host_lib, gsweep_inputs, kind,
+                                       batch):
+    want = queued_against_plain(host_lib, kind, gsweep_inputs[kind], batch)
+    assert int((want[5] != bs.ME_NONE).sum()) > 0
+
+
+@pytest.mark.parametrize("batch", (32, 8))
+@pytest.mark.parametrize("kind", ("gbeam1d_me", "gplane0d_me"))
+def test_queued_me_order_on_stress_input(host_lib, kind, batch):
+    """The stress input with ME-eligible beams among reconnectable and
+    identity ones, some of them the hot query's."""
+    *args, hot = gsweep_stress_inputs(kind)
+    want = queued_against_plain(host_lib, kind, args, batch)
+    elig = args[3][:, bs.TSLOT["reconnectable"]] < -0.5
+    assert int(want[3][hot]) >= 800 > 3 * gsweep_source_shape()["tile_b"]
+    assert int(want[5][hot]) != bs.ME_NONE and bool(elig[int(want[5][hot])])
+    assert int((want[5] != bs.ME_NONE).sum()) > 50
+    assert int(want[6].sum()) > int((want[5] != bs.ME_NONE).sum())
 
 
 @pytest.mark.parametrize("kind", bs.GKINDS_ME)
