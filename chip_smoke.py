@@ -43,11 +43,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 only), visits and shift_ok exactly equal, sums at rtol
                 2e-4 / atol 5e-6, two launches bitwise equal; kernel and
                 plain ms, the bound (`gbeam_bound`) and the kernel's share
-                of it, its registers and spills; for gbeam1d and gplane0d
-                (csrc/gsweep.cu) the lane use of their shift bodies in
-                one thread a query and in the queued kernel
+                of it, its registers and spills; the lane use of their
+                shift bodies in one thread a query (as beam_sweep.cu ran
+                them before gsweep.cu) and in the queued kernel of gsweep.cu
                 (`gsweep_lane_use`); last, the unchanged kernels' ms as a
-                control line (the primal sweeps and gbeam3d).
+                control line (the primal sweeps).
   3e. gbeams-me — the same three sweeps' ME instantiations (gbeam1d_me,
                 gbeam3d_me, gplane0d_me) on the inputs of one gvpm pass
                 of each with the default use_manifold=True: the kernel
@@ -59,15 +59,17 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 2e-4 / atol 5e-6, two launches bitwise equal; kernel and
                 plain ms and the bound (its counts from a dense base test
                 over every pair, `gsweep_stats`), registers and spills.
-  3f. gbeams-stress — gbeam1d, gplane0d and their ME kinds on a small
-                seeded input a render cannot give (`gsweep_stress_inputs`:
-                a query accepting every beam of three tiles, ragged query
-                and beam counts, invalid queries, a medium mismatch,
-                reconnectable, identity and ME-eligible beams), at the
-                wrapper's split plan and in one split (the queue then
-                lives across the beam tiles): counts and ME keys exactly
-                equal to the plain version's, sums at rtol 2e-4 / atol
-                5e-6, two launches bitwise equal.
+  3f. gbeams-stress — the six queued kinds (gbeam1d, gbeam3d, gplane0d
+                and their ME kinds) on a small seeded input a render
+                cannot give (`gsweep_stress_inputs`: a query accepting
+                every beam of six tiles, ragged query and beam counts,
+                invalid queries, a medium mismatch, reconnectable,
+                identity and ME-eligible beams, gbeam3d's grazing beams
+                whose chord samples base rejects), at the wrapper's split
+                plan and in one split (the queue then lives across the
+                beam tiles): counts, ME keys and gbeam3d_me's chord
+                points exactly equal to the plain version's, sums at rtol
+                2e-4 / atol 5e-6, two launches bitwise equal.
   4. main     — gvpm.render at the bench headline size (512^2 box_medium,
                 2^18 light paths, bench.py:347-362 without the TPU knobs):
                 first 3 passes with the default use_manifold=True
@@ -283,9 +285,13 @@ GBEAM_GOLD_PASSES = {"beam1d": 10, "beam3d": 10, "plane0d": 30}
 # second stage, as BEAM_OPS; each accepted pair's base term, its
 # accumulation and the tail's load; each shift of an accepted pair on a
 # reconnectable beam: the re-emitted beam, parent_lobe and the ratios,
-# MIS and the six accumulations; each identity shift).
+# MIS and the six accumulations; each identity shift). gbeam3d's test
+# runs chord's clip (9 and the chord compare) only where the sample is
+# within r of the beam's line: every pair 21 (chord_perp 19, its compare
+# and the medium's), the clip counted on the stage-2 pairs (17 + 10),
+# the few pairs near the line whose chord misses the segment left out.
 GBEAM_OPS = {"gbeam1d": (36, 21, 58, 241, 150),
-             "gbeam3d": (30, 17, 50, 265, 120),
+             "gbeam3d": (21, 27, 50, 265, 120),
              "gplane0d": (23, 32, 110, 375, 165)}
 # an ME sweep's accepted pair on an ME-eligible beam: the key and count
 # (2), and per offset no shift, only the MIS weight and the six
@@ -526,21 +532,28 @@ def stress_inputs(ev, seed=7, device="cpu"):
 
 def gsweep_stress_inputs(kind, seed=11, device="cpu"):
     """A small seeded input of the queued gradient sweeps (beam_sweep.
-    QUEUED: gbeam1d, gplane0d and their _me kinds) that a render cannot
-    be relied on to give. Returns (q, qx, rows, tails, params, hot): 333
-    camera segments (not a multiple of a query tile) in the unit box, a
-    tenth of them invalid and a tenth in another medium, against 1,077
-    beams or planes (not a multiple of a beam tile), a tenth in the
-    other medium. Query `hot` runs along x through the box's middle and
-    accepts each of the 800 beams (planes) from 256 on: every beam of
-    six of gsweep.cu's 128-row tiles (three at 256 rows), so its accepted
-    pairs wrap a warp's 128-pair ring six times. Parents are emitters, surfaces of the four BSDF types and
-    medium vertices; reconnectable and identity beams are mixed and, for
-    an _me kind, ME-eligible ones (-1 in the tail's reconnectable slot,
-    pack_tails), hot beams among them."""
+    QUEUED: gbeam1d, gbeam3d, gplane0d and their _me kinds) that a render
+    cannot be relied on to give. Returns (q, qx, rows, tails, params,
+    hot): 333 camera segments (gbeam3d: distance samples; not a multiple
+    of a query tile) in the unit box, a tenth of them invalid and a tenth
+    in another medium, against 1,077 beams or planes (not a multiple of a
+    beam tile), a tenth in the other medium. Query `hot` runs along x
+    through the box's middle (gbeam3d: sits at its centre) and accepts
+    each of the 800 beams (planes) from 256 on: every beam of six of
+    gsweep.cu's 128-row tiles (three at 256 rows), so its accepted pairs
+    wrap a warp's 128-pair ring six times. Parents are emitters,
+    surfaces of the four BSDF types and medium vertices; reconnectable
+    and identity beams are mixed and, for an _me kind, ME-eligible ones
+    (-1 in the tail's reconnectable slot, pack_tails), hot beams among
+    them. gbeam3d's beams 100-163 graze the hot query's kernel sphere
+    (closest approach r (1 - 10^-6.5 .. 10^-4.5)), so that some of their
+    chord samples fall outside it by rounding: pairs the sweep queues and
+    base rejects; its params carry beam_keys rows of kept beams spread
+    over 2N slots in JAX tiles of 256."""
     from gvpm_tpu_torch.ops import beam_sweep as bs
     rng = np.random.default_rng(seed)
     plane = kind.startswith("gplane0d")
+    point = kind.startswith("gbeam3d")
     M, N, hot, hot0, n_hot, r = 333, 1077, 130, 256, 800, 0.05
 
     def unit(n):
@@ -558,6 +571,8 @@ def gsweep_stress_inputs(kind, seed=11, device="cpu"):
     o, d = rng.uniform(0, 1, (M, 3)), unit(M)
     length = rng.uniform(0.3, 1.5, M)
     o[hot], d[hot], length[hot] = (0.1, 0.5, 0.5), (1.0, 0.0, 0.0), 0.9
+    if point:
+        o[hot] = 0.5
     valid = rng.random(M) < 0.9
     med = (rng.random(M) < 0.1).astype(np.float32)
     valid[hot], med[hot] = True, 0.0
@@ -590,6 +605,21 @@ def gsweep_stress_inputs(kind, seed=11, device="cpu"):
         ob[hb] = np.stack([x, 0.5 - rng.uniform(0.05, 0.35, n_hot),
                            0.5 - rng.uniform(0.05, 0.35, n_hot)], 1)
         db[hb], w1[hb] = (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)
+    elif point:
+        # along y, at most 0.8 r from the hot sample
+        lb[hb] = 0.6
+        ang = rng.uniform(0.0, 2.0 * np.pi, n_hot)
+        rad = 0.8 * r * np.sqrt(rng.random(n_hot))
+        ob[hb] = np.stack([0.5 + rad * np.cos(ang), np.full(n_hot, 0.2),
+                           0.5 + rad * np.sin(ang)], 1)
+        db[hb] = (0.0, 1.0, 0.0)
+        gz = slice(100, 164)
+        gd = unit(64)
+        gu = np.cross(gd, unit(64))
+        gu /= np.linalg.norm(gu, axis=1, keepdims=True)
+        rho = r * (1.0 - np.logspace(-6.5, -4.5, 64))
+        ob[gz] = 0.5 + rho[:, None] * gu - 0.15 * gd
+        db[gz], lb[gz] = gd, 0.3
     else:
         lb[hb] = 0.6
         ob[hb] = np.stack([x, np.full(n_hot, 0.2),
@@ -597,6 +627,8 @@ def gsweep_stress_inputs(kind, seed=11, device="cpu"):
         db[hb] = (0.0, 1.0, 0.0)
     bmed = (rng.random(N) < 0.1).astype(np.float32)
     bmed[hb] = 0.0
+    if point:
+        bmed[gz] = 0.0
     rows = fill(N, bs.BW, bs.BSLOT, dict(
         o=ob, d=db, length=lb, med=bmed, alpha=rng.uniform(0.1, 1.0, (N, 3)),
         **(dict(w1=w1, l1=l1, sig=rng.uniform(0.2, 2.0, N)) if plane
@@ -629,6 +661,14 @@ def gsweep_stress_inputs(kind, seed=11, device="cpu"):
         return torch.tensor(a, dtype=torch.float32, device=device)
     p = bs.Params(r2=float(np.float32(r * r)),
                   k=float(np.float32(1.0 / (2.0 * r))))
+    if point:
+        tile = 256
+        orig = np.sort(rng.choice(2 * N, N, replace=False))
+        tile_keys = rng.integers(0, 2 ** 32, (2 * N // tile + 1, 2))
+        p = bs.Params(r2=p.r2, k=float(np.float32(3.0 / (4.0 * np.pi * r ** 3))),
+                      keys=bs.beam_keys(torch.tensor(tile_keys, device=device),
+                                        torch.tensor(orig, device=device),
+                                        tile).contiguous(), tile=tile)
     return t(q), t(qx), t(rows), t(tails), p, hot
 
 
@@ -857,12 +897,16 @@ def gsweep_stress_against_plain(kind):
         for bs.GTARGET_BLOCKS in (target, 1):
             got, again = bs.gsweep(kind, *args), bs.gsweep(kind, *args)
             torch.cuda.synchronize()
-            for k in range(3, min(len(want), 7)):   # 7: beam3d's chords
+            for k in range(3, min(len(want), 7)):
                 if got[k].dtype != torch.int32 or not torch.equal(got[k],
                                                                   want[k]):
                     raise AssertionError(f"beam_sweep_{kind}: stress count "
                                          f"{k} differs from the plain "
                                          "version")
+            if len(want) > 7 and want[7] is not None and not torch.equal(
+                    got[7].view(torch.int32), want[7].view(torch.int32)):
+                raise AssertionError(f"beam_sweep_{kind}: stress chord "
+                                     "points differ from the plain version")
             for g, w in zip(got[:3], want[:3]):
                 torch.testing.assert_close(g, w, **TOL)
             if not all(torch.equal(g.view(torch.int32), a.view(torch.int32))
@@ -902,6 +946,8 @@ def gsweep_lane_use(kind, q, rows, tails, p, shape, chunk):
     split) of ceil(accepted / batch) and `lanes_busy_in_batch` = accepted
     / (batches x batch); a batch runs both branches, the reconnection
     with `lanes_busy_in_batch_reconnection` of the lanes;
+    gbeam3d queues the pairs past its chord test (`queued`), of which
+    base rejects a few by rounding, and a rejected pair's lanes idle;
     `lanes_busy_if_flushed_per_tile`: the ring emptied at the end of
     every beam tile of `tile_b` (a kernel whose batches read the staged
     beam rows). `barrier_share`: the share of the pairs' shift time that
@@ -921,27 +967,30 @@ def gsweep_lane_use(kind, q, rows, tails, p, shape, chunk):
     # accepted pairs a (query tile, warp, beam tile)
     per = torch.zeros((-(-M // mc) * mc // tq, warps, n_tiles),
                       dtype=torch.int64, device=q.device)
-    accepted = iters = iters_rc = n_rc = 0
+    accepted = n_queued = iters = iters_rc = n_rc = 0
     for m0 in range(0, M, mc):
         qc = bs._Cols(q[m0:m0 + mc], bs.QSLOT, (-1, 1))
         for j0 in range(0, N, tb):
             pp = dataclasses.replace(p, keys=p.keys[j0:j0 + tb]) \
                 if p.keys is not None else p
-            okb, _, _ = base_fn(
+            okb, _, stage2 = base_fn(
                 qc, bs._Cols(rows[j0:j0 + tb], bs.BSLOT, (1, -1)), pp, m0)
             rc = rc_all[j0:j0 + tb][None]
+            queued = stage2 if kind.startswith("gbeam3d") else okb
             # pad to whole warps of queries, query tiles and beam tiles
             pad = (0, (-okb.shape[1]) % tile_b, 0, (-okb.shape[0]) % mc)
             okb = torch.nn.functional.pad(okb, pad)
+            queued = torch.nn.functional.pad(queued, pad)
             okr = torch.nn.functional.pad(okb[:, :rc.shape[1]] & rc,
                                           (0, okb.shape[1] - rc.shape[1]))
             accepted += int(okb.sum())
+            n_queued += int(queued.sum())
             n_rc += int(okr.sum())
             iters += int(okb.reshape(-1, 32, okb.shape[1]).any(1).sum())
             iters_rc += int(okr.reshape(-1, 32, okb.shape[1]).any(1).sum())
             t0 = j0 // tile_b
             per[m0 // tq:(m0 + mc) // tq, :,
-                t0:t0 + okb.shape[1] // tile_b] += okb.reshape(
+                t0:t0 + okb.shape[1] // tile_b] += queued.reshape(
                     mc // tq, tq // warps, warps, -1, tile_b).sum((1, 4))
     split = torch.arange(n_tiles, device=q.device) // (chunk // tile_b)
     per_split = torch.zeros((per.shape[0], warps, int(split[-1]) + 1),
@@ -952,7 +1001,8 @@ def gsweep_lane_use(kind, q, rows, tails, p, shape, chunk):
         return int(((a + batch - 1) // batch).sum())
     batches = n_batches(per_split)
     most = per.max(1).values.sum()
-    return dict(accepted=accepted, on_reconnectable_beams=n_rc,
+    return dict(accepted=accepted, queued=n_queued,
+                on_reconnectable_beams=n_rc,
                 iterations_with_accept=iters,
                 lanes_busy_in_such_iteration=accepted / max(iters, 1) / 32,
                 lanes_busy_in_reconnection_branch=n_rc / max(iters_rc, 1)
@@ -1242,8 +1292,7 @@ def main():
         beam_kernels[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
         r = regs[kind]
-        src = "gsweep.cu" if kind in bs.QUEUED else "beam_sweep.cu"
-        phase("gbeams", f"{kind} ({src}): {q.shape[0]} camera queries x "
+        phase("gbeams", f"{kind} (gsweep.cu): {q.shape[0]} camera queries x "
                         f"{rows.shape[0]} beams, visits "
                         f"{int(want[3].sum())} and shift_ok "
                         f"{int(want[4].sum())} equal, max|err| {err:.3g} "
@@ -1254,13 +1303,12 @@ def main():
                         f"({bound_ms / ms:.1%} of it), {r['registers']} "
                         f"registers, {r['spill_stores']} B spilled "
                         f"{json.dumps(detail)}")
-        if kind in bs.QUEUED:
-            shape = bs.gsweep_shape()
-            lu = gsweep_lane_use(kind, q, rows, tails, p, shape,
-                                 bs.gsplit_plan(q.shape[0], rows.shape[0])[1])
-            phase("gbeams", f"{kind} lane use, one thread a query "
-                            f"(beam_sweep.cu before) and queued (gsweep.cu "
-                            f"{json.dumps(shape)}): {json.dumps(lu)}")
+        shape = bs.gsweep_shape()
+        lu = gsweep_lane_use(kind, q, rows, tails, p, shape,
+                             bs.gsplit_plan(q.shape[0], rows.shape[0])[1])
+        phase("gbeams", f"{kind} lane use, one thread a query "
+                        f"(beam_sweep.cu before) and queued (gsweep.cu "
+                        f"{json.dumps(shape)}): {json.dumps(lu)}")
     del q, qx, rows, tails, p, args, want
 
     # ---- 3e. their ME instantiations on one 128^2 gvpm ME pass ----
@@ -1280,8 +1328,7 @@ def main():
         n_elig = int((tails[:, bs.TSLOT["reconnectable"]] < -0.5).sum())
         chords = " and chord points" if got[7] is not None else ""
         r = regs[kind]
-        src = "gsweep.cu" if kind in bs.QUEUED else "beam_sweep.cu"
-        phase("gbeams-me", f"{kind} ({src}, {r['registers']} registers, "
+        phase("gbeams-me", f"{kind} (gsweep.cu, {r['registers']} registers, "
                            f"{r['spill_stores']} B spilled, {bound_ms / ms:.1%}"
                            f" of bound): {q.shape[0]} camera queries x "
                            f"{rows.shape[0]} beams ({n_elig} ME-eligible), "
@@ -1304,6 +1351,12 @@ def main():
         want, hot, err, n_beams = gsweep_stress_against_plain(kind)
         me = (f", ME queries {int((want[5] != bs.ME_NONE).sum())} with "
               f"{int(want[6].sum())} ME pairs" if len(want) > 5 else "")
+        if kind.startswith("gbeam3d"):
+            q, _, rows, tails, p, _ = gsweep_stress_inputs(kind,
+                                                           device="cuda")
+            st = gsweep_stats(kind, q, rows, tails, p)
+            me += (f", {st['stage2'] - st['accepted']} queued pairs that "
+                   "base rejects")
         phase("gbeams-stress", f"{kind}: {want[0].shape[0]} queries x "
                                f"{n_beams} beams, visits "
                                f"{int(want[3].sum())} "
@@ -1312,8 +1365,7 @@ def main():
                                f"the split plan and in one split, max|err| "
                                f"{err:.3g}, two launches bitwise equal")
     phase("gbeams", "controls (beam_sweep.cu, unchanged): " + json.dumps(
-        {k: round(beam_kernels[k]["ms"], 3)
-         for k in ("beam1d", "beam3d", "plane0d", "gbeam3d", "gbeam3d_me")}))
+        {k: round(beam_kernels[k]["ms"], 3) for k in bs.KINDS}))
 
     # ---- 4. the main paths at the headline size ----
     def drive(label, cfg, passes, expect):

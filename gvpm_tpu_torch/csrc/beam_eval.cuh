@@ -154,16 +154,28 @@ __host__ __device__ inline Closest closest(V3 o, V3 d, V3 ob, V3 db) {
 }
 
 // the chord of the beam ob + s db, s in [0, lb], through the sphere of
-// squared radius r2 around x: its length, and its start in s0
-__host__ __device__ inline float chord(V3 x, V3 ob, V3 db, float lb,
-                                       float r2, float& s0) {
+// squared radius r2 around x, in two halves: chord_perp the beam's
+// parameter s_mid nearest x and the squared distance pp of x from its
+// line; chord_clip the chord's length, and its start in s0
+struct Perp {
+  float s_mid, pp;
+};
+__host__ __device__ inline Perp chord_perp(V3 x, V3 ob, V3 db) {
   V3 rel = sub3(x, ob);
   float s_mid = dot3(rel, db);
   V3 perp = sub3(rel, scale3(db, s_mid));
-  float half = sqrtf(cmin_(r2 - dot3(perp, perp), 0.0f));
-  s0 = cmin_(s_mid - half, 0.0f);
-  float s1 = minimum_(s_mid + half, lb);
+  return {s_mid, dot3(perp, perp)};
+}
+__host__ __device__ inline float chord_clip(Perp h, float lb, float r2,
+                                            float& s0) {
+  float half = sqrtf(cmin_(r2 - h.pp, 0.0f));
+  s0 = cmin_(h.s_mid - half, 0.0f);
+  float s1 = minimum_(h.s_mid + half, lb);
   return cmin_(s1 - s0, 0.0f);
+}
+__host__ __device__ inline float chord(V3 x, V3 ob, V3 db, float lb,
+                                       float r2, float& s0) {
+  return chord_clip(chord_perp(x, ob, db), lb, r2, s0);
 }
 
 // Moller-Trumbore of the ray o + t d against the parallelogram po + u0 e0
@@ -265,21 +277,17 @@ struct Plane0D {
 };
 
 // ------------------------------------------------------- primal visit
-// The sweep kernel's interface (beam_sweep.cu): visit(q, b, key, tail,
-// qx, p, acc, cnt, j) adds the pair of the query and beam j (its index
-// among the packed beams) to the query's NF float and NC integer
-// accumulators, of which the first NF_SUM floats and every count but an
-// ME instantiation's key are sums. A primal pair adds its contribution
-// and one count.
+// beam_sweep.cu's interface: visit(q, b, key, p, acc, cnt) adds the pair
+// of the query and the beam to the query's NF float and NC integer
+// accumulators, its contribution and one count.
 
 template <class P>
 struct Primal {
-  static constexpr bool RANDOM = P::RANDOM, GRAD = false, ME = false;
+  static constexpr bool RANDOM = P::RANDOM, ME = false;
   static constexpr int NF = 3, NC = 1, NF_SUM = 3;
   __host__ __device__ static void visit(const Query& q, const float* b,
-                                        const int* key, const float*,
-                                        const float*, const Params& p,
-                                        float* acc, int* cnt, int = 0) {
+                                        const int* key, const Params& p,
+                                        float* acc, int* cnt) {
     float c[3];
     if (P::pair(q, b, key, p, c)) {
       acc[0] += c[0];
@@ -312,13 +320,10 @@ struct Primal {
 // each query. Two more counts a query: cnt[C_KEY], the lowest packed
 // index of an eligible beam among its accepted pairs (ME_NONE if none;
 // the kernel reduces it by min over the beam splits), and cnt[C_ME], the
-// number of those pairs (a sum); GBeam3D<ME> also keeps the chosen
-// pair's chord point y in acc[NF_SUM .. NF_SUM + 2], taken from the
-// split that holds the key, so the host never recomputes it.
-//
-// GBeam3D is a pair visitor for beam_sweep.cu's one thread a query
-// (visit: every pair of a query in beam order into its registers);
-// GBeam1D and GPlane0D come in test / base / shift parts for gsweep.cu's
+// number of those pairs (a sum); GBeam3D<ME> also returns the chosen
+// pair's chord point y in out[NF_SUM .. NF_SUM + 2], which gsweep.cu
+// recomputes (GBeam3DT::point) once the key is final, so the host never
+// does. All three come in test / base / shift parts for gsweep.cu's
 // queued sweep (pair_body below), where the ME key is a min over all of
 // a query's eligible pairs.
 //
@@ -342,15 +347,6 @@ struct Primal {
 constexpr int NF_GRAD = 27;             // base, S 4 x 3, W 4 x 3
 constexpr int C_KEY = 2, C_ME = 3;      // the ME counts' slots
 constexpr int ME_NONE = 0x7fffffff;     // ops/fused_gather.ME_NONE
-
-// an accepted pair on an ME-eligible beam j: count it; true when it is
-// the query's first (each thread visits its beams in increasing j)
-__host__ __device__ inline bool me_first(int j, int* cnt) {
-  ++cnt[C_ME];
-  if (cnt[C_KEY] != ME_NONE) return false;
-  cnt[C_KEY] = j;
-  return true;
-}
 
 // the query's offset rays (ops/beam_sweep.XSLOT): offset i at XSTRIDE i
 // — origin (beam3d: the offset distance sample), direction, length,
@@ -415,32 +411,22 @@ __host__ __device__ inline float mis_weight(bool ok_sh, float pr_l,
   return border ? 1.0f : w;
 }
 
-// the pair's S_i / W_i terms of offset i
-__host__ __device__ inline void add_offset(int i, bool ok_sh, float pr_l,
-                                           float sens, bool border,
-                                           const float c_sh[3],
-                                           const float c_base[3],
-                                           float* acc) {
-  const float w = mis_weight(ok_sh, pr_l, sens, border);
-  for (int c = 0; c < 3; ++c) {
-    acc[3 + 3 * i + c] += w * c_sh[c];
-    acc[15 + 3 * i + c] += w * c_base[c];
-  }
-}
-
-// GBeam1DT and GPlane0DT come in three parts, for the queued sweep of
-// csrc/gsweep.cu: test(q, b, p, g) is the base test alone (the sweep
-// runs it on every pair) and leaves in g what the rest reuses;
-// base(q, b, p, g, s) the base term of an accepted pair and what its
-// shifts share; shift(q, b, tail, me, x, p, g, s, c_sh, pr_l) one
-// offset's shift (x: the offset's XSTRIDE floats), returning ok_sh; it
-// loads the parent from the tail in its reconnection branch only, so
-// the parent's ~30 values are not live across the four shifts. pair_body
-// below strings them together in the order of the old per-pair visit.
+// The gradient functors come in three parts, for the queued sweep of
+// csrc/gsweep.cu: test(q, b, p, g) is the sweep's test (run on every
+// pair) and leaves in g what the rest reuses; base(q, b, key, p, g, s)
+// the base term of a queued pair and what its shifts share (key: the
+// beam's beam_keys row, GBeam3DT's only), returning whether the pair is
+// accepted: GBeam1DT's and GPlane0DT's test is their whole base test,
+// GBeam3DT's base still draws the chord sample and tests it; shift(q,
+// b, tail, me, x, p, g, s, c_sh, pr_l) one offset's shift (x: the
+// offset's XSTRIDE floats), returning ok_sh; it loads the parent from
+// the tail in its reconnection branch only, so the parent's ~30 values
+// are not live across the four shifts. pair_body below strings them
+// together in the order of the reference's per-pair terms.
 
 template <bool ME_>
 struct GBeam1DT {
-  static constexpr bool ME = ME_;
+  static constexpr bool RANDOM = false, ME = ME_;
   static constexpr int NF = NF_GRAD, NC = ME ? 4 : 2, NF_SUM = NF_GRAD;
   struct Geo {
     Closest h;
@@ -461,9 +447,9 @@ struct GBeam1DT {
     float c[3], tr_c[3], sin_t, surv_b;
     V3 delta;
   };
-  __host__ __device__ static void base(const Query& q, const float* b,
-                                       const Params& p, const Geo& g,
-                                       Base& s) {
+  __host__ __device__ static bool base(const Query& q, const float* b,
+                                       const int* /*key*/, const Params& p,
+                                       const Geo& g, Base& s) {
     const Closest& h = g.h;
     V3 ob = ld3(b, B_O), db = ld3(b, B_D);
     s.delta = sub3(madd3(q.o, q.d, h.tc), madd3(ob, db, h.tb));
@@ -476,6 +462,7 @@ struct GBeam1DT {
       s.c[c] = b[B_ALPHA + c] *
                (s_b * s.tr_c[c] * expf(-q.st[c] * h.tb) * q.ss[c]);
     }
+    return true;
   }
   __host__ __device__ static bool shift(const Query& q, const float* b,
                                         const float* tail, bool me,
@@ -539,105 +526,124 @@ struct GBeam1DT {
 
 template <bool ME_>
 struct GBeam3DT {
-  static constexpr bool RANDOM = true, GRAD = true, ME = ME_;
+  static constexpr bool RANDOM = true, ME = ME_;
   static constexpr int NF = ME ? NF_GRAD + 3 : NF_GRAD, NC = ME ? 4 : 2,
                        NF_SUM = NF_GRAD;
-  __host__ __device__ static void visit(const Query& q, const float* b,
-                                        const int* key, const float* tail,
-                                        const float* qx, const Params& p,
-                                        float* acc, int* cnt, int j = 0) {
-    if (b[B_MED] != q.med) return;
-    V3 ob = ld3(b, B_O), db = ld3(b, B_D);
+  struct Geo {
+    float s0, ch;   // the chord's start and length
+  };
+  // the medium match and the chord test, with no early return; the
+  // threefry word (~123 integer operations) is left to base, which runs
+  // on the queued pairs only, 8 of them side by side in a batch. chord's
+  // clip (its sqrtf and clamps) runs only where x is within r of the
+  // beam's line: elsewhere half is 0 and the chord empty (s0 =
+  // max(s_mid, 0) >= min(s_mid, lb) = s1), so the decision is chord's
+  __host__ __device__ static bool test(const Query& q, const float* b,
+                                       const Params& p, Geo& g) {
+    const Perp h = chord_perp(q.o, ld3(b, B_O), ld3(b, B_D));
+    g.s0 = 0.0f;
+    g.ch = 0.0f;
+    if (h.pp < p.r2) g.ch = chord_clip(h, b[B_LEN], p.r2, g.s0);
+    return (b[B_MED] == q.med) & (g.ch > 0.0f);
+  }
+  // the chord sample of the pair: its word us, its distance s along the
+  // beam, and the point y it returns
+  __host__ __device__ static V3 sample(const Query& q, const float* b,
+                                       const int* key, const Params& p,
+                                       const Geo& g, float& us, float& s) {
+    us = counter_uniform((uint32_t)key[0], (uint32_t)key[1],
+                         q.m * p.tile + (uint32_t)key[2]);
+    s = g.s0 + us * g.ch;
+    return madd3(ld3(b, B_O), ld3(b, B_D), s);
+  }
+  // gbeam3d_me's chord point of a query's ME pair: the point base placed,
+  // by the same code
+  __host__ __device__ static V3 point(const Query& q, const float* b,
+                                      const int* key, const Params& p) {
+    Geo g;
+    test(q, b, p, g);
+    float us, s;
+    return sample(q, b, key, p, g, us, s);
+  }
+  struct Base {
+    float c[3], us, s, surv_b;
+    V3 yx;   // y - x
+  };
+  // false when the sample falls outside the kernel sphere, which only
+  // rounding at the chord's ends does: the pair then adds nothing
+  __host__ __device__ static bool base(const Query& q, const float* b,
+                                       const int* key, const Params& p,
+                                       const Geo& g, Base& s) {
+    const V3 y = sample(q, b, key, p, g, s.us, s.s);
+    const V3 e = sub3(q.o, y);
+    s.yx = sub3(y, q.o);
+    s.surv_b = survival(q, s.s);
+    float k_b = g.ch * p.k * phase_params(-dot3(ld3(b, B_D), q.d), q.g, q.pt) /
+                cmin_(s.surv_b, 1e-9f);
+    for (int c = 0; c < 3; ++c)
+      s.c[c] = b[B_ALPHA + c] * expf(-q.st[c] * s.s) * k_b;
+    return dot3(e, e) < p.r2;
+  }
+  __host__ __device__ static bool shift(const Query& q, const float* b,
+                                        const float* tail, bool me,
+                                        const float* x, const Params& p,
+                                        const Geo& g, const Base& s,
+                                        float c_sh[3], float& pr_l) {
     const float lb = b[B_LEN];
-    float s0;
-    const float ch = chord(q.o, ob, db, lb, p.r2, s0);
-    if (!(ch > 0.0f)) return;
-    float us = counter_uniform((uint32_t)key[0], (uint32_t)key[1],
-                               q.m * p.tile + (uint32_t)key[2]);
-    float s = s0 + us * ch;
-    V3 y = madd3(ob, db, s);
-    V3 e = sub3(q.o, y);
-    if (!(dot3(e, e) < p.r2)) return;
-    // ---- base term ----
-    float surv_b = survival(q, s);
-    float k_b = ch * p.k * phase_params(-dot3(db, q.d), q.g, q.pt) /
-                cmin_(surv_b, 1e-9f);
-    float c_base[3];
-    for (int c = 0; c < 3; ++c) {
-      c_base[c] = b[B_ALPHA + c] * expf(-q.st[c] * s) * k_b;
-      acc[c] += c_base[c];
+    V3 xs = ld3(x, X_O), sd = ld3(x, X_D);
+    const bool cam_ok = x[X_OK] > 0.5f;
+    bool ok_sh;
+    if (tail[T_RECONN] > 0.5f) {
+      // re-emit the beam from its origin through y_i = xs_i + (y - x)
+      const Parent a = load_parent(tail);
+      V3 dv = sub3(add3(xs, s.yx), a.A);
+      float t_new2 = cmin_(dot3(dv, dv), 1e-12f);
+      float t_new = sqrtf(t_new2);
+      V3 w_new = {dv.x / t_new, dv.y / t_new, dv.z / t_new};
+      float sc_r[3], pdf_new;
+      bool ok_l = lobe_ratio(a, w_new, sc_r, pdf_new);
+      // the new beam's chord inside the offset kernel sphere
+      V3 rel_n = sub3(xs, a.A);
+      float sm_n = rel_n.x * w_new.x + rel_n.y * w_new.y + rel_n.z * w_new.z;
+      float d2p_n = dot3(rel_n, rel_n) - sm_n * sm_n;
+      float half_n = sqrtf(cmin_(p.r2 - d2p_n, 0.0f));
+      float s0n = cmin_(sm_n - half_n, 0.0f);
+      float s1n = minimum_(sm_n + half_n, lb);
+      float chord_n = cmin_(s1n - s0n, 0.0f);
+      float cos_x = w_new.x * sd.x + w_new.y * sd.y + w_new.z * sd.z;
+      float surv_n = survival(q, t_new);
+      ok_sh = ok_l && cam_ok && (chord_n > 0.0f) && (t_new >= s0n) &&
+              (t_new <= s1n);
+      float k_n = chord_n * p.k * phase_params(-cos_x, q.g, q.pt) /
+                  cmin_(surv_n, 1e-9f);
+      for (int c = 0; c < 3; ++c)
+        c_sh[c] = ok_sh ? b[B_ALPHA + c] * sc_r[c] * expf(-q.st[c] * t_new) *
+                              k_n
+                        : 0.0f;
+      pr_l = pdf_new / cmin_(a.pdf_old, 1e-20f) *
+             (surv_n / cmin_(s.surv_b, 1e-9f)) * (s.s * s.s / t_new2) *
+             (g.ch / cmin_(chord_n, 1e-12f));
+    } else if (me) {
+      // resolved by the ME stage: no identity shift
+      ok_sh = false;
+      c_sh[0] = c_sh[1] = c_sh[2] = 0.0f;
+      pr_l = 1.0f;
+    } else {
+      // identity: the same beam's chord around the offset sample, at the
+      // base pair's chord fraction us
+      V3 ob = ld3(b, B_O), db = ld3(b, B_D);
+      float s0i;
+      const float chord_i = chord(xs, ob, db, lb, p.r2, s0i);
+      float s_id = s0i + s.us * chord_i;
+      V3 ei = sub3(xs, madd3(ob, db, s_id));
+      ok_sh = cam_ok && (chord_i > 0.0f) && (dot3(ei, ei) < p.r2);
+      float k_i = chord_i * p.k * phase_params(-dot3(db, sd), q.g, q.pt) /
+                  cmin_(survival(q, s_id), 1e-9f);
+      for (int c = 0; c < 3; ++c)
+        c_sh[c] = ok_sh ? b[B_ALPHA + c] * expf(-q.st[c] * s_id) * k_i : 0.0f;
+      pr_l = 1.0f;
     }
-    ++cnt[0];
-    const bool me = ME && tail[T_RECONN] < -0.5f;
-    if (me && me_first(j, cnt)) {
-      acc[NF_SUM] = y.x;
-      acc[NF_SUM + 1] = y.y;
-      acc[NF_SUM + 2] = y.z;
-    }
-    V3 yx = sub3(y, q.o);
-    // ---- the four shifts ----
-    const Parent a = load_parent(tail);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* x = qx + XSTRIDE * i;
-      V3 xs = ld3(x, X_O), sd = ld3(x, X_D);
-      const bool cam_ok = x[X_OK] > 0.5f;
-      float c_sh[3], pr_l;
-      bool ok_sh;
-      if (a.reconn) {
-        // re-emit the beam from its origin through y_i = xs_i + (y - x)
-        V3 dv = sub3(add3(xs, yx), a.A);
-        float t_new2 = cmin_(dot3(dv, dv), 1e-12f);
-        float t_new = sqrtf(t_new2);
-        V3 w_new = {dv.x / t_new, dv.y / t_new, dv.z / t_new};
-        float sc_r[3], pdf_new;
-        bool ok_l = lobe_ratio(a, w_new, sc_r, pdf_new);
-        // the new beam's chord inside the offset kernel sphere
-        V3 rel_n = sub3(xs, a.A);
-        float sm_n = rel_n.x * w_new.x + rel_n.y * w_new.y +
-                     rel_n.z * w_new.z;
-        float d2p_n = dot3(rel_n, rel_n) - sm_n * sm_n;
-        float half_n = sqrtf(cmin_(p.r2 - d2p_n, 0.0f));
-        float s0n = cmin_(sm_n - half_n, 0.0f);
-        float s1n = minimum_(sm_n + half_n, lb);
-        float chord_n = cmin_(s1n - s0n, 0.0f);
-        float cos_x = w_new.x * sd.x + w_new.y * sd.y + w_new.z * sd.z;
-        float surv_n = survival(q, t_new);
-        ok_sh = ok_l && cam_ok && (chord_n > 0.0f) && (t_new >= s0n) &&
-                (t_new <= s1n);
-        float k_n = chord_n * p.k * phase_params(-cos_x, q.g, q.pt) /
-                    cmin_(surv_n, 1e-9f);
-        for (int c = 0; c < 3; ++c)
-          c_sh[c] = ok_sh ? b[B_ALPHA + c] * sc_r[c] *
-                                expf(-q.st[c] * t_new) * k_n
-                          : 0.0f;
-        pr_l = pdf_new / cmin_(a.pdf_old, 1e-20f) *
-               (surv_n / cmin_(surv_b, 1e-9f)) * (s * s / t_new2) *
-               (ch / cmin_(chord_n, 1e-12f));
-        cnt[1] += ok_sh ? 1 : 0;
-      } else if (me) {
-        // resolved by the ME stage: no identity shift
-        ok_sh = false;
-        c_sh[0] = c_sh[1] = c_sh[2] = 0.0f;
-        pr_l = 1.0f;
-      } else {
-        // identity: the same beam's chord around the offset sample, at
-        // the base pair's chord fraction us
-        float s0i;
-        const float chord_i = chord(xs, ob, db, lb, p.r2, s0i);
-        float s_id = s0i + us * chord_i;
-        V3 ei = sub3(xs, madd3(ob, db, s_id));
-        ok_sh = cam_ok && (chord_i > 0.0f) && (dot3(ei, ei) < p.r2);
-        float k_i = chord_i * p.k * phase_params(-dot3(db, sd), q.g, q.pt) /
-                    cmin_(survival(q, s_id), 1e-9f);
-        for (int c = 0; c < 3; ++c)
-          c_sh[c] = ok_sh ? b[B_ALPHA + c] * expf(-q.st[c] * s_id) * k_i
-                          : 0.0f;
-        pr_l = 1.0f;
-      }
-      add_offset(i, ok_sh, pr_l, x[X_SENS], x[X_BORDER] > 0.5f, c_sh,
-                 c_base, acc);
-    }
+    return ok_sh;
   }
 };
 
@@ -656,7 +662,7 @@ __host__ __device__ inline V3 rodrigues(V3 v, V3 k, float cos_r,
 
 template <bool ME_>
 struct GPlane0DT {
-  static constexpr bool ME = ME_;
+  static constexpr bool RANDOM = false, ME = ME_;
   static constexpr int NF = NF_GRAD, NC = ME ? 4 : 2, NF_SUM = NF_GRAD;
   struct Geo {
     float u0, u1, tcam;
@@ -682,7 +688,8 @@ struct GPlane0DT {
     float c[3], tr_cam[3], t0, t1, surv0, surv1, jac, lb_r;
     V3 a_dir;
   };
-  __host__ __device__ static void base(const Query& q, const float* b,
+  __host__ __device__ static bool base(const Query& q, const float* b,
+                                       const int* /*key*/,
                                        const Params& /*p*/, const Geo& g,
                                        Base& s) {
     V3 pw0 = ld3(b, B_D), pw1 = ld3(b, B_W1);
@@ -704,6 +711,7 @@ struct GPlane0DT {
     V3 rel_b = sub3(madd3(q.o, q.d, g.tcam), ld3(b, B_O));
     s.lb_r = sqrtf(cmin_(dot3(rel_b, rel_b), 1e-16f));
     s.a_dir = {rel_b.x / s.lb_r, rel_b.y / s.lb_r, rel_b.z / s.lb_r};
+    return true;
   }
   __host__ __device__ static bool shift(const Query& q, const float* b,
                                         const float* tail, bool me,
@@ -787,37 +795,42 @@ struct GPlane0DT {
   }
 };
 
-// One accepted pair of a test / base / shift functor F in a shift batch:
+// One queued pair of a test / base / shift functor F in a shift batch:
 // its base term, then its shifts to the offsets i = first, first +
 // STRIDE, ... < 4 (STRIDE 1: all four in one lane; 4: one offset a
 // lane). Its sums leave through the sink: base(c, v) the base term,
-// offset(3 + 3i + c, v) / offset(15 + 3i + c, v) S_i and W_i, visit(me,
-// j) the pair's visit and its ME count and key (j: the beam's packed
-// index), reconnected(n) its successful reconnections. The sink keeps
+// offset(3 + 3i + c, v) / offset(15 + 3i + c, v) S_i and W_i, visit(ok,
+// me, j) whether the pair was accepted, and its ME count and key (j: the
+// beam's packed index), reconnected(n) its successful reconnections. A
+// pair that base rejects (GBeam3DT's sample outside the sphere) writes
+// zeros and no visit, as the reference's okb excludes it. The sink keeps
 // one lane's share of each pair's base, visit and ME counts.
 template <class F, int STRIDE, class Sink>
 __host__ __device__ inline void pair_body(const Query& q, const float* b,
-                                          const float* tail,
+                                          const int* key, const float* tail,
                                           const float* qx, const Params& p,
                                           const typename F::Geo& g,
                                           int first, int j, Sink& sink) {
   typename F::Base s;
-  F::base(q, b, p, g, s);
+  const bool ok = F::base(q, b, key, p, g, s);
   const bool me = F::ME && tail[T_RECONN] < -0.5f;
-  for (int c = 0; c < 3; ++c) sink.base(c, s.c[c]);
-  sink.visit(me, j);
+  for (int c = 0; c < 3; ++c) sink.base(c, ok ? s.c[c] : 0.0f);
+  sink.visit(ok, me, j);
   int n_rc = 0;
 #pragma unroll 1
   for (int k = 0; k < 4 / STRIDE; ++k) {
     const int i = first + k * STRIDE;
     const float* x = qx + XSTRIDE * i;
-    float c_sh[3], pr_l;
-    const bool ok_sh = F::shift(q, b, tail, me, x, p, g, s, c_sh, pr_l);
-    n_rc += (tail[T_RECONN] > 0.5f && ok_sh) ? 1 : 0;
-    const float w = mis_weight(ok_sh, pr_l, x[X_SENS], x[X_BORDER] > 0.5f);
+    float c_sh[3] = {0.0f, 0.0f, 0.0f}, w = 0.0f;
+    if (ok) {
+      float pr_l;
+      const bool ok_sh = F::shift(q, b, tail, me, x, p, g, s, c_sh, pr_l);
+      n_rc += (tail[T_RECONN] > 0.5f && ok_sh) ? 1 : 0;
+      w = mis_weight(ok_sh, pr_l, x[X_SENS], x[X_BORDER] > 0.5f);
+    }
     for (int c = 0; c < 3; ++c) {
       sink.offset(3 + 3 * i + c, w * c_sh[c]);
-      sink.offset(15 + 3 * i + c, w * s.c[c]);
+      sink.offset(15 + 3 * i + c, ok ? w * s.c[c] : 0.0f);
     }
   }
   sink.reconnected(n_rc);

@@ -5,35 +5,23 @@
 // Replaces the XLA tile loops (lax.scan over all beam slots in tiles of
 // beam_tile) of gvpm_tpu/integrators/estimators.py: beam_beam_gather
 // (:481, beam1d), beam_point_gather (:262, beam3d) and plane_gather
-// (:401, plane0d), and of gvpm_tpu/integrators/gradient_gather.py
-// beam3d_gradient_gather (:1580, gbeam3d; use_manifold=False) and its
-// use_manifold=True instantiation (gbeam3d_me), which also collects each
-// query's first ME-eligible accepted beam and its chord point for the
-// host's ME stage (integrators/gradient_gather.py). The TPU has no
-// kernel for them. The other two gradient sweeps, gbeam1d and gplane0d,
+// (:401, plane0d). The TPU has no kernel for them. The gradient sweeps
 // run on the queued kernel of gsweep.cu.
 //
 // What bounds it: operations. Each pair reads one beam row from shared
 // memory and does ~50-200 float (beam3d: plus ~110 integer, threefry for
 // the pairs inside the chord test) operations; the beams are read from
-// device memory once per block of queries. A gradient pair that passes
-// the base test also reads the beam's 32-float gradient tail and the
-// query's 40-float offset rays from device memory and runs four shifts.
+// device memory once per block of queries.
 //
 // Design (simple first): one thread per camera query, BLOCK threads a
 // block; the 16-float beam rows stream through shared memory in tiles of
 // TILE_B rows. Each thread keeps its query in registers and adds its
-// accepted pairs into NF float and NC integer registers (3 and 1 for a
-// primal sweep; 27 and 2 for a gradient one: base, S and W of the four
-// offsets, visits and shift_ok) in beam order. To fill the card when
-// queries are few, the beam range is split into `splits` chunks of whole
-// tiles (blockIdx.y); each (split, query) writes its partial sums and
-// counts, and a second kernel adds the splits in order (splits.cuh). An
-// ME
-// instantiation's key (the lowest packed index of an ME-eligible accepted
-// beam, ME_NONE for none) is reduced by min over the splits instead, and
-// gbeam3d_me's chord point comes from the split that holds the key. No
-// atomics: two launches on the same inputs give the same bits.
+// accepted pairs into 3 float and 1 integer registers in beam order. To
+// fill the card when queries are few, the beam range is split into
+// `splits` chunks of whole tiles (blockIdx.y); each (split, query)
+// writes its partial sums and counts, and a second kernel adds the
+// splits in order (splits.cuh). No atomics: two launches on the same
+// inputs give the same bits.
 #include <cuda_runtime.h>
 
 #include "beam_eval.cuh"
@@ -48,9 +36,7 @@ template <class F>
 __global__ void __launch_bounds__(BLOCK)
     sweep_kernel(const float* __restrict__ qrows, long long M,
                  const float4* __restrict__ brows,
-                 const int4* __restrict__ keys,
-                 const float* __restrict__ tails,
-                 const float* __restrict__ qext, long long N,
+                 const int4* __restrict__ keys, long long N,
                  beam::Params p, long long chunk, float* __restrict__ part,
                  int* __restrict__ part_cnt) {
   __shared__ float4 sb[TILE_B * beam::BW / 4];
@@ -71,8 +57,6 @@ __global__ void __launch_bounds__(BLOCK)
   for (int f = 0; f < F::NF; ++f) acc[f] = 0.0f;
 #pragma unroll
   for (int c = 0; c < F::NC; ++c) cnt[c] = 0;
-  if constexpr (F::ME) cnt[beam::C_KEY] = beam::ME_NONE;
-  const float* qx = F::GRAD && m < M ? qext + m * beam::XW : nullptr;
   for (long long t0 = j0; t0 < j1; t0 += TILE_B) {
     const int n = (int)min((long long)TILE_B, j1 - t0);
     __syncthreads();
@@ -85,8 +69,7 @@ __global__ void __launch_bounds__(BLOCK)
     for (int jj = 0; jj < n; ++jj) {
       const float* b = reinterpret_cast<const float*>(&sb[jj * (beam::BW / 4)]);
       const int* k = F::RANDOM ? reinterpret_cast<const int*>(&sk[jj]) : nullptr;
-      const float* tail = F::GRAD ? tails + (t0 + jj) * beam::TW : nullptr;
-      F::visit(q, b, k, tail, qx, p, acc, cnt, (int)(t0 + jj));
+      F::visit(q, b, k, p, acc, cnt);
     }
   }
   if (m < M) {
@@ -101,13 +84,13 @@ __global__ void __launch_bounds__(BLOCK)
 
 template <class F>
 int launch(const float* q, long long M, const float* rows, const int* keys,
-           const float* tails, const float* qext, long long N, int tile,
-           float r2, float k, int splits, long long chunk, float* part,
-           int* part_cnt, float* out, int* cnt, cudaStream_t stream) {
+           long long N, int tile, float r2, float k, int splits,
+           long long chunk, float* part, int* part_cnt, float* out, int* cnt,
+           cudaStream_t stream) {
   const dim3 grid((unsigned)((M + BLOCK - 1) / BLOCK), (unsigned)splits);
   sweep_kernel<F><<<grid, BLOCK, 0, stream>>>(
       q, M, reinterpret_cast<const float4*>(rows),
-      reinterpret_cast<const int4*>(keys), tails, qext, N,
+      reinterpret_cast<const int4*>(keys), N,
       beam::Params{r2, k, (uint32_t)tile}, chunk, part, part_cnt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -119,18 +102,17 @@ int launch(const float* q, long long M, const float* rows, const int* keys,
 
 }  // namespace
 
+// the C interface gsweep.cu's entries share (tails and qext unused here)
 #define SWEEP_ENTRY(NAME, F)                                                 \
   extern "C" int gvpm_beam_sweep_##NAME(                                     \
       const float* q, long long M, const float* rows, const int* keys,       \
-      const float* tails, const float* qext, long long N, int tile,          \
+      const float* /*tails*/, const float* /*qext*/, long long N, int tile,  \
       float r2, float k, int splits, long long chunk, float* part,           \
       int* part_cnt, float* out, int* cnt, cudaStream_t stream) {            \
-    return launch<F>(q, M, rows, keys, tails, qext, N, tile, r2, k, splits,  \
-                     chunk, part, part_cnt, out, cnt, stream);               \
+    return launch<F>(q, M, rows, keys, N, tile, r2, k, splits, chunk, part,  \
+                     part_cnt, out, cnt, stream);                            \
   }
 
 SWEEP_ENTRY(beam1d, beam::Primal<beam::Beam1D>)
 SWEEP_ENTRY(beam3d, beam::Primal<beam::Beam3D>)
 SWEEP_ENTRY(plane0d, beam::Primal<beam::Plane0D>)
-SWEEP_ENTRY(gbeam3d, beam::GBeam3D)
-SWEEP_ENTRY(gbeam3d_me, beam::GBeam3DME)

@@ -1,38 +1,42 @@
-// The queued gradient sweeps for Hopper (sm_90a): gbeam1d and gplane0d,
-// each with and without the manifold (ME) outputs (ops/beam_sweep.py
-// gsweep kinds gbeam1d, gplane0d, gbeam1d_me, gplane0d_me; per-pair math
-// in beam_eval.cuh's GBeam1DT / GPlane0DT, split into test, base and
-// shift parts).
+// The queued gradient sweeps for Hopper (sm_90a): gbeam1d, gbeam3d and
+// gplane0d, each with and without the manifold (ME) outputs
+// (ops/beam_sweep.py gsweep kinds gbeam1d, gbeam3d, gplane0d and their
+// _me kinds; per-pair math in beam_eval.cuh's GBeam1DT / GBeam3DT /
+// GPlane0DT, split into test, base and shift parts).
 //
 // What it replaces: the XLA tile loops (lax.scan over every beam slot)
-// of gvpm_tpu/integrators/gradient_gather.py:1232 beam_gradient_gather
-// and :1960 plane_gradient_gather, and with use_manifold=True their ME
-// pair collection (:1346-1355, :2091-2100). The TPU has no kernel for
-// them; on this card they first ran on beam_sweep.cu's one thread a
-// query, which still serves the primal sweeps and gbeam3d.
+// of gvpm_tpu/integrators/gradient_gather.py:1232 beam_gradient_gather,
+// :1580 beam3d_gradient_gather and :1960 plane_gradient_gather, and
+// with use_manifold=True their ME pair collection (:1346-1355,
+// :1710-1720, :2091-2100). The TPU has no kernel for them; on this card
+// they first ran on beam_sweep.cu's one thread a query, which now serves
+// the primal sweeps only.
 //
 // What it computes: every camera query (a row of pack_queries, and its
 // four offset rays, pack_offsets) against every packed beam or plane
-// (pack_beams, and its gradient tail, pack_tails): the base test; for
-// the pairs that pass, the base term and the four shifts with pairwise
-// MIS. Per query: base 3, S 4 x 3, W 4 x 3, visits, shift_ok, and with
-// ME the lowest packed index of an ME-eligible accepted beam (ME_NONE if
-// none) and the count of such pairs.
+// (pack_beams, its gradient tail, pack_tails, and for gbeam3d its
+// beam_keys row): the base test; for the pairs that pass, the base term
+// and the four shifts with pairwise MIS. Per query: base 3, S 4 x 3, W
+// 4 x 3, visits, shift_ok, and with ME the lowest packed index of an
+// ME-eligible accepted beam (ME_NONE if none) and the count of such
+// pairs; gbeam3d_me also that pair's chord point.
 //
 // What bounds it: operations (chip_smoke.py::gbeam_bound: 3.3 ms for
-// gbeam1d, 6.9 for gplane0d). On one gvpm 128^2 check-config pass
-// (32,768 segment queries, 16,219 valid; 291,814 beams; 4.73e9 pairs in
-// one medium) gbeam1d accepts 38.0 M pairs (0.80%) and gplane0d 224.3 M
-// (4.7%); an accepted pair costs about 1,000 (gbeam1d) or 1,600
-// (gplane0d) counted float operations, a rejected one 36 or 23. One
-// thread a query (beam_sweep.cu, before this kernel) ran the shifts
-// inside its beam loop with 11.9% (gbeam1d) and 35.8% (gplane0d) of the
-// 32 lanes busy in the iterations where some lane accepted, 14% in the
-// reconnection branch (chip_smoke.py::gsweep_lane_use), held 27 sums a
-// thread in 149-168 registers (12 warps an SM), and took 165-167 and
-// 243-250 ms, 2-3% of the bound. This kernel takes 32.8 and 85.5 ms
-// (10.0% and 8.0%), its base-test sweep alone about 24 and 32 ms
-// (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// gbeam1d, 1.5 for gbeam3d, 6.9 for gplane0d). On one gvpm 128^2
+// check-config pass (32,768 segment queries, 16,219 valid; 291,814
+// beams; 4.73e9 pairs in one medium) gbeam1d accepts 38.0 M pairs
+// (0.80%), gbeam3d 1.87 M (0.04%) and gplane0d 224.3 M (4.7%); an
+// accepted pair costs about 1,000 (gbeam1d), 600 (gbeam3d) or 1,600
+// (gplane0d) counted float operations, a rejected one 36, 21 or 23
+// (gbeam3d's chord test, its clip only near the beam's line; a pair past
+// it also draws one threefry word, 123 integer operations). One thread a
+// query (beam_sweep.cu, before this kernel) ran the shifts inside its
+// beam loop with 11.9% (gbeam1d), 3.8% (gbeam3d) and 35.8% (gplane0d)
+// of the 32 lanes busy in the iterations where some lane accepted
+// (chip_smoke.py::gsweep_lane_use), held 27 sums a thread in 148-168
+// registers (12 warps an SM), and took 165-167, 36.2 and 243-250 ms,
+// 2-6% of the bound. This kernel takes 32.8, 15.1 and 85.5 ms (10.0%,
+// 9.9% and 8.0%) (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
 // Design: test densely, queue, shift 8 pairs x 4 offsets at a time.
 //  * A block owns a tile of TQ queries; WARPS warps share it, warp w the
@@ -45,15 +49,19 @@
 //    registers (the whole warp shares it), and its 32 lanes test 32 x
 //    SWEEP_U beams a step (SWEEP_U independent tests a lane, written
 //    without early returns, so that their latencies overlap) with the
-//    functor's base test alone. Invalid queries cost nothing (the warp
+//    functor's test alone (gbeam3d's: the chord test, without its
+//    threefry word). Invalid queries cost nothing (the warp
 //    skips them; one thread a query kept their lanes idle), and a block
 //    with no valid query stages no beam.
 //  * Queue: passing pairs go into the warp's ring in shared memory
 //    (ballot + popcount) as (query in tile, packed beam index). Whenever
 //    the ring holds BATCH pairs the warp runs them: lane l takes pair
 //    l % 8 and offset l / 8 (BATCH 32: pair l and its four offsets),
-//    recomputes the pair's base test and term from its beam row (CARRY:
-//    the test's values ride in the ring instead), and loads the parent
+//    recomputes the pair's test from its beam row (CARRY: the test's
+//    values ride in the ring instead), runs its base (gbeam3d: the
+//    chord sample's threefry word from the beam's key row, read through
+//    L2 beside the row; the sample's in-sphere test, which rejects a
+//    queued pair only by rounding at a chord's end), and loads the parent
 //    from the beam's gradient tail only in its reconnection branch, from
 //    device memory through L2: the 30 parent values are live in one
 //    shift, not across four. Because a batch reads no staged beam, the
@@ -77,6 +85,13 @@
 //    whole tiles over blockIdx.y (ops/beam_sweep.gsplit_plan, about 4,000
 //    blocks, a function of the shapes), the splits added in order by
 //    reduce_splits (splits.cuh); the ME key is a min over the splits.
+//  * gbeam3d_me's chord point: the term buffer has no room for three
+//    more floats a pair, and the key is a min over runs and splits, so
+//    after reduce_splits one thread a query recomputes the point of its
+//    final key with the batch's own code (key_points, GBeam3DT::point):
+//    bit-equal by construction. The beam keys are not staged with the
+//    rows: the sweep's test does not read them, and a batch's pairs come
+//    from any tile the ring has seen.
 //  * Registers: __launch_bounds__(WARPS * 32, MIN_BLOCKS) caps a thread
 //    at 128 registers, 16 warps an SM; with 8 pairs x 4 offsets no
 //    instantiation spills (BATCH 32 spilled 40 bytes in gplane0d, and
@@ -147,11 +162,11 @@ struct TermSink {
     if (lead) row[c] = v;
   }
   __device__ void offset(int c, float v) { row[c] = v; }
-  __device__ void visit(bool me, int j) {
+  __device__ void visit(bool ok, bool me, int j) {
     if (!lead) return;
-    row[T_VISIT] = __int_as_float(1);
-    row[T_MEPAIRS] = __int_as_float(me ? 1 : 0);
-    row[T_KEY] = __int_as_float(me ? j : beam::ME_NONE);
+    row[T_VISIT] = __int_as_float(ok ? 1 : 0);
+    row[T_MEPAIRS] = __int_as_float(ok && me ? 1 : 0);
+    row[T_KEY] = __int_as_float(ok && me ? j : beam::ME_NONE);
   }
   __device__ void reconnected(int n) {
     if (STRIDE > 1) {   // the pair's lanes: lane % BATCH, + BATCH, ...
@@ -174,6 +189,7 @@ template <class F>
 __device__ __forceinline__ void shift_batch(Tile<F>& t, int warp, int lane,
                                             int first, int count,
                                             const float4* __restrict__ brows,
+                                            const int4* __restrict__ keys,
                                             const float4* __restrict__ tails,
                                             const beam::Params& p,
                                             long long q0) {
@@ -183,14 +199,19 @@ __device__ __forceinline__ void shift_batch(Tile<F>& t, int warp, int lane,
   const int qi = t.ring_q[warp][e];
   float* terms = t.terms[warp];
   TermSink sink{terms + k * NT, grp == 0};
-  // the pair's beam row to registers (16-byte loads through L2); its
-  // tail is read where a shift uses it
+  // the pair's beam row (and gbeam3d's key row) to registers (16-byte
+  // loads through L2); its tail is read where a shift uses it
   float rb[beam::BW];
 #pragma unroll
   for (int c = 0; c < beam::BW / 4; ++c) {
     const float4 v = __ldg(brows + (long long)j * (beam::BW / 4) + c);
     rb[4 * c] = v.x, rb[4 * c + 1] = v.y, rb[4 * c + 2] = v.z,
     rb[4 * c + 3] = v.w;
+  }
+  int kr[4] = {0, 0, 0, 0};
+  if constexpr (F::RANDOM) {
+    const int4 v = __ldg(keys + j);
+    kr[0] = v.x, kr[1] = v.y, kr[2] = v.z;
   }
   const float* rt =
       reinterpret_cast<const float*>(tails + (long long)j * (beam::TW / 4));
@@ -201,7 +222,8 @@ __device__ __forceinline__ void shift_batch(Tile<F>& t, int warp, int lane,
     g = t.ring_g[warp][e];
   else
     F::test(q, rb, p, g);   // true: the sweep queued this pair
-  beam::pair_body<F, STRIDE>(q, rb, rt, qr + beam::QW, p, g, grp, j, sink);
+  beam::pair_body<F, STRIDE>(q, rb, kr, rt, qr + beam::QW, p, g, grp, j,
+                             sink);
   __syncwarp();
   if (lane < NT) {
     float sum = 0.0f;
@@ -237,6 +259,7 @@ template <class F>
 __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
     gsweep_kernel(const float* __restrict__ qrows, long long M,
                   const float4* __restrict__ brows,
+                  const int4* __restrict__ keys,
                   const float4* __restrict__ tails,
                   const float* __restrict__ qext, long long N,
                   beam::Params p, long long chunk, float* __restrict__ part,
@@ -308,7 +331,8 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
         __syncwarp();
 #pragma unroll 1
         while (hi - lo >= BATCH) {
-          shift_batch<F>(t, warp, lane, lo, BATCH, brows, tails, p, q0);
+          shift_batch<F>(t, warp, lane, lo, BATCH, brows, keys, tails, p,
+                         q0);
           lo += BATCH;
         }
       }
@@ -317,40 +341,78 @@ __global__ void __launch_bounds__(WARPS * 32, MIN_BLOCKS)
 #pragma unroll 1
   while (hi > lo) {    // the block's last, partial batch
     const int count = min(BATCH, hi - lo);
-    shift_batch<F>(t, warp, lane, lo, count, brows, tails, p, q0);
+    shift_batch<F>(t, warp, lane, lo, count, brows, keys, tails, p, q0);
     lo += count;
   }
   __syncthreads();
 
   // ---- write the tile's partial sums of this split
-  for (int i = threadIdx.x; i < nq * F::NF; i += blockDim.x)
-    part[(s * M + q0) * F::NF + i] = t.acc[i];
+  for (int i = threadIdx.x; i < nq * F::NF_SUM; i += blockDim.x)
+    part[(s * M + q0) * F::NF_SUM + i] = t.acc[i];
   for (int i = threadIdx.x; i < nq * F::NC; i += blockDim.x) {
     const int qq = i / F::NC, c = i - qq * F::NC;
     part_cnt[(s * M + q0) * F::NC + i] = t.cnt[qq * 4 + c];
   }
 }
 
+// gbeam3d_me's epilogue: one thread a query writes the chord point of
+// its final ME key (zeros without one) into out[NF_SUM .. NF_SUM + 2]
 template <class F>
-int launch(const float* q, long long M, const float* rows,
-           const float* tails, const float* qext, long long N, float r2,
-           float k, int splits, long long chunk, float* part, int* part_cnt,
-           float* out, int* cnt, cudaStream_t stream) {
-  static_assert(F::NF == beam::NF_GRAD && F::NC <= 4, "gbeam1d / gplane0d");
+__global__ void key_points(const float* __restrict__ qrows, long long M,
+                           const float4* __restrict__ brows,
+                           const int4* __restrict__ keys, beam::Params p,
+                           float* __restrict__ out,
+                           const int* __restrict__ cnt) {
+  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  const int j = cnt[m * F::NC + beam::C_KEY];
+  beam::V3 y = {0.0f, 0.0f, 0.0f};
+  if (j != beam::ME_NONE) {
+    float rb[beam::BW];
+    for (int c = 0; c < beam::BW / 4; ++c) {
+      const float4 v = brows[(long long)j * (beam::BW / 4) + c];
+      rb[4 * c] = v.x, rb[4 * c + 1] = v.y, rb[4 * c + 2] = v.z,
+      rb[4 * c + 3] = v.w;
+    }
+    const int4 k = keys[j];
+    const int key[4] = {k.x, k.y, k.z, k.w};
+    y = F::point(beam::load_query(qrows + m * beam::QW, (uint32_t)m), rb,
+                 key, p);
+  }
+  float* o = out + m * F::NF + F::NF_SUM;
+  o[0] = y.x, o[1] = y.y, o[2] = y.z;
+}
+
+template <class F>
+int launch(const float* q, long long M, const float* rows, const int* keys,
+           const float* tails, const float* qext, long long N, int tile,
+           float r2, float k, int splits, long long chunk, float* part,
+           int* part_cnt, float* out, int* cnt, cudaStream_t stream) {
+  static_assert(F::NF_SUM == beam::NF_GRAD && F::NC <= 4,
+                "a gradient functor");
   const int smem = (int)sizeof(Tile<F>);
   cudaError_t err = cudaFuncSetAttribute(
       gsweep_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
+  const beam::Params p{r2, k, (uint32_t)tile};
   const dim3 grid((unsigned)((M + TQ - 1) / TQ), (unsigned)splits);
   gsweep_kernel<F><<<grid, WARPS * 32, smem, stream>>>(
       q, M, reinterpret_cast<const float4*>(rows),
-      reinterpret_cast<const float4*>(tails), qext, N,
-      beam::Params{r2, k, 0u}, chunk, part, part_cnt);
+      reinterpret_cast<const int4*>(keys),
+      reinterpret_cast<const float4*>(tails), qext, N, p, chunk, part,
+      part_cnt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long items = M * (F::NF + F::NC);
+  const long long items = M * (F::NF_SUM + F::NC);
   beam::reduce_splits<F><<<(unsigned)((items + 255) / 256), 256, 0, stream>>>(
       part, part_cnt, splits, M, out, cnt);
+  if constexpr (F::NF > F::NF_SUM) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    key_points<F><<<(unsigned)((M + 127) / 128), 128, 0, stream>>>(
+        q, M, reinterpret_cast<const float4*>(rows),
+        reinterpret_cast<const int4*>(keys), p, out, cnt);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -363,18 +425,20 @@ extern "C" void gvpm_gsweep_shape(int* out) {
   for (int i = 0; i < 8; ++i) out[i] = shape[i];
 }
 
-// the same C interface as beam_sweep.cu's entries (keys and tile unused)
+// the same C interface as beam_sweep.cu's entries
 #define GSWEEP_ENTRY(NAME, F)                                                \
   extern "C" int gvpm_beam_sweep_##NAME(                                     \
-      const float* q, long long M, const float* rows, const int* /*keys*/,   \
-      const float* tails, const float* qext, long long N, int /*tile*/,      \
+      const float* q, long long M, const float* rows, const int* keys,       \
+      const float* tails, const float* qext, long long N, int tile,          \
       float r2, float k, int splits, long long chunk, float* part,           \
       int* part_cnt, float* out, int* cnt, cudaStream_t stream) {            \
-    return launch<F>(q, M, rows, tails, qext, N, r2, k, splits, chunk, part, \
-                     part_cnt, out, cnt, stream);                            \
+    return launch<F>(q, M, rows, keys, tails, qext, N, tile, r2, k, splits,  \
+                     chunk, part, part_cnt, out, cnt, stream);               \
   }
 
 GSWEEP_ENTRY(gbeam1d, beam::GBeam1D)
+GSWEEP_ENTRY(gbeam3d, beam::GBeam3D)
 GSWEEP_ENTRY(gplane0d, beam::GPlane0D)
 GSWEEP_ENTRY(gbeam1d_me, beam::GBeam1DME)
+GSWEEP_ENTRY(gbeam3d_me, beam::GBeam3DME)
 GSWEEP_ENTRY(gplane0d_me, beam::GPlane0DME)

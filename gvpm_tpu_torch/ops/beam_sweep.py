@@ -27,11 +27,11 @@ the host's ME stage resolves that pair (integrators/gradient_gather.py).
 The JAX package leaves these to XLA as dense lax.scan tile loops over
 all beam slots; the TPU has no kernel for them. Here `sweep` / `gsweep`
 launch a CUDA kernel for CUDA tensors and run the plain PyTorch version
-(`sweep_plain` / `gsweep_plain`) only for CPU tensors: gbeam1d and
-gplane0d (and their _me kinds, QUEUED) the queued sweep of
-csrc/gsweep.cu, which tests pairs 32 lanes to a query and shifts the
-accepted ones 8 pairs x 4 offsets at a time; the others
-csrc/beam_sweep.cu's one thread a query. Per-pair math for both in csrc/beam_eval.cuh. `sweep` returns
+(`sweep_plain` / `gsweep_plain`) only for CPU tensors: the gradient
+kinds (QUEUED) the queued sweep of csrc/gsweep.cu, which tests pairs 32
+lanes to a query and shifts the accepted ones 8 pairs x 4 offsets at a
+time; the primal ones csrc/beam_sweep.cu's one thread a query. Per-pair
+math for both in csrc/beam_eval.cuh. `sweep` returns
 per query the summed contribution [M,3] and the number of accepted
 pairs [M] (int32); `gsweep` the base sum [M,3], the shifted and the
 MIS-weighted base sums of each offset [4,M,3], the accepted pairs and
@@ -79,8 +79,9 @@ from ..scene.types import PHASE_HG, PHASE_RAYLEIGH
 KINDS = ("beam1d", "beam3d", "plane0d")
 GKINDS = ("gbeam1d", "gbeam3d", "gplane0d")
 GKINDS_ME = tuple(k + "_me" for k in GKINDS)
-# the kinds csrc/gsweep.cu runs; the others run on csrc/beam_sweep.cu
-QUEUED = ("gbeam1d", "gplane0d", "gbeam1d_me", "gplane0d_me")
+# the kinds csrc/gsweep.cu runs: every gradient kind (the primal ones run
+# on csrc/beam_sweep.cu)
+QUEUED = GKINDS + GKINDS_ME
 # kernel launches per kind, counted by the wrapper where it launches
 LAUNCHES = dict.fromkeys(KINDS + GKINDS + GKINDS_ME, 0)
 
@@ -990,7 +991,9 @@ def launch_kernel(kind, q, rows, p: Params, qx=None, tails=None):
         return out, cnt if grad else cnt[:, 0]
     splits, chunk = gsplit_plan(M, N) if kind in QUEUED \
         else split_plan(M, N)
-    part = torch.empty((splits, M, nf), dtype=torch.float32, device=dev)
+    # the splits' partial sums (not gbeam3d_me's chord point)
+    part = torch.empty((splits, M, NF_GRAD if grad else 3),
+                       dtype=torch.float32, device=dev)
     part_cnt = torch.empty((splits, M, nc), dtype=torch.int32, device=dev)
     err = getattr(build()[_library(kind)], f"gvpm_beam_sweep_{kind}")(
         q.data_ptr(), M, rows.data_ptr(), keys,

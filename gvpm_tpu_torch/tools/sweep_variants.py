@@ -8,32 +8,30 @@ at the goldens' 128^2 check config with ME off (the inputs chip_smoke.py
 times the kernels on), then, for each variant, copies csrc/ into
 _build/sweep_variants/<name>/ with the variant's text substitutions
 applied, builds it through ops.beam_sweep.build and times the three
-gradient sweeps (gbeam1d and gplane0d on csrc/gsweep.cu, gbeam3d on
-csrc/beam_sweep.cu's one thread a query) through the same wrapper, with
-chip_smoke.cuda_ms. A variant is a list of (old, new) source
-substitutions: each must match, so a variant that the sources have
-outgrown fails loudly.
+gradient sweeps (gbeam1d, gbeam3d and gplane0d, all on csrc/gsweep.cu)
+through the same wrapper, with chip_smoke.cuda_ms. A variant is a list
+of (old, new) source substitutions: each must match, so a variant that
+the sources have outgrown fails loudly.
 
 gsweep.cu's knobs (its defaults: TQ 64, TILE_B 128, BATCH 8, SWEEP_U
 2, RING 128, MIN_BLOCKS 4, tails read from device memory): `batch_32`
 (32 pairs a batch, a pair's four offsets in one lane, against 8 pairs x
-4 offsets), `carry` (the base test's values ride in the ring instead of
+4 offsets), `carry` (the test's values ride in the ring instead of
 being recomputed in the batch), the query tile (`tq_32`, `tq_128`),
 the beam tile (`tile_b_256`, `tile_b_512`), the ring (`ring_256`), the
 32-beam slots a lane tests a sweep step (`sweep_u_1`, `sweep_u_4`), the
 register cap (`regs_168` / `regs_255`:
 3 / 2 blocks of 128 threads an SM), `offsets_unrolled` (the shift loop
-unrolled), `batch_noinline` (the batch a function of its own), and
-`shifts_out`, which returns before a batch's pair bodies: its sums and
-counts are wrong on purpose and say what the sweep, the queue and the
-batches' loads cost alone. beam_sweep.cu's (gbeam3d): `thread_regs_128`
-/ `thread_regs_85` (4 / 6 blocks of 128 an SM), `thread_shifts_out`
-(returns after the base term) and `thread_shifts_skipped` (returns there
-at run time only, keeping the shifts' registers). Every variant but
-those wrong on purpose must agree with `base` (visits and shift_ok
-equal, sums at rtol 2e-4 / atol 5e-6) or the script raises. Prints one
-line per variant: ms per launch, registers a thread and spill bytes per
-kernel.
+unrolled), `batch_noinline` (the batch a function of its own),
+`chord_dense` (gbeam3d's test runs chord's clip on every pair, not
+only where the query is within r of the beam's line), and
+`shifts_out`, which returns before a batch's pair bodies (gbeam3d: also
+before its chord sample's threefry word): its sums and counts are wrong
+on purpose and say what the sweep, the queue and the batches' loads
+cost alone. Every variant but the one wrong on purpose must agree with
+`base` (visits and shift_ok equal, sums at rtol 2e-4 / atol 5e-6) or
+the script raises. Prints one line per variant: ms per launch,
+registers a thread and spill bytes per kernel.
 """
 
 import os
@@ -44,9 +42,6 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-TAIL = ("    // ---- the four shifts ----\n"
-        "    const Parent a = load_parent(tail);\n")     # GBeam3DT's visit
-BOUNDS = "__global__ void __launch_bounds__(BLOCK)\n"
 
 
 def shape(name, old, new, kind="int"):
@@ -73,17 +68,10 @@ VARIANTS = {
                         "__device__ __noinline__ void shift_batch")],
     "shifts_out": [("  beam::pair_body<F, STRIDE>(",
                     "  if (p.k != -1.0f) return;\n  beam::pair_body<F, STRIDE>(")],
-    "thread_regs_128": [(BOUNDS,
-                         "__global__ void __launch_bounds__(BLOCK, 4)\n")],
-    "thread_regs_85": [(BOUNDS,
-                        "__global__ void __launch_bounds__(BLOCK, 6)\n")],
-    "thread_shifts_out": [(TAIL, "    return;\n" + TAIL)],
-    # the shifts compiled (and their registers allocated) but skipped at
-    # run time: k is never -1
-    "thread_shifts_skipped": [(TAIL, "    if (p.k != -1.0f) return;\n"
-                               + TAIL)],
+    "chord_dense": [("    if (h.pp < p.r2) g.ch = chord_clip(",
+                     "    g.ch = chord_clip(")],
 }
-WRONG_ON_PURPOSE = ("shifts_out", "thread_shifts_out", "thread_shifts_skipped")
+WRONG_ON_PURPOSE = ("shifts_out",)
 
 
 def main(names):

@@ -446,7 +446,9 @@ def port_beam_me_gather(kind, scene, inp, seg_tile, budget):
 # across tiles) and runs them `batch` at a time (32 / batch lanes a pair,
 # lane group g taking offsets g, g + 32 / batch, ...; only group 0 counts
 # the base term and the visit), the block's last batch partial; then the
-# splits are added in order and the ME keys reduced by min. The sums are
+# splits are added in order, the ME keys reduced by min, and gbeam3d_me's
+# chord points recomputed from the final keys (the card's key_points;
+# gbeam3d's beam keys and tile ride along as on the card). The sums are
 # taken pair after pair into the query's accumulator: the card's term
 # buffer, added column by column in ring order, and its ring indexing
 # modulo RING are not modelled here and are held only on the card
@@ -466,8 +468,8 @@ struct HostSink {
   bool lead;
   void base(int c, float v) { if (lead) acc[c] += v; }
   void offset(int k, float v) { acc[k] += v; }
-  void visit(bool me, int j) {
-    if (!lead) return;
+  void visit(bool ok, bool me, int j) {
+    if (!lead || !ok) return;
     ++cnt[0];
     if (me) {
       ++cnt[beam::C_ME];
@@ -477,10 +479,34 @@ struct HostSink {
   void reconnected(int n) { cnt[1] += n; }
 };
 
+static const int* key_row(const int* keys, long long j) {
+  return keys ? keys + 4 * j : nullptr;
+}
+
+// gbeam3d_me's epilogue (gsweep.cu's key_points): the chord point of each
+// query's final ME key, zeros without one
+template <class F>
+static void key_points(const float* q, long long M, const float* rows,
+                       const int* keys, beam::Params p, float* out,
+                       const int* cnt) {
+  if constexpr (F::NF > F::NF_SUM) {
+    for (long long m = 0; m < M; ++m) {
+      const int j = cnt[m * F::NC + beam::C_KEY];
+      beam::V3 y = {0.0f, 0.0f, 0.0f};
+      if (j != beam::ME_NONE)
+        y = F::point(beam::load_query(q + m * beam::QW, (uint32_t)m),
+                     rows + j * beam::BW, key_row(keys, j), p);
+      float* o = out + m * F::NF + F::NF_SUM;
+      o[0] = y.x, o[1] = y.y, o[2] = y.z;
+    }
+  }
+}
+
 template <class F>
 static void plain_order(const float* q, long long M, const float* rows,
-                        const float* tails, const float* qx, long long N,
-                        beam::Params p, float* out, int* cnt) {
+                        const int* keys, const float* tails,
+                        const float* qx, long long N, beam::Params p,
+                        float* out, int* cnt) {
   for (long long m = 0; m < M; ++m) {
     const beam::Query qq = beam::load_query(q + m * beam::QW, (uint32_t)m);
     float acc[beam::NF_GRAD] = {};
@@ -490,18 +516,20 @@ static void plain_order(const float* q, long long M, const float* rows,
         typename F::Geo g;
         if (!F::test(qq, rows + j * beam::BW, p, g)) continue;
         HostSink sink{acc, c, true};
-        beam::pair_body<F, 1>(qq, rows + j * beam::BW, tails + j * beam::TW,
-                              qx + m * beam::XW, p, g, 0, (int)j, sink);
+        beam::pair_body<F, 1>(qq, rows + j * beam::BW, key_row(keys, j),
+                              tails + j * beam::TW, qx + m * beam::XW, p, g,
+                              0, (int)j, sink);
       }
-    for (int f = 0; f < beam::NF_GRAD; ++f) out[m * beam::NF_GRAD + f] = acc[f];
+    for (int f = 0; f < beam::NF_GRAD; ++f) out[m * F::NF + f] = acc[f];
     for (int k = 0; k < F::NC; ++k) cnt[m * F::NC + k] = c[k];
   }
+  key_points<F>(q, M, rows, keys, p, out, cnt);
 }
 
 template <class F, int STRIDE>
 static int queued(const float* q, long long M, const float* rows,
-                  const float* tails, const float* qx, long long N,
-                  beam::Params p, int tq, int warps, int tile_b,
+                  const int* keys, const float* tails, const float* qx,
+                  long long N, beam::Params p, int tq, int warps, int tile_b,
                   int step, long long chunk, float* out, int* cnt) {
   constexpr int NF = beam::NF_GRAD, BATCH = 32 / STRIDE;
   const long long splits = (N + chunk - 1) / chunk;
@@ -529,6 +557,7 @@ static int queued(const float* q, long long M, const float* rows,
               F::test(qq, rows + j * beam::BW, p, g);
               HostSink sink{acc + qi * NF, c + qi * 4, grp == 0};
               beam::pair_body<F, STRIDE>(qq, rows + j * beam::BW,
+                                         key_row(keys, j),
                                          tails + j * beam::TW,
                                          qx + (q0 + qi) * beam::XW, p, g,
                                          grp, (int)j, sink);
@@ -562,7 +591,7 @@ static int queued(const float* q, long long M, const float* rows,
     for (int f = 0; f < NF; ++f) {
       float a = 0.0f;
       for (long long s = 0; s < splits; ++s) a += part[(s * M + m) * NF + f];
-      out[m * NF + f] = a;
+      out[m * F::NF + f] = a;
     }
     int sums[4] = {0, 0, beam::ME_NONE, 0};
     for (long long s = 0; s < splits; ++s) {
@@ -572,38 +601,44 @@ static int queued(const float* q, long long M, const float* rows,
     }
     for (int k = 0; k < F::NC; ++k) cnt[m * F::NC + k] = sums[k];
   }
+  key_points<F>(q, M, rows, keys, p, out, cnt);
   return most;
 }
 
 #define QUEUED_KINDS(X)            \
   X(0, beam::GBeam1D)              \
-  X(1, beam::GPlane0D)             \
-  X(2, beam::GBeam1DME)            \
-  X(3, beam::GPlane0DME)
+  X(1, beam::GBeam3D)              \
+  X(2, beam::GPlane0D)             \
+  X(3, beam::GBeam1DME)            \
+  X(4, beam::GBeam3DME)            \
+  X(5, beam::GPlane0DME)
 
 extern "C" void host_plain_order(int kind, const float* q, long long M,
-                                 const float* rows, const float* tails,
-                                 const float* qx, long long N, float r2,
-                                 float k, float* out, int* cnt) {
-  beam::Params p{r2, k, 0u};
-#define PLAIN(I, F) \
-  if (kind == I) plain_order<F>(q, M, rows, tails, qx, N, p, out, cnt);
+                                 const float* rows, const int* keys,
+                                 const float* tails, const float* qx,
+                                 long long N, int tile, float r2, float k,
+                                 float* out, int* cnt) {
+  beam::Params p{r2, k, (uint32_t)tile};
+#define PLAIN(I, F)                                                        \
+  if (kind == I)                                                           \
+    plain_order<F>(q, M, rows, keys, tails, qx, N, p, out, cnt);
   QUEUED_KINDS(PLAIN)
 }
 
 extern "C" int host_queued(int kind, int batch, const float* q, long long M,
-                           const float* rows, const float* tails,
-                           const float* qx, long long N, float r2, float k,
-                           int tq, int warps, int tile_b, int step,
-                           long long chunk, float* out, int* cnt) {
-  beam::Params p{r2, k, 0u};
+                           const float* rows, const int* keys,
+                           const float* tails, const float* qx, long long N,
+                           int tile, float r2, float k, int tq, int warps,
+                           int tile_b, int step, long long chunk, float* out,
+                           int* cnt) {
+  beam::Params p{r2, k, (uint32_t)tile};
 #define QUEUE(I, F)                                                        \
   if (kind == I)                                                           \
-    return batch == 32 ? queued<F, 1>(q, M, rows, tails, qx, N, p, tq,     \
-                                      warps, tile_b, step, chunk, out,     \
+    return batch == 32 ? queued<F, 1>(q, M, rows, keys, tails, qx, N, p,   \
+                                      tq, warps, tile_b, step, chunk, out, \
                                       cnt)                                 \
-                       : queued<F, 4>(q, M, rows, tails, qx, N, p, tq,     \
-                                      warps, tile_b, step, chunk, out,     \
+                       : queued<F, 4>(q, M, rows, keys, tails, qx, N, p,   \
+                                      tq, warps, tile_b, step, chunk, out, \
                                       cnt);
   QUEUED_KINDS(QUEUE)
   return -1;
@@ -651,11 +686,12 @@ def build_host_library(tmp_path_factory, name, cpp):
     vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                          ctypes.c_int)
     if "host_queued" in cpp:
-        lib.host_plain_order.argtypes = [i32, vp, i64, vp, vp, vp, i64, f32,
-                                         f32, vp, vp]
+        lib.host_plain_order.argtypes = [i32, vp, i64, vp, vp, vp, vp, i64,
+                                         i32, f32, f32, vp, vp]
         lib.host_plain_order.restype = None
-        lib.host_queued.argtypes = [i32, i32, vp, i64, vp, vp, vp, i64, f32,
-                                    f32, i32, i32, i32, i32, i64, vp, vp]
+        lib.host_queued.argtypes = [i32, i32, vp, i64, vp, vp, vp, vp, i64,
+                                    i32, f32, f32, i32, i32, i32, i32, i64,
+                                    vp, vp]
         lib.host_queued.restype = i32
     return lib
 
@@ -673,8 +709,10 @@ def host_queued_sweep(lib, kind, args, batch=None, chunk=None):
     out = torch.zeros((M, nf))
     cnt = torch.zeros((M, nc), dtype=torch.int32)
     i = bs.QUEUED.index(kind)
-    ptrs = (q.data_ptr(), M, rows.data_ptr(), tails.data_ptr(),
-            qx.data_ptr(), N, float(p.r2), float(p.k))
+    keys = None if p.keys is None else p.keys.contiguous()
+    ptrs = (q.data_ptr(), M, rows.data_ptr(),
+            None if keys is None else keys.data_ptr(), tails.data_ptr(),
+            qx.data_ptr(), N, int(p.tile), float(p.r2), float(p.k))
     most = None
     if batch == 0:
         lib.host_plain_order(i, *ptrs, out.data_ptr(), cnt.data_ptr())
@@ -688,11 +726,14 @@ def host_queued_sweep(lib, kind, args, batch=None, chunk=None):
 
 
 def hold_gsweep(got, want):
-    """gsweep tuples: the counts (and ME keys) exactly, the sums at rtol
-    2e-4 / atol 5e-6."""
+    """gsweep tuples: the counts, ME keys and gbeam3d_me's chord points
+    exactly, the sums at rtol 2e-4 / atol 5e-6."""
     for k, name in ((3, "visits"), (4, "shift_ok"), (5, "ME key"),
                     (6, "ME pairs"))[:len(want) - 3]:
         assert torch.equal(got[k], want[k]), name
+    if len(want) > 7 and want[7] is not None:
+        assert torch.equal(got[7].view(torch.int32),
+                           want[7].view(torch.int32)), "chord point"
     for g, w, name in zip(got[:3], want[:3], ("primal", "S", "W")):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=5e-6, msg=name)
 

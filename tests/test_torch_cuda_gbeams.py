@@ -1,13 +1,12 @@
-"""The gradient beam / plane sweep kernels on the card (GBeam1D and
-GPlane0D on csrc/gsweep.cu, GBeam3D on beam_sweep.cu): built from gvpm_tpu_torch/csrc, launched
+"""The gradient beam / plane sweep kernels on the card (GBeam1D, GBeam3D
+and GPlane0D on csrc/gsweep.cu): built from gvpm_tpu_torch/csrc, launched
 by the wrapper for CUDA tensors (never the plain version), once per gvpm
 pass of beam1d and plane0d and once per segment chunk and distance
 sample of beam3d, and equal to the plain version on the sweep inputs of
 one small gvpm pass of each beam volume (use_manifold=False): visits and
 shift_ok exactly, the sums at rtol 2e-4 / atol 5e-6, two launches
-bitwise equal (no float atomics); and gbeam1d / gplane0d (csrc/
-gsweep.cu) on chip_smoke's stress input, at the split plan and in one
-split.
+bitwise equal (no float atomics); and the three on chip_smoke's stress
+input, at the split plan and in one split.
 
 Needs a CUDA card and skips without one. It imports no JAX, so it runs
 on a machine without it:
@@ -64,7 +63,8 @@ def test_gradient_kernel_matches_plain(captured, kind):
     assert int(want[4].sum()) > 0
 
 
-@pytest.mark.parametrize("kind", ("gbeam1d", "gplane0d"))
+@pytest.mark.parametrize("kind", bs.GKINDS)
 def test_queued_kernel_on_stress_input(captured, kind):
     want, hot, _, _ = gsweep_stress_against_plain(kind)
-    assert int(want[3][hot]) >= 800 and int(want[4].sum()) > 1000
+    assert int(want[3][hot]) >= 800
+    assert int(want[4].sum()) > (500 if kind == "gbeam3d" else 1000)

@@ -1,7 +1,6 @@
 """The ME instantiations of the gradient beam / plane sweep kernels on
-the card (GBeam1DME and GPlane0DME on csrc/gsweep.cu, GBeam3DME on
-beam_sweep.cu): built from
-gvpm_tpu_torch/csrc, launched by the wrapper for CUDA tensors (never the
+the card (GBeam1DME, GBeam3DME and GPlane0DME on csrc/gsweep.cu): built
+from gvpm_tpu_torch/csrc, launched by the wrapper for CUDA tensors (never the
 plain version) once a segment chunk of a gvpm pass with the default
 use_manifold=True (beam3d: once a chunk and distance sample), and equal
 to the plain version on the sweep inputs of one small ME pass of each
@@ -9,9 +8,9 @@ beam volume, checked on the first quarter of the valid queries: visits,
 shift_ok, the
 ME key, the ME pair count and gbeam3d_me's chord point exactly, the
 sums at rtol 2e-4 / atol 5e-6, two launches bitwise equal (no float
-atomics; the key is reduced by min over the beam splits); and
-gbeam1d_me / gplane0d_me (csrc/gsweep.cu) on chip_smoke's stress input
-with ME-eligible beams, at the split plan and in one split.
+atomics; the key is reduced by min over the beam splits); and the three
+on chip_smoke's stress input with ME-eligible beams, at the split plan
+and in one split.
 
 Needs a CUDA card and skips without one. It imports no JAX:
 
@@ -69,7 +68,7 @@ def test_me_kernel_matches_plain(captured, kind):
     assert int(got[6].sum()) >= int((got[5] != bs.ME_NONE).sum()) > 0
 
 
-@pytest.mark.parametrize("kind", ("gbeam1d_me", "gplane0d_me"))
+@pytest.mark.parametrize("kind", bs.GKINDS_ME)
 def test_queued_me_kernel_on_stress_input(captured, kind):
     want, hot, _, _ = gsweep_stress_against_plain(kind)
     assert int(want[5][hot]) != bs.ME_NONE and int(want[6].sum()) > 0

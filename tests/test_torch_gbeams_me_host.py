@@ -5,18 +5,17 @@ PyTorch version of ops/beam_sweep.py (gsweep_plain with the _me kinds)
 on the sweep inputs of one 16x16 gvpm pass of each beam volume with
 manifold shifts (tests/test_torch_common.py's BEAM_ME_KW in box_medium,
 where beams leave the mirror sphere) and on chip_smoke.
-gsweep_stress_inputs. The host loops visit the pairs as one kernel
-thread of beam_sweep.cu does, each query against every beam in order,
-its ME key starting at ME_NONE (GBeam3DME's visit, the others' test /
-base / shift parts), and for gbeam1d_me and gplane0d_me in csrc/
-gsweep.cu's order (test_torch_common.QUEUED_HOST_CPP).
+gsweep_stress_inputs. The host loops run the functors' test / base /
+shift parts (test_torch_common.QUEUED_HOST_CPP) each query against
+every beam in order, its ME key starting at ME_NONE (the plain order),
+and in csrc/gsweep.cu's order, where the key is a min over a query's
+runs and splits and gbeam3d_me's chord point is recomputed from the
+final key (the card's key_points).
 
 Bar: visits, shift_ok, the ME key (the lowest packed index of an
 ME-eligible accepted beam), the ME pair count and gbeam3d_me's chord
 point bit-equal; sums at rtol 2e-4 / atol 5e-6 (the order of the sums
 and the rounding of expf differ)."""
-
-import ctypes
 
 import pytest
 import torch
@@ -34,44 +33,10 @@ from tests.test_torch_common import (torch_threads,  # noqa: F401
 VOLUMES = dict(gbeam1d_me="beam1d", gbeam3d_me="beam3d",
                gplane0d_me="plane0d")
 
-HOST_CPP = QUEUED_HOST_CPP + r"""
-template <class F>
-static void run(const float* q, long long M, const float* rows,
-                const int* keys, const float* tails, const float* qx,
-                long long N, beam::Params p, float* out, int* cnt) {
-  for (long long m = 0; m < M; ++m) {
-    beam::Query qq = beam::load_query(q + m * beam::QW, (uint32_t)m);
-    float acc[F::NF] = {};
-    int c[F::NC] = {};
-    c[beam::C_KEY] = beam::ME_NONE;
-    if (qq.valid)
-      for (long long j = 0; j < N; ++j)
-        F::visit(qq, rows + j * beam::BW, keys ? keys + 4 * j : nullptr,
-                 tails + j * beam::TW, qx + m * beam::XW, p, acc, c, (int)j);
-    for (int f = 0; f < F::NF; ++f) out[m * F::NF + f] = acc[f];
-    for (int k = 0; k < F::NC; ++k) cnt[m * F::NC + k] = c[k];
-  }
-}
-extern "C" void host_gsweep_me(const float* q, long long M,
-                               const float* rows, const int* keys,
-                               const float* tails, const float* qx,
-                               long long N, int tile, float r2, float k,
-                               float* out, int* cnt) {
-  beam::Params p{r2, k, (uint32_t)tile};
-  run<beam::GBeam3DME>(q, M, rows, keys, tails, qx, N, p, out, cnt);
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    lib = build_host_library(tmp_path_factory, "gbeam_me_eval_host",
-                             HOST_CPP)
-    vp, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
-    lib.host_gsweep_me.argtypes = [vp, i64, vp, vp, vp, vp, i64,
-                                   ctypes.c_int, f32, f32, vp, vp]
-    lib.host_gsweep_me.restype = None
-    return lib
+    return build_host_library(tmp_path_factory, "gbeam_me_eval_host",
+                              QUEUED_HOST_CPP)
 
 
 @pytest.fixture(scope="module")
@@ -102,20 +67,9 @@ def gsweep_inputs():
 def test_host_compiled_me_functors_match_plain(host_lib, gsweep_inputs,
                                                kind):
     q, qx, rows, tails, p = gsweep_inputs[kind]
-    M, N = q.shape[0], rows.shape[0]
-    nf = bs.NF_GRAD + (3 if kind == "gbeam3d_me" else 0)
-    if kind in bs.QUEUED:       # test / base / shift, in the plain order
-        got, _ = host_queued_sweep(host_lib, kind, gsweep_inputs[kind],
-                                   batch=0)
-    else:
-        out = torch.empty((M, nf))
-        cnt = torch.empty((M, 4), dtype=torch.int32)
-        host_lib.host_gsweep_me(q.data_ptr(), M, rows.data_ptr(),
-                                p.keys.contiguous().data_ptr(),
-                                tails.data_ptr(), qx.data_ptr(), N,
-                                int(p.tile), float(p.r2), float(p.k),
-                                out.data_ptr(), cnt.data_ptr())
-        got = bs._grad_out(out, cnt)
+    assert q.shape[0] > 0 and rows.shape[0] > 0 and kind in bs.QUEUED
+    # test / base / shift, in the plain order
+    got, _ = host_queued_sweep(host_lib, kind, gsweep_inputs[kind], batch=0)
     want = bs.gsweep_plain(kind, q, qx, rows, tails, p)
     assert len(got) == len(want) == 8
     assert int(want[3].sum()) > 50 and int(want[4].sum()) > 50
@@ -135,7 +89,7 @@ def test_host_compiled_me_functors_match_plain(host_lib, gsweep_inputs,
 
 
 @pytest.mark.parametrize("batch", (32, 8))
-@pytest.mark.parametrize("kind", ("gbeam1d_me", "gplane0d_me"))
+@pytest.mark.parametrize("kind", bs.GKINDS_ME)
 def test_queued_me_order_matches_plain(host_lib, gsweep_inputs, kind,
                                        batch):
     want = queued_against_plain(host_lib, kind, gsweep_inputs[kind], batch)
@@ -143,17 +97,22 @@ def test_queued_me_order_matches_plain(host_lib, gsweep_inputs, kind,
 
 
 @pytest.mark.parametrize("batch", (32, 8))
-@pytest.mark.parametrize("kind", ("gbeam1d_me", "gplane0d_me"))
+@pytest.mark.parametrize("kind", bs.GKINDS_ME)
 def test_queued_me_order_on_stress_input(host_lib, kind, batch):
     """The stress input with ME-eligible beams among reconnectable and
-    identity ones, some of them the hot query's."""
+    identity ones, some of them the hot query's (gbeam3d_me: its key on
+    a grazing beam, its chord point held bit for bit)."""
     *args, hot = gsweep_stress_inputs(kind)
     want = queued_against_plain(host_lib, kind, args, batch)
     elig = args[3][:, bs.TSLOT["reconnectable"]] < -0.5
+    n_key = int((want[5] != bs.ME_NONE).sum())
     assert int(want[3][hot]) >= 800 > 3 * gsweep_source_shape()["tile_b"]
     assert int(want[5][hot]) != bs.ME_NONE and bool(elig[int(want[5][hot])])
-    assert int((want[5] != bs.ME_NONE).sum()) > 50
-    assert int(want[6].sum()) > int((want[5] != bs.ME_NONE).sum())
+    assert n_key > (10 if kind == "gbeam3d_me" else 50)
+    assert int(want[6].sum()) > n_key
+    if kind == "gbeam3d_me":
+        assert bool((want[7][want[5] != bs.ME_NONE] != 0).any(dim=1).all())
+        assert bool((want[7][want[5] == bs.ME_NONE] == 0).all())
 
 
 @pytest.mark.parametrize("kind", bs.GKINDS_ME)
