@@ -30,11 +30,23 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 longer than 32 x a few and empty ones, a ragged last
                 tile, invalid queries, a lowest ME row in a late run.
   3c. beams  — the beam / plane pair sweeps (ops/beam_sweep.py: beam1d,
-                beam3d, plane0d) on the inputs of one pass of each at the
+                beam3d on the queued sweep of gsweep.cu, plane0d on
+                beam_sweep.cu) on the inputs of one pass of each at the
                 goldens' 128^2 check config: the kernel twice and the
                 plain version once, accepted-pair counts exactly equal,
                 sums at rtol 2e-4 / atol 5e-6, two launches bitwise equal;
-                kernel and plain ms and the bound (`beam_bound`).
+                kernel and plain ms, the bound (`beam_bound`; for beam1d /
+                beam3d also under one thread a query's count) and the
+                kernel's share of it, registers, spills, warps an SM, and
+                the pairs past the kernel's test (sweep_plain's model of
+                it, beam1d's guard included) and past the first stage.
+                beams-stress: beam1d and beam3d on `beam_stress_inputs`
+                (a hot query over seven tiles and splits, beams within 1%
+                of r, inside the pre-test's margin, near-parallel,
+                grazing chords), and beam1d's moved by BEAM1D_FAR_SHIFTS
+                (lines' scales just inside the pre-test's guard and past
+                it), at the split plan and in one split, against the
+                plain version, the same bar.
   3d. gbeams — the gradient sweeps of the gvpm beam volumes (gbeam1d,
                 gbeam3d, gplane0d; use_manifold=False) on the inputs of
                 one gvpm pass of each at the goldens' 128^2 check config:
@@ -47,7 +59,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 shift bodies in one thread a query (as beam_sweep.cu ran
                 them before gsweep.cu) and in the queued kernel of gsweep.cu
                 (`gsweep_lane_use`); last, the unchanged kernels' ms as a
-                control line (the primal sweeps).
+                control line (plane0d and the six gradient sweeps).
   3e. gbeams-me — the same three sweeps' ME instantiations (gbeam1d_me,
                 gbeam3d_me, gplane0d_me) on the inputs of one gvpm pass
                 of each with the default use_manifold=True: the kernel
@@ -242,13 +254,27 @@ BEAM_REPLACES = {"beam1d": "gvpm_tpu/integrators/estimators.py:481",
 BEAM_LAUNCHES = {"beam1d": 1, "beam3d": 2, "plane0d": 1}
 # operations per pair counted from csrc/beam_eval.cuh, one per add,
 # multiply, divide, compare, select, clamp, sqrtf and expf: (every pair
-# of a valid query and a beam in its medium; each pair of the second
-# stage; each accepted pair, its accumulation included). Stage 2: beam1d
-# past the parameter-range tests (12 of the closest points, their
-# distance and test 21); beam3d past the chord test (the sample and its
-# distance test 17, floats); plane0d past the determinant test (32).
-BEAM_OPS = {"beam1d": (36, 21, 68), "beam3d": (30, 17, 57),
-            "plane0d": (23, 32, 109)}
+# of a valid query and a beam in its medium; each pair past the kernel's
+# test, sweep_plain's "pretest"; each pair of the second stage,
+# "stage2"; each accepted pair, its accumulation included). beam1d
+# (csrc/gsweep.cu, Beam1D): every pair its pre-test, 29 (w0 3, n = d x db
+# 9, w0 . n 5, n . n 5, the square, the product, two compares and their
+# or 5, the medium's compare and the and 2); the pairs past it the exact
+# test, branch free, 62 (closest 31, the closest points and their
+# distance 20, five compares, the parallel flag's not and five ands 11).
+# beam3d (Beam3D): every pair the chord test's first half and compares,
+# 21 (chord_perp 19, pp < r2, the medium's), as GBEAM_OPS["gbeam3d"]; the
+# pairs within r of the line (pretest) chord's clip and its compare, 10;
+# past the chord test the sample and its distance test, 17. plane0d
+# (csrc/beam_sweep.cu, unchanged): 23 every pair, 32 past the
+# determinant test.
+BEAM_OPS = {"beam1d": (29, 62, 0, 68), "beam3d": (21, 10, 17, 57),
+            "plane0d": (23, 0, 32, 109)}
+# the same count for beam_sweep.cu's one thread a query, which ran
+# beam1d's closest approach (with its divisions) and beam3d's whole chord
+# on every pair: (36, -, 21 past the parameter-range tests, 68), (30, -,
+# 17, 57); kept to set the redesigned kernels' bound beside the old one
+BEAM_OPS_THREAD = {"beam1d": (36, 0, 21, 68), "beam3d": (30, 0, 17, 57)}
 # beam3d's integer operations per drawn word: threefry2x32's 20 rounds of
 # add, two shifts, or and xor, its 5 key injections of 3 adds, the key
 # schedule's 2 xors and 2 adds, and the float conversion's 4
@@ -532,24 +558,24 @@ def stress_inputs(ev, seed=7, device="cpu"):
 
 def gsweep_stress_inputs(kind, seed=11, device="cpu"):
     """A small seeded input of the queued gradient sweeps (beam_sweep.
-    QUEUED: gbeam1d, gbeam3d, gplane0d and their _me kinds) that a render
-    cannot be relied on to give. Returns (q, qx, rows, tails, params,
-    hot): 333 camera segments (gbeam3d: distance samples; not a multiple
-    of a query tile) in the unit box, a tenth of them invalid and a tenth
-    in another medium, against 1,077 beams or planes (not a multiple of a
-    beam tile), a tenth in the other medium. Query `hot` runs along x
-    through the box's middle (gbeam3d: sits at its centre) and accepts
-    each of the 800 beams (planes) from 256 on: every beam of six of
-    gsweep.cu's 128-row tiles (three at 256 rows), so its accepted pairs
-    wrap a warp's 128-pair ring six times. Parents are emitters,
-    surfaces of the four BSDF types and medium vertices; reconnectable
-    and identity beams are mixed and, for an _me kind, ME-eligible ones
-    (-1 in the tail's reconnectable slot, pack_tails), hot beams among
-    them. gbeam3d's beams 100-163 graze the hot query's kernel sphere
-    (closest approach r (1 - 10^-6.5 .. 10^-4.5)), so that some of their
-    chord samples fall outside it by rounding: pairs the sweep queues and
-    base rejects; its params carry beam_keys rows of kept beams spread
-    over 2N slots in JAX tiles of 256."""
+    GKINDS, GKINDS_ME: gbeam1d, gbeam3d, gplane0d and their _me kinds)
+    that a render cannot be relied on to give. Returns (q, qx, rows,
+    tails, params, hot): 333 camera segments (gbeam3d: distance samples;
+    not a multiple of a query tile) in the unit box, a tenth of them
+    invalid and a tenth in another medium, against 1,077 beams or planes
+    (not a multiple of a beam tile), a tenth in the other medium. Query
+    `hot` runs along x through the box's middle (gbeam3d: sits at its
+    centre) and accepts each of the 800 beams (planes) from 256 on:
+    every beam of six of gsweep.cu's 128-row tiles (three at 256 rows),
+    so its accepted pairs wrap a warp's 128-pair ring six times. Parents
+    are emitters, surfaces of the four BSDF types and medium vertices;
+    reconnectable and identity beams are mixed and, for an _me kind,
+    ME-eligible ones (-1 in the tail's reconnectable slot, pack_tails), hot
+    beams among them. gbeam3d's beams 100-163 graze the hot query's
+    kernel sphere (closest approach r (1 - 10^-6.5 .. 10^-4.5)), so that
+    some of their chord samples fall outside it by rounding: pairs the
+    sweep queues and base rejects; its params carry beam_keys rows of
+    kept beams spread over 2N slots in JAX tiles of 256."""
     from gvpm_tpu_torch.ops import beam_sweep as bs
     rng = np.random.default_rng(seed)
     plane = kind.startswith("gplane0d")
@@ -672,6 +698,82 @@ def gsweep_stress_inputs(kind, seed=11, device="cpu"):
     return t(q), t(qx), t(rows), t(tails), p, hot
 
 
+# translations of beam1d's stress input (beam_stress_inputs' shift): its
+# lines' scales A (csrc/beam_eval.cuh line_scale, a query's and a beam
+# tile's) then lie near 8,050 r, just inside the guard's 8,192 r, where
+# the pre-test's rounding bound is tightest, and past it, where the guard
+# sends every pair on to the exact test
+BEAM1D_FAR_SHIFTS = (200.0, 210.0)
+
+
+def beam_stress_inputs(kind, seed=11, device="cpu", shift=0.0):
+    """A small seeded input of the primal queued sweeps (beam1d, beam3d)
+    that a render cannot be relied on to give: gsweep_stress_inputs'
+    queries and beams for g<kind> (the hot query accepting the 800 beams
+    256-1055, over seven of gsweep.cu's beam tiles and, at the wrapper's
+    split plan, seven splits; ragged counts, invalid queries, a medium
+    mismatch; beam3d's grazing beams 100-163, whose chord samples base
+    rejects by rounding), with beams placed against the hot query: 0-39
+    at a distance within 1% of r (either side), 40-79 between 1.02 r and
+    1.98 r (inside beam1d's pre-test margin, rejected by its exact test),
+    and for beam1d 164-227 nearly parallel to it (1 - cos^2 from 1e-10 to
+    0.1: across the parallel test's 1e-8 and the pre-test's 1e-2), for
+    beam3d short beams whose chords are clipped at an end. Every query
+    and beam origin is then moved by `shift` along each axis
+    (BEAM1D_FAR_SHIFTS). Returns (q, rows, params, hot)."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    q, _, rows, _, p, hot = gsweep_stress_inputs("g" + kind, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    rows = rows.cpu().numpy()
+    r = 0.05
+    o, d, lb = (bs.BSLOT[k] for k in ("o", "d", "length"))
+
+    def put(sel, ob, db, length):
+        n = len(range(*sel.indices(rows.shape[0])))
+        rows[sel, o:o + 3] = ob
+        rows[sel, d:d + 3] = db
+        rows[sel, lb] = length
+        rows[sel, bs.BSLOT["med"]] = 0.0
+        assert np.asarray(ob).shape[0] == n
+
+    def ring(n, rho, y):
+        """beams along y at distance rho of the hot point (0.5, ., 0.5)"""
+        ang = rng.uniform(0.0, 2.0 * np.pi, n)
+        return np.stack([0.5 + rho * np.cos(ang), np.broadcast_to(y, (n,)),
+                         0.5 + rho * np.sin(ang)], 1)
+
+    sides = np.where(rng.random(40) < 0.5, -1.0, 1.0)
+    near = r * (1.0 + 0.01 * rng.uniform(-1.0, 1.0, 40))
+    margin = r * rng.uniform(1.02, 1.98, 40)
+    along_y = np.tile([0.0, 1.0, 0.0], (40, 1))
+    if kind == "beam1d":
+        # the hot segment runs from (0.1, 0.5, 0.5) along x for 0.9
+        for sel, dist in ((slice(0, 40), near), (slice(40, 80), margin)):
+            x = rng.uniform(0.15, 0.95, 40)
+            put(sel, np.stack([x, np.full(40, 0.2), 0.5 + sides * dist], 1),
+                along_y, 0.6)
+        eps = np.logspace(-5, np.log10(0.33), 64)
+        db = np.stack([np.ones(64), eps, np.zeros(64)], 1)
+        db /= np.linalg.norm(db, axis=1, keepdims=True)
+        # crossing y = 0.5 about 0.3 along the beam, 0.5 r off the line
+        ob = np.stack([np.full(64, 0.2), 0.5 - 0.3 * db[:, 1],
+                       np.full(64, 0.5 + 0.5 * r)], 1)
+        put(slice(164, 228), ob, db, 0.6)
+    else:
+        # the hot sample sits at (0.5, 0.5, 0.5)
+        put(slice(0, 40), ring(40, near, 0.2), along_y, 0.6)
+        put(slice(40, 80), ring(40, margin, 0.2), along_y, 0.6)
+        # ending or starting inside the sphere: the clip at s = 0 or lb
+        start = 0.5 + r * rng.uniform(-1.5, 0.9, 64)
+        put(slice(164, 228), ring(64, 0.5 * r * rng.random(64), start),
+            np.tile([0.0, 1.0, 0.0], (64, 1)), rng.uniform(0.1, 1.5, 64) * r)
+    if shift:
+        rows[:, o:o + 3] += np.float32(shift)
+        q = q.clone()
+        q[:, bs.QSLOT["o"]:bs.QSLOT["o"] + 3] += shift
+    return (q, torch.tensor(rows, device=device), p, hot)
+
+
 def lane_use(ev, plan, tbl, qrows, r2, k3, md):
     """Measured lane use on these inputs, in tensor code. A lane-per-row
     loop (one warp a query, 32 lanes striding over each run) makes
@@ -741,14 +843,15 @@ def kernel_bound(ev, slots, plan, tbl, qrows, candidates, visits):
             "bytes" if t_bytes >= t_ops else "operations", detail)
 
 
-def beam_bound(kind, q, rows, stats, accepted):
+def beam_bound(kind, q, rows, stats, accepted, ops=None):
     """The least time the card could take for one sweep on these inputs:
     the larger of the bytes that must move over the memory rate (each
     query row, beam row, beam key and output once) and the operations
-    these inputs need (BEAM_OPS: every pair of a valid query and a beam
-    in its medium, the pairs of the second stage, the accepted pairs) at
-    the float32 rate, beam3d's threefry words at the INT32 rate.
-    Returns (ms, "bytes" | "operations", detail)."""
+    these inputs need (`ops`, by default BEAM_OPS: every pair of a valid
+    query and a beam in its medium, the pairs past the kernel's test, the
+    pairs of the second stage, the accepted pairs) at the float32 rate,
+    beam3d's threefry words at the INT32 rate. Returns (ms, "bytes" |
+    "operations", detail)."""
     from gvpm_tpu_torch.ops import beam_sweep as bs
     M, N = q.shape[0], rows.shape[0]
     valid = q[:, bs.QSLOT["valid"]] > 0.5
@@ -758,15 +861,17 @@ def beam_bound(kind, q, rows, stats, accepted):
     pairs = int(torch.bincount(b_med, minlength=n_med)[q_med].sum())
     n_bytes = 4 * (M * bs.QW + N * bs.BW + M * 4) \
         + (16 * N if kind == "beam3d" else 0)
-    a, b, c = BEAM_OPS[kind]
-    fops = pairs * a + stats["stage2"] * b + accepted * c
+    a, b, c, d = (ops or BEAM_OPS)[kind]
+    fops = pairs * a + stats.get("pretest", 0) * b + stats["stage2"] * c \
+        + accepted * d
     iops = stats["stage2"] * BEAM_INT_OPS if kind == "beam3d" else 0
     t = dict(bytes=n_bytes / PEAK_BYTES_S * 1e3,
              operations=max(fops / PEAK_FP32_S, iops / PEAK_INT32_S) * 1e3)
     by = max(t, key=t.get)
     return t[by], by, dict(
         queries=M, valid_queries=int(valid.sum()), beams=N, pairs=pairs,
-        stage2=stats["stage2"], accepted=accepted, bytes=n_bytes,
+        pretest=stats.get("pretest"), stage2=stats["stage2"],
+        accepted=accepted, bytes=n_bytes,
         float_ops=fops, int_ops=iops, float_ms=fops / PEAK_FP32_S * 1e3,
         int_ms=iops / PEAK_INT32_S * 1e3,
         float_unfused_ms=fops / PEAK_FP32_UNFUSED_S * 1e3)
@@ -882,10 +987,10 @@ def gsweep_stats(kind, q, rows, tails, p):
 
 
 def gsweep_stress_against_plain(kind):
-    """The stress input (gsweep_stress_inputs) of a queued gradient sweep
-    (beam_sweep.QUEUED) on the card: the kernel twice at its split plan
-    and twice in one split (whose ring then lives across many beam
-    tiles) against the plain version once: visits, shift_ok and the ME
+    """The stress input (gsweep_stress_inputs) of a gradient sweep
+    (beam_sweep.GKINDS, GKINDS_ME) on the card: the kernel twice at its
+    split plan and twice in one split (whose ring then lives across many
+    beam tiles) against the plain version once: visits, shift_ok and the ME
     keys and counts exactly equal, sums within TOL, each pair of
     launches bitwise equal; the hot query must keep its 800 beams.
     Returns (plain outputs, hot query, max abs error, beams)."""
@@ -1109,6 +1214,42 @@ def beams_against_plain(kind, q, rows, p):
     return want, want_n, stats, float((got - want).abs().max())
 
 
+def beams_stress_against_plain(kind, shift=0.0):
+    """The primal stress input (beam_stress_inputs) of a queued sweep
+    (beam1d, beam3d), moved by `shift`, on the card: the kernel twice at
+    its split plan and twice in one split (whose ring then lives across
+    every beam tile) against the plain version once: accepted-pair
+    counts exactly equal, sums within TOL, each pair of launches bitwise
+    equal; the hot query must keep its 800 beams. Returns (plain sums,
+    plain counts, plain stats, hot query, max abs error)."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    q, rows, p, hot = beam_stress_inputs(kind, device="cuda", shift=shift)
+    stats = {}
+    want, want_n = bs.sweep_plain(kind, q, rows, p, stats=stats)
+    target, err = bs.GTARGET_BLOCKS, 0.0
+    try:
+        for bs.GTARGET_BLOCKS in (target, 1):
+            got, got_n = bs.sweep(kind, q, rows, p)
+            again, again_n = bs.sweep(kind, q, rows, p)
+            torch.cuda.synchronize()
+            if got_n.dtype != torch.int32 or not torch.equal(got_n, want_n):
+                raise AssertionError(f"beam_sweep_{kind}: stress counts "
+                                     "differ from the plain version")
+            torch.testing.assert_close(got, want, **TOL)
+            if not (torch.equal(got.view(torch.int32),
+                                again.view(torch.int32))
+                    and torch.equal(got_n, again_n)):
+                raise AssertionError(f"beam_sweep_{kind}: two launches on "
+                                     "the stress input differ")
+            err = max(err, float((got - want).abs().max()))
+    finally:
+        bs.GTARGET_BLOCKS = target
+    if not int(want_n[hot]) >= 800:
+        raise AssertionError(f"beam_sweep_{kind}: the hot query has "
+                             f"{int(want_n[hot])} accepted pairs")
+    return want, want_n, stats, hot, err
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device — this smoke run "
@@ -1259,6 +1400,7 @@ def main():
                   seed=5, it=0, surf_scale=1.0, vol_scale=1.0,
                   r_vol_base=sppm.base_volume_radius(bscene, bcfg))
     beam_kernels = {}
+    regs = bs.build_report()
     for kind, (q, rows, p) in capture_sweeps(bscene, bcfg, b_pass).items():
         want, n_acc, st, err = beams_against_plain(kind, q, rows, p)
         accepted = int(n_acc.sum())
@@ -1268,22 +1410,47 @@ def main():
                            warm=0)
         beam_kernels[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
-        phase("beams", f"{kind}: {q.shape[0]} camera queries x "
+        r = regs[kind]
+        src = "gsweep.cu" if kind in bs.QUEUED else "beam_sweep.cu"
+        old = ""
+        if kind in BEAM_OPS_THREAD:
+            old_ms, _, _ = beam_bound(kind, q, rows, st, accepted,
+                                      BEAM_OPS_THREAD)
+            old = (f" (one thread a query's count: {old_ms:.4f} ms); "
+                   f"{bs.warps_per_sm(kind)} warps an SM")
+        phase("beams", f"{kind} ({src}): {q.shape[0]} camera queries x "
                        f"{rows.shape[0]} beams (valid of "
                        f"{bscene.width}^2 x {BEAM_GOLD_KW['surface_photons']}"
                        f" paths), accepted pairs {accepted} equal, max|err| "
                        f"{err:.3g} (rtol 2e-4 atol 5e-6), two launches "
                        f"bitwise equal, kernel {ms:.3f} ms, plain "
                        f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms by "
-                       f"{bound_by} {json.dumps(detail)}")
+                       f"{bound_by} ({bound_ms / ms:.1%} of it){old}; "
+                       f"{r['registers']} registers, {r['spill_stores']} B "
+                       f"spilled; pairs past the kernel's test (pretest, "
+                       f"sweep_plain's model of it, guard included) "
+                       f"{st.get('pretest')}, past the first stage "
+                       f"(stage2) {st['stage2']} {json.dumps(detail)}")
     del q, rows, p, want, n_acc
+
+    # ---- 3c'. the queued primal sweeps on their stress input ----
+    for kind, shift in ((("beam1d", 0.0), ("beam3d", 0.0))
+                        + tuple(("beam1d", s) for s in BEAM1D_FAR_SHIFTS)):
+        want, n_acc, st, hot, err = beams_stress_against_plain(kind, shift)
+        phase("beams-stress", f"{kind} moved by {shift}: {want.shape[0]} "
+                              f"queries, accepted "
+                              f"pairs {int(n_acc.sum())} ({int(n_acc[hot])}"
+                              f" of them one query's) equal at the split "
+                              f"plan and in one split, pretest "
+                              f"{st['pretest']}, stage2 {st['stage2']}, "
+                              f"max|err| {err:.3g}, two launches bitwise "
+                              f"equal")
 
     # ---- 3d. the gradient sweeps on one 128^2 check-config gvpm pass ----
     gcfg = GradientConfig(**GVPM_GOLD_KW)
     g_pass = dict(n_photons=max(gcfg.surface_photons, gcfg.volume_photons),
                   seed=5, it=0, surf_scale=1.0, vol_scale=1.0,
                   r_vol_base=sppm.base_volume_radius(bscene, gcfg))
-    regs = bs.build_report()
     for kind, args in capture_gsweeps(bscene, gcfg, g_pass).items():
         q, qx, rows, tails, p = args
         want, st, err, plain_ms = gbeams_against_plain(kind, args)
@@ -1304,8 +1471,8 @@ def main():
                         f"registers, {r['spill_stores']} B spilled "
                         f"{json.dumps(detail)}")
         shape = bs.gsweep_shape()
-        lu = gsweep_lane_use(kind, q, rows, tails, p, shape,
-                             bs.gsplit_plan(q.shape[0], rows.shape[0])[1])
+        chunk = bs.gsplit_plan(q.shape[0], rows.shape[0], kind)[1]
+        lu = gsweep_lane_use(kind, q, rows, tails, p, shape, chunk)
         phase("gbeams", f"{kind} lane use, one thread a query "
                         f"(beam_sweep.cu before) and queued (gsweep.cu "
                         f"{json.dumps(shape)}): {json.dumps(lu)}")
@@ -1347,7 +1514,7 @@ def main():
     del q, qx, rows, tails, p, args, got
 
     # ---- 3f. the queued sweeps on their stress input ----
-    for kind in bs.QUEUED:
+    for kind in bs.GKINDS + bs.GKINDS_ME:
         want, hot, err, n_beams = gsweep_stress_against_plain(kind)
         me = (f", ME queries {int((want[5] != bs.ME_NONE).sum())} with "
               f"{int(want[6].sum())} ME pairs" if len(want) > 5 else "")
@@ -1364,8 +1531,10 @@ def main():
                                f" shift_ok {int(want[4].sum())}{me} equal at "
                                f"the split plan and in one split, max|err| "
                                f"{err:.3g}, two launches bitwise equal")
-    phase("gbeams", "controls (beam_sweep.cu, unchanged): " + json.dumps(
-        {k: round(beam_kernels[k]["ms"], 3) for k in bs.KINDS}))
+    phase("gbeams", "controls (plane0d on beam_sweep.cu and the gradient "
+                    "sweeps, unchanged), ms a launch: " + json.dumps(
+                        {k: round(beam_kernels[k]["ms"], 3)
+                         for k in ("plane0d",) + bs.GKINDS + bs.GKINDS_ME}))
 
     # ---- 4. the main paths at the headline size ----
     def drive(label, cfg, passes, expect):

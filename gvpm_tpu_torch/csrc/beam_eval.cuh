@@ -1,7 +1,7 @@
 // Per-pair math of the beam / plane pair sweeps (ops/beam_sweep.py): one
 // (camera query, photon beam or plane) pair of each of the three primal
-// estimators of gvpm_tpu/integrators/estimators.py, as __host__
-// __device__ functors.
+// estimators of gvpm_tpu/integrators/estimators.py, and of their G-VPM
+// gradient versions, as __host__ __device__ functors.
 //
 //   Beam1D  — beam_beam_gather (:481): closest approach, 1D kernel
 //   Beam3D  — beam_point_gather (:262): chord through the kernel sphere
@@ -12,11 +12,14 @@
 // _beam1d / _beam3d / _plane0d, and the _g* functions) operation by
 // operation, in the same order, so that a build without FMA contraction
 // (-fmad=false) takes the same accept decisions (the accepted-pair
-// counts match exactly) and the sums agree to the rounding of expf. `pair` returns whether the pair is
-// accepted and, if so, its contribution; a rejected pair adds nothing,
-// as the JAX package's where(ok, ., 0). The header also compiles as
-// plain host C++ (with __host__/__device__ defined away), which is how
-// the CPU tests exercise this source, threefry included.
+// counts match exactly) and the sums agree to the rounding of expf.
+// Beam1D and Beam3D come in the test / base parts of csrc/gsweep.cu's
+// queued sweep, as the gradient functors do; Plane0D's `pair` (for
+// csrc/beam_sweep.cu) returns whether the pair is accepted and, if so,
+// its contribution; a rejected pair adds nothing, as the JAX package's
+// where(ok, ., 0). The header also compiles as plain host C++ (with
+// __host__/__device__ defined away), which is how the CPU tests exercise
+// this source, threefry included.
 #pragma once
 
 #include <stdint.h>
@@ -68,6 +71,9 @@ __host__ __device__ inline Query load_query(const float* r, uint32_t m) {
 struct Params {
   float r2, k;       // r^2; K1 (beam1d) or K3 (beam3d)
   uint32_t tile;     // beam3d's tile of the random layout
+  // Beam1D's pre-test radius^2 (pre_r2 below): +inf lets every pair in the
+  // medium through to the exact test
+  float pre_r2 = INFINITY;
 };
 
 // render/phase.eval_phase from the propagation cosine (warp.hg_pdf,
@@ -178,6 +184,55 @@ __host__ __device__ inline float chord(V3 x, V3 ob, V3 db, float lb,
   return chord_clip(chord_perp(x, ob, db), lb, r2, s0);
 }
 
+// beam3d's test (Beam3D, GBeam3DT): the medium match and the chord test,
+// with no early return. chord's clip (its sqrtf and clamps) runs only
+// where x is within r of the beam's line: elsewhere half is 0 and the
+// chord empty (s0 = max(s_mid, 0) >= min(s_mid, lb) = s1), so the
+// decision is chord's, bit for bit. The threefry word (~123 integer
+// operations) is left to the queued pairs (chord_sample).
+struct Chord {
+  float s0, ch;   // the chord's start and length
+};
+__host__ __device__ inline bool chord_finish(const Perp& h, const Query& q,
+                                             const float* b, const Params& p,
+                                             Chord& g) {
+  g.s0 = 0.0f;
+  g.ch = 0.0f;
+  if (h.pp < p.r2) g.ch = chord_clip(h, b[B_LEN], p.r2, g.s0);
+  return (b[B_MED] == q.med) & (g.ch > 0.0f);
+}
+__host__ __device__ inline bool chord_test(const Query& q, const float* b,
+                                           const Params& p, Chord& g) {
+  return chord_finish(chord_perp(q.o, ld3(b, B_O), ld3(b, B_D)), q, b, p, g);
+}
+// the chord sample of a pair past chord_test: its word us (key: the
+// beam's beam_keys row, counter m * tile + lane), its distance s along
+// the beam, and the point it returns
+__host__ __device__ inline V3 chord_sample(const Query& q, const float* b,
+                                           const int* key, const Params& p,
+                                           const Chord& g, float& us,
+                                           float& s) {
+  us = counter_uniform((uint32_t)key[0], (uint32_t)key[1],
+                       q.m * p.tile + (uint32_t)key[2]);
+  s = g.s0 + us * g.ch;
+  return madd3(ld3(b, B_O), ld3(b, B_D), s);
+}
+
+// Beam1D's pre-test bound. |o|_inf + |length| of a line: a query's, or
+// over a tile of beams max |ob|_inf + max |lb| (NaN propagates).
+__host__ __device__ inline float line_scale(V3 o, float len) {
+  return maximum_(maximum_(fabsf(o.x), fabsf(o.y)), fabsf(o.z)) +
+         fabsf(len);
+}
+// The pre-test's squared radius for a query and beams whose line scales
+// add to at most `scale`: (1.1 r)^2 where the rounding bound of
+// Beam1D::test holds (scale 2^-13 <= r), else +inf (every pair goes on to
+// the exact test; also for a NaN or infinite scale).
+__host__ __device__ inline float pre_r2(float r2, float scale) {
+  const float g = scale * 0x1p-13f;
+  return g * g <= r2 ? 1.21f * r2 : INFINITY;
+}
+
 // Moller-Trumbore of the ray o + t d against the parallelogram po + u0 e0
 // + u1 e1 (intersectPlane0D): false when |det| <= 1e-7, else u0, u1, t
 __host__ __device__ inline bool plane_hit(V3 o, V3 d, V3 po, V3 e0, V3 e1,
@@ -195,59 +250,124 @@ __host__ __device__ inline bool plane_hit(V3 o, V3 d, V3 po, V3 e0, V3 e1,
 }
 
 // ------------------------------------------------------- pair functors
-// pair(q, b, key, p, c): b is the beam row (BW floats), key its
-// beam_keys row (k1, k2, lane, 0; beam3d only). Returns whether the pair
-// is accepted; then c holds its contribution.
+// Beam1D and Beam3D, in the parts of csrc/gsweep.cu's queued sweep:
+// test(q, b, p, g) the sweep's test, run on every pair of a valid query
+// (b: the beam row, BW floats), leaving in g what base reuses; test_u
+// the same test of U beams (b[v]: their first 8 floats, o, d, length,
+// medium), written so that the U tests interleave;
+// base(q, b, key, p, g, s) a queued pair's contribution in s.c (key: the
+// beam's beam_keys row, k1, k2, lane, 0; Beam3D's only), returning
+// whether the pair is accepted. pair_body below strings them together.
 
 struct Beam1D {
-  static constexpr bool RANDOM = false;
-  __host__ __device__ static bool pair(const Query& q, const float* b,
-                                       const int* /*key*/, const Params& p,
-                                       float c[3]) {
-    if (b[B_MED] != q.med) return false;
+  static constexpr bool RANDOM = false, ME = false, PRIMAL = true,
+                        PRETEST = true;
+  static constexpr int NF = 3, NC = 1, NF_SUM = 3;
+  struct Geo {};
+  // The medium match and a pre-test with no division: the squared
+  // distance between the two lines, (w0 . n)^2 / |n|^2 with n = d x db,
+  // against (1.1 r)^2 (p.pre_r2), the pair passed on wherever n . n <= 1e-2
+  // (near-parallel lines). It only rejects pairs that base's exact test
+  // (the plain version's closest approach) rejects, for unit directions
+  // (to a few ulp, as the estimators pack them) and lines whose scales
+  // (line_scale) add to A with A 2^-13 <= r (pre_r2; +inf elsewhere).
+  // Rounding bound, u = 2^-24: the exact test accepts only with
+  // 1e-5 < tc < len and 1e-5 < tb < lb, so every component of o + d tc
+  // and of ob + db tb is within A and their computed difference within
+  // 5.3 u A of the exact one, whose length is at least the lines'
+  // distance D: accepted means D < r (1 + 2u) + 5.3 u A. The computed n
+  // is within 3.5 u of the exact cross product (|n| >= 0.0999 past the
+  // near-parallel test) and w0 within sqrt(3) u A, so the computed w0 . n
+  // is within 13.0 u A of the exact D |n|, and its square stays below
+  // 1.21 r2 n . n as computed whenever 18.3 u A <= 0.00999 r, i.e. A <=
+  // 9,150 r, which the guard's 8,192 r keeps with room for its own
+  // rounding. No early return: the sweep's tests of several beams
+  // interleave.
+  __host__ __device__ static bool test(const Query& q, const float* b,
+                                       const Params& p, Geo& /*g*/) {
+    V3 w0 = sub3(q.o, ld3(b, B_O));
+    V3 n = cross3(q.d, ld3(b, B_D));
+    float s = dot3(w0, n);
+    float nn = dot3(n, n);
+    return (b[B_MED] == q.med) & ((nn <= 1e-2f) | (s * s <= p.pre_r2 * nn));
+  }
+  template <int U>
+  __host__ __device__ static void test_u(const Query& q, const float (*b)[8],
+                                         const Params& p, Geo* g,
+                                         bool* pass) {
+    for (int v = 0; v < U; ++v) pass[v] = test(q, b[v], p, g[v]);
+  }
+  // the exact test of a pair past the pre-test (the plain version's,
+  // with its two IEEE divisions): every value computed and every
+  // condition evaluated
+  __host__ __device__ static bool exact(const Query& q, const float* b,
+                                        const Params& p, Closest& h) {
     V3 ob = ld3(b, B_O), db = ld3(b, B_D);
-    const Closest h = closest(q.o, q.d, ob, db);
-    const float tc = h.tc, tb = h.tb;
-    if (h.parallel || !(tc > 1e-5f) || !(tc < q.len) || !(tb > 1e-5f) ||
-        !(tb < b[B_LEN]))
-      return false;
-    V3 delta = sub3(madd3(q.o, q.d, tc), madd3(ob, db, tb));
-    if (!(dot3(delta, delta) < p.r2)) return false;
+    h = closest(q.o, q.d, ob, db);
+    V3 delta = sub3(madd3(q.o, q.d, h.tc), madd3(ob, db, h.tb));
+    return !h.parallel & (h.tc > 1e-5f) & (h.tc < q.len) & (h.tb > 1e-5f) &
+           (h.tb < b[B_LEN]) & (dot3(delta, delta) < p.r2);
+  }
+  struct Base {
+    float c[3];
+  };
+  __host__ __device__ static bool base(const Query& q, const float* b,
+                                       const int* /*key*/, const Params& p,
+                                       const Geo& /*g*/, Base& s) {
+    Closest h;
+    const bool ok = exact(q, b, p, h);
     float sin_t = sqrtf(cmin_(h.denom, 1e-12f));
     float pf = phase(-h.bb, q.g, q.pt);
-    float s = pf * p.k / (sin_t * cmin_(survival(q, tb), 1e-9f));
+    float sc = pf * p.k / (sin_t * cmin_(survival(q, h.tb), 1e-9f));
     for (int ch = 0; ch < 3; ++ch)
-      c[ch] = b[B_ALPHA + ch] * (s * expf(-q.st[ch] * tc) *
-                                 expf(-q.st[ch] * tb) * q.ss[ch]);
-    return true;
+      s.c[ch] = b[B_ALPHA + ch] * (sc * expf(-q.st[ch] * h.tc) *
+                                   expf(-q.st[ch] * h.tb) * q.ss[ch]);
+    return ok;
   }
 };
 
 struct Beam3D {
-  static constexpr bool RANDOM = true;
-  __host__ __device__ static bool pair(const Query& q, const float* b,
+  static constexpr bool RANDOM = true, ME = false, PRIMAL = true,
+                        PRETEST = false;
+  static constexpr int NF = 3, NC = 1, NF_SUM = 3;
+  using Geo = Chord;
+  __host__ __device__ static bool test(const Query& q, const float* b,
+                                       const Params& p, Geo& g) {
+    return chord_test(q, b, p, g);
+  }
+  // every beam's distance from the line first, then the clips: the clip
+  // is a branch (its sqrtf has a slow path), which the U beams' loads and
+  // products then do not wait for
+  template <int U>
+  __host__ __device__ static void test_u(const Query& q, const float (*b)[8],
+                                         const Params& p, Geo* g,
+                                         bool* pass) {
+    Perp h[U];
+    for (int v = 0; v < U; ++v)
+      h[v] = chord_perp(q.o, ld3(b[v], B_O), ld3(b[v], B_D));
+    for (int v = 0; v < U; ++v) pass[v] = chord_finish(h[v], q, b[v], p, g[v]);
+  }
+  struct Base {
+    float c[3];
+  };
+  // false when the sample falls outside the kernel sphere, which only
+  // rounding at the chord's ends does: the pair then adds nothing
+  __host__ __device__ static bool base(const Query& q, const float* b,
                                        const int* key, const Params& p,
-                                       float c[3]) {
-    if (b[B_MED] != q.med) return false;
-    V3 ob = ld3(b, B_O), db = ld3(b, B_D);
-    float s0;
-    const float ch = chord(q.o, ob, db, b[B_LEN], p.r2, s0);
-    if (!(ch > 0.0f)) return false;
-    float us = counter_uniform((uint32_t)key[0], (uint32_t)key[1],
-                               q.m * p.tile + (uint32_t)key[2]);
-    float s = s0 + us * ch;
-    V3 e = sub3(q.o, madd3(ob, db, s));
-    if (!(dot3(e, e) < p.r2)) return false;
-    float pf = phase(-dot3(db, q.d), q.g, q.pt);
-    float sc = ch * p.k * pf / cmin_(survival(q, s), 1e-9f);
+                                       const Geo& g, Base& s) {
+    float us, sd;
+    const V3 e = sub3(q.o, chord_sample(q, b, key, p, g, us, sd));
+    float pf = phase(-dot3(ld3(b, B_D), q.d), q.g, q.pt);
+    float sc = g.ch * p.k * pf / cmin_(survival(q, sd), 1e-9f);
     for (int ch = 0; ch < 3; ++ch)
-      c[ch] = b[B_ALPHA + ch] * expf(-q.st[ch] * s) * sc;
-    return true;
+      s.c[ch] = b[B_ALPHA + ch] * expf(-q.st[ch] * sd) * sc;
+    return dot3(e, e) < p.r2;
   }
 };
 
+// Plane0D's pair(q, b, key, p, c) (csrc/beam_sweep.cu): whether the pair
+// is accepted; then c holds its contribution.
 struct Plane0D {
-  static constexpr bool RANDOM = false;
   __host__ __device__ static bool pair(const Query& q, const float* b,
                                        const int* /*key*/,
                                        const Params& /*p*/, float c[3]) {
@@ -283,7 +403,7 @@ struct Plane0D {
 
 template <class P>
 struct Primal {
-  static constexpr bool RANDOM = P::RANDOM, ME = false;
+  static constexpr bool ME = false;
   static constexpr int NF = 3, NC = 1, NF_SUM = 3;
   __host__ __device__ static void visit(const Query& q, const float* b,
                                         const int* key, const Params& p,
@@ -426,7 +546,8 @@ __host__ __device__ inline float mis_weight(bool ok_sh, float pr_l,
 
 template <bool ME_>
 struct GBeam1DT {
-  static constexpr bool RANDOM = false, ME = ME_;
+  static constexpr bool RANDOM = false, ME = ME_, PRIMAL = false,
+                        PRETEST = false;
   static constexpr int NF = NF_GRAD, NC = ME ? 4 : 2, NF_SUM = NF_GRAD;
   struct Geo {
     Closest h;
@@ -526,35 +647,16 @@ struct GBeam1DT {
 
 template <bool ME_>
 struct GBeam3DT {
-  static constexpr bool RANDOM = true, ME = ME_;
+  static constexpr bool RANDOM = true, ME = ME_, PRIMAL = false,
+                        PRETEST = false;
   static constexpr int NF = ME ? NF_GRAD + 3 : NF_GRAD, NC = ME ? 4 : 2,
                        NF_SUM = NF_GRAD;
-  struct Geo {
-    float s0, ch;   // the chord's start and length
-  };
-  // the medium match and the chord test, with no early return; the
-  // threefry word (~123 integer operations) is left to base, which runs
-  // on the queued pairs only, 8 of them side by side in a batch. chord's
-  // clip (its sqrtf and clamps) runs only where x is within r of the
-  // beam's line: elsewhere half is 0 and the chord empty (s0 =
-  // max(s_mid, 0) >= min(s_mid, lb) = s1), so the decision is chord's
+  using Geo = Chord;
+  // the chord test (chord_test); the threefry word is left to base, which
+  // runs on the queued pairs only, 8 of them side by side in a batch
   __host__ __device__ static bool test(const Query& q, const float* b,
                                        const Params& p, Geo& g) {
-    const Perp h = chord_perp(q.o, ld3(b, B_O), ld3(b, B_D));
-    g.s0 = 0.0f;
-    g.ch = 0.0f;
-    if (h.pp < p.r2) g.ch = chord_clip(h, b[B_LEN], p.r2, g.s0);
-    return (b[B_MED] == q.med) & (g.ch > 0.0f);
-  }
-  // the chord sample of the pair: its word us, its distance s along the
-  // beam, and the point y it returns
-  __host__ __device__ static V3 sample(const Query& q, const float* b,
-                                       const int* key, const Params& p,
-                                       const Geo& g, float& us, float& s) {
-    us = counter_uniform((uint32_t)key[0], (uint32_t)key[1],
-                         q.m * p.tile + (uint32_t)key[2]);
-    s = g.s0 + us * g.ch;
-    return madd3(ld3(b, B_O), ld3(b, B_D), s);
+    return chord_test(q, b, p, g);
   }
   // gbeam3d_me's chord point of a query's ME pair: the point base placed,
   // by the same code
@@ -563,7 +665,7 @@ struct GBeam3DT {
     Geo g;
     test(q, b, p, g);
     float us, s;
-    return sample(q, b, key, p, g, us, s);
+    return chord_sample(q, b, key, p, g, us, s);
   }
   struct Base {
     float c[3], us, s, surv_b;
@@ -574,7 +676,7 @@ struct GBeam3DT {
   __host__ __device__ static bool base(const Query& q, const float* b,
                                        const int* key, const Params& p,
                                        const Geo& g, Base& s) {
-    const V3 y = sample(q, b, key, p, g, s.us, s.s);
+    const V3 y = chord_sample(q, b, key, p, g, s.us, s.s);
     const V3 e = sub3(q.o, y);
     s.yx = sub3(y, q.o);
     s.surv_b = survival(q, s.s);
@@ -662,7 +764,8 @@ __host__ __device__ inline V3 rodrigues(V3 v, V3 k, float cos_r,
 
 template <bool ME_>
 struct GPlane0DT {
-  static constexpr bool RANDOM = false, ME = ME_;
+  static constexpr bool RANDOM = false, ME = ME_, PRIMAL = false,
+                        PRETEST = false;
   static constexpr int NF = NF_GRAD, NC = ME ? 4 : 2, NF_SUM = NF_GRAD;
   struct Geo {
     float u0, u1, tcam;
@@ -804,7 +907,10 @@ struct GPlane0DT {
 // beam's packed index), reconnected(n) its successful reconnections. A
 // pair that base rejects (GBeam3DT's sample outside the sphere) writes
 // zeros and no visit, as the reference's okb excludes it. The sink keeps
-// one lane's share of each pair's base, visit and ME counts.
+// one lane's share of each pair's base, visit and ME counts. A primal
+// functor's pair (F::PRIMAL: Beam1D, Beam3D) is its base term and visit
+// alone: no tail, no offsets (both may be null), STRIDE 1; a pair that
+// its base rejects (Beam1D's exact test, Beam3D's sample) adds nothing.
 template <class F, int STRIDE, class Sink>
 __host__ __device__ inline void pair_body(const Query& q, const float* b,
                                           const int* key, const float* tail,
@@ -816,24 +922,26 @@ __host__ __device__ inline void pair_body(const Query& q, const float* b,
   const bool me = F::ME && tail[T_RECONN] < -0.5f;
   for (int c = 0; c < 3; ++c) sink.base(c, ok ? s.c[c] : 0.0f);
   sink.visit(ok, me, j);
-  int n_rc = 0;
+  if constexpr (!F::PRIMAL) {
+    int n_rc = 0;
 #pragma unroll 1
-  for (int k = 0; k < 4 / STRIDE; ++k) {
-    const int i = first + k * STRIDE;
-    const float* x = qx + XSTRIDE * i;
-    float c_sh[3] = {0.0f, 0.0f, 0.0f}, w = 0.0f;
-    if (ok) {
-      float pr_l;
-      const bool ok_sh = F::shift(q, b, tail, me, x, p, g, s, c_sh, pr_l);
-      n_rc += (tail[T_RECONN] > 0.5f && ok_sh) ? 1 : 0;
-      w = mis_weight(ok_sh, pr_l, x[X_SENS], x[X_BORDER] > 0.5f);
+    for (int k = 0; k < 4 / STRIDE; ++k) {
+      const int i = first + k * STRIDE;
+      const float* x = qx + XSTRIDE * i;
+      float c_sh[3] = {0.0f, 0.0f, 0.0f}, w = 0.0f;
+      if (ok) {
+        float pr_l;
+        const bool ok_sh = F::shift(q, b, tail, me, x, p, g, s, c_sh, pr_l);
+        n_rc += (tail[T_RECONN] > 0.5f && ok_sh) ? 1 : 0;
+        w = mis_weight(ok_sh, pr_l, x[X_SENS], x[X_BORDER] > 0.5f);
+      }
+      for (int c = 0; c < 3; ++c) {
+        sink.offset(3 + 3 * i + c, w * c_sh[c]);
+        sink.offset(15 + 3 * i + c, ok ? w * s.c[c] : 0.0f);
+      }
     }
-    for (int c = 0; c < 3; ++c) {
-      sink.offset(3 + 3 * i + c, w * c_sh[c]);
-      sink.offset(15 + 3 * i + c, ok ? w * s.c[c] : 0.0f);
-    }
+    sink.reconnected(n_rc);
   }
-  sink.reconnected(n_rc);
 }
 
 using GBeam1D = GBeam1DT<false>;

@@ -1,23 +1,21 @@
-// The pair sweeps of the photon-beam and photon-plane estimators
-// (ops/beam_sweep.py): every camera query against every photon beam or
-// plane, per-pair math in beam_eval.cuh.
+// The photon-plane pair sweep (ops/beam_sweep.py kind plane0d): every
+// camera query against every photon plane, per-pair math in
+// beam_eval.cuh's Plane0D.
 //
-// Replaces the XLA tile loops (lax.scan over all beam slots in tiles of
-// beam_tile) of gvpm_tpu/integrators/estimators.py: beam_beam_gather
-// (:481, beam1d), beam_point_gather (:262, beam3d) and plane_gather
-// (:401, plane0d). The TPU has no kernel for them. The gradient sweeps
-// run on the queued kernel of gsweep.cu.
+// Replaces the XLA tile loop (lax.scan over all plane slots in tiles of
+// beam_tile) of gvpm_tpu/integrators/estimators.py:401 plane_gather. The
+// TPU has no kernel for it. The primal beam sweeps (beam1d, beam3d) and
+// the gradient sweeps run on the queued kernel of gsweep.cu.
 //
-// What bounds it: operations. Each pair reads one beam row from shared
-// memory and does ~50-200 float (beam3d: plus ~110 integer, threefry for
-// the pairs inside the chord test) operations; the beams are read from
+// What bounds it: operations. Each pair reads one plane row from shared
+// memory and does ~23-160 float operations; the planes are read from
 // device memory once per block of queries.
 //
 // Design (simple first): one thread per camera query, BLOCK threads a
-// block; the 16-float beam rows stream through shared memory in tiles of
+// block; the 16-float plane rows stream through shared memory in tiles of
 // TILE_B rows. Each thread keeps its query in registers and adds its
-// accepted pairs into 3 float and 1 integer registers in beam order. To
-// fill the card when queries are few, the beam range is split into
+// accepted pairs into 3 float and 1 integer registers in plane order. To
+// fill the card when queries are few, the plane range is split into
 // `splits` chunks of whole tiles (blockIdx.y); each (split, query)
 // writes its partial sums and counts, and a second kernel adds the
 // splits in order (splits.cuh). No atomics: two launches on the same
@@ -35,12 +33,10 @@ constexpr int TILE_B = 128;  // ops/beam_sweep.TILE_B
 template <class F>
 __global__ void __launch_bounds__(BLOCK)
     sweep_kernel(const float* __restrict__ qrows, long long M,
-                 const float4* __restrict__ brows,
-                 const int4* __restrict__ keys, long long N,
+                 const float4* __restrict__ brows, long long N,
                  beam::Params p, long long chunk, float* __restrict__ part,
                  int* __restrict__ part_cnt) {
   __shared__ float4 sb[TILE_B * beam::BW / 4];
-  __shared__ int4 sk[F::RANDOM ? TILE_B : 1];
   const long long m = (long long)blockIdx.x * BLOCK + threadIdx.x;
   const long long s = blockIdx.y;
   const long long j0 = s * chunk;
@@ -62,14 +58,11 @@ __global__ void __launch_bounds__(BLOCK)
     __syncthreads();
     for (int i = threadIdx.x; i < n * (beam::BW / 4); i += BLOCK)
       sb[i] = brows[t0 * (beam::BW / 4) + i];
-    if (F::RANDOM)
-      for (int i = threadIdx.x; i < n; i += BLOCK) sk[i] = keys[t0 + i];
     __syncthreads();
     if (!live) continue;
     for (int jj = 0; jj < n; ++jj) {
       const float* b = reinterpret_cast<const float*>(&sb[jj * (beam::BW / 4)]);
-      const int* k = F::RANDOM ? reinterpret_cast<const int*>(&sk[jj]) : nullptr;
-      F::visit(q, b, k, p, acc, cnt);
+      F::visit(q, b, nullptr, p, acc, cnt);
     }
   }
   if (m < M) {
@@ -83,14 +76,13 @@ __global__ void __launch_bounds__(BLOCK)
 }
 
 template <class F>
-int launch(const float* q, long long M, const float* rows, const int* keys,
-           long long N, int tile, float r2, float k, int splits,
-           long long chunk, float* part, int* part_cnt, float* out, int* cnt,
+int launch(const float* q, long long M, const float* rows, long long N,
+           int tile, float r2, float k, int splits, long long chunk,
+           float* part, int* part_cnt, float* out, int* cnt,
            cudaStream_t stream) {
   const dim3 grid((unsigned)((M + BLOCK - 1) / BLOCK), (unsigned)splits);
   sweep_kernel<F><<<grid, BLOCK, 0, stream>>>(
-      q, M, reinterpret_cast<const float4*>(rows),
-      reinterpret_cast<const int4*>(keys), N,
+      q, M, reinterpret_cast<const float4*>(rows), N,
       beam::Params{r2, k, (uint32_t)tile}, chunk, part, part_cnt);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -102,17 +94,14 @@ int launch(const float* q, long long M, const float* rows, const int* keys,
 
 }  // namespace
 
-// the C interface gsweep.cu's entries share (tails and qext unused here)
-#define SWEEP_ENTRY(NAME, F)                                                 \
-  extern "C" int gvpm_beam_sweep_##NAME(                                     \
-      const float* q, long long M, const float* rows, const int* keys,       \
-      const float* /*tails*/, const float* /*qext*/, long long N, int tile,  \
-      float r2, float k, int splits, long long chunk, float* part,           \
-      int* part_cnt, float* out, int* cnt, cudaStream_t stream) {            \
-    return launch<F>(q, M, rows, keys, N, tile, r2, k, splits, chunk, part,  \
-                     part_cnt, out, cnt, stream);                            \
-  }
-
-SWEEP_ENTRY(beam1d, beam::Primal<beam::Beam1D>)
-SWEEP_ENTRY(beam3d, beam::Primal<beam::Beam3D>)
-SWEEP_ENTRY(plane0d, beam::Primal<beam::Plane0D>)
+// the C interface gsweep.cu's entries share (keys, tails and qext unused
+// here)
+extern "C" int gvpm_beam_sweep_plane0d(
+    const float* q, long long M, const float* rows, const int* /*keys*/,
+    const float* /*tails*/, const float* /*qext*/, long long N, int tile,
+    float r2, float k, int splits, long long chunk, float* part,
+    int* part_cnt, float* out, int* cnt, cudaStream_t stream) {
+  return launch<beam::Primal<beam::Plane0D>>(q, M, rows, N, tile, r2, k,
+                                             splits, chunk, part, part_cnt,
+                                             out, cnt, stream);
+}

@@ -27,10 +27,11 @@ the host's ME stage resolves that pair (integrators/gradient_gather.py).
 The JAX package leaves these to XLA as dense lax.scan tile loops over
 all beam slots; the TPU has no kernel for them. Here `sweep` / `gsweep`
 launch a CUDA kernel for CUDA tensors and run the plain PyTorch version
-(`sweep_plain` / `gsweep_plain`) only for CPU tensors: the gradient
-kinds (QUEUED) the queued sweep of csrc/gsweep.cu, which tests pairs 32
-lanes to a query and shifts the accepted ones 8 pairs x 4 offsets at a
-time; the primal ones csrc/beam_sweep.cu's one thread a query. Per-pair
+(`sweep_plain` / `gsweep_plain`) only for CPU tensors: beam1d, beam3d
+and the gradient kinds (QUEUED) the queued sweep of csrc/gsweep.cu,
+which tests pairs 32 lanes to a query and runs the ones that pass a
+batch at a time (a primal pair a lane; a gradient pair's shifts 8 pairs
+x 4 offsets); plane0d csrc/beam_sweep.cu's one thread a query. Per-pair
 math for both in csrc/beam_eval.cuh. `sweep` returns
 per query the summed contribution [M,3] and the number of accepted
 pairs [M] (int32); `gsweep` the base sum [M,3], the shifted and the
@@ -38,9 +39,12 @@ MIS-weighted base sums of each offset [4,M,3], the accepted pairs and
 the successful reconnections [M] (int32), all without the camera
 throughputs, which are per query. The work is floating-point (and, for
 beam3d, integer: a threefry word a pair inside the chord test) bound:
-each pair reads a few floats and does 50-200 operations, and the beams
-are read once per tile of queries; a gradient pair that passes the base
-test also reads its beam's gradient tail and its query's offset rays.
+each pair reads a few floats and does 20-40 operations in the test
+(beam1d's a pre-test with no division, which lets ~3% of the pairs on to
+its exact closest-approach test), the few that pass it 50-200 more, and
+the beams are read once per tile of queries; a gradient pair that
+passes the base test also reads its beam's gradient tail and its query's
+offset rays.
 
 Inputs are packed rows: `pack_queries` (one float32 row a camera query,
 QSLOT) and `pack_beams` (the beams or planes that are valid, in stable
@@ -66,6 +70,7 @@ import dataclasses
 import os
 import threading
 
+import numpy as np
 import torch
 
 from . import nvcc
@@ -79,9 +84,9 @@ from ..scene.types import PHASE_HG, PHASE_RAYLEIGH
 KINDS = ("beam1d", "beam3d", "plane0d")
 GKINDS = ("gbeam1d", "gbeam3d", "gplane0d")
 GKINDS_ME = tuple(k + "_me" for k in GKINDS)
-# the kinds csrc/gsweep.cu runs: every gradient kind (the primal ones run
-# on csrc/beam_sweep.cu)
-QUEUED = GKINDS + GKINDS_ME
+# the kinds csrc/gsweep.cu runs: beam1d, beam3d and every gradient kind
+# (plane0d runs on csrc/beam_sweep.cu)
+QUEUED = ("beam1d", "beam3d") + GKINDS + GKINDS_ME
 # kernel launches per kind, counted by the wrapper where it launches
 LAUNCHES = dict.fromkeys(KINDS + GKINDS + GKINDS_ME, 0)
 
@@ -109,7 +114,7 @@ TSLOT = dict(parent_p=0, parent_wi=3, parent_ns=6, scatter_base=9,
 TW = 32
 NF_GRAD = 27         # base 3, S 4 x 3, W 4 x 3 floats a gradient query
 BLOCK = 128          # queries (threads) a block: csrc/beam_sweep.cu
-TILE_B = 128         # beams a shared-memory tile
+TILE_B = 128         # beams a shared-memory tile (also gsweep.cu's)
 TARGET_BLOCKS = 1056  # 8 blocks an SM of 132: beam splits fill the card
 # csrc/gsweep.cu's blocks (of gsweep_shape()["tq"] queries) a launch
 # aims at: about 4,000, so that the blocks that hold valid queries (the
@@ -259,12 +264,60 @@ def _survival(q, t):
     return survival(q.f3("st"), q.f1("w"), t)
 
 
-def _stage(stats, mask):
-    """Count the pairs that pass a pair function's first tests (its
-    second stage runs for them: csrc/beam_eval.cuh returns earlier for
-    the others)."""
+def _stage(stats, mask, name="stage2"):
+    """Count the pairs that pass a pair function's first tests (stage2:
+    its second stage runs for them) or its kernel's test (pretest,
+    PRETESTS)."""
     if stats is not None:
-        stats["stage2"] = stats.get("stage2", 0) + int(mask.sum())
+        stats[name] = stats.get(name, 0) + int(mask.sum())
+
+
+def _tile_scales(rows):
+    """Each beam's tile scale for Beam1D's pre-test guard (csrc/
+    beam_eval.cuh line_scale, pre_r2): over its tile of TILE_B rows
+    (csrc/gsweep.cu's tiles start at multiples of TILE_B), max |ob|_inf
+    + max |length|."""
+    N = rows.shape[0]
+    pad = (-N) % TILE_B
+
+    def tile_max(a):
+        return torch.nn.functional.pad(a, (0, pad)).reshape(
+            -1, TILE_B).amax(1).repeat_interleave(TILE_B)[:N]
+
+    o = BSLOT["o"]
+    return (tile_max(rows[:, o:o + 3].abs().amax(1))
+            + tile_max(rows[:, BSLOT["length"]].abs()))
+
+
+def _pretest_beam1d(q, b, p, tile_scale):
+    """Beam1D::test, the pre-test with no division, as the kernel runs
+    it: the squared line distance against (1.1 r)^2, or against +inf
+    where the query's line scale and its beam tile's add to A with (A
+    2^-13)^2 > r2 (its guard), near-parallel lines passed on."""
+    oc, dc, ob, db = q.f3("o"), q.f3("d"), b.f3("o"), b.f3("d")
+    n = _cross3(dc, db)
+    s, nn = _dot3(_sub3(oc, ob), n), _dot3(n, n)
+    g = (torch.maximum(torch.maximum(oc[0].abs(), oc[1].abs()), oc[2].abs())
+         + q.f1("length").abs() + tile_scale.reshape(1, -1)) * 2.0 ** -13
+    pre_r2 = torch.where(g * g <= p.r2, float(np.float32(1.21)
+                                              * np.float32(p.r2)),
+                         float("inf"))
+    return (q.b1("valid") & (q.f1("med") == b.f1("med"))
+            & ((nn <= 1e-2) | (s * s <= pre_r2 * nn)))
+
+
+def _pretest_beam3d(q, b, p, tile_scale):
+    """Beam3D::test's first half: the pairs whose query lies within r of
+    the beam's line, whose chord the kernel clips."""
+    x, ob, db = q.f3("o"), b.f3("o"), b.f3("d")
+    rel = _sub3(x, ob)
+    s_mid = _dot3(rel, db)
+    perp = _sub3(rel, tuple(c * s_mid for c in db))
+    return (q.b1("valid") & (q.f1("med") == b.f1("med"))
+            & (_dot3(perp, perp) < p.r2))
+
+
+PRETESTS = dict(beam1d=_pretest_beam1d, beam3d=_pretest_beam3d)
 
 
 def _closest(oc, dc, ob, db):
@@ -391,13 +444,17 @@ def sweep_plain(kind, q, rows, p: Params, stats=None):
     queries and beams in chunks of at most PLAIN_MAX_PAIRS pairs, summed
     per query. `stats`, when given, receives the number of pairs that
     reach the pair function's second stage ("stage2"; for beam3d the
-    pairs that draw a threefry word). Returns (sums [M,3] float32,
+    pairs that draw a threefry word) and of those that pass the kernel's
+    test ("pretest", PRETESTS: beam1d's pre-test with its guard, beam3d's
+    pairs within r of the beam's line). Returns (sums [M,3] float32,
     accepted pairs [M] int32)."""
     M, N = q.shape[0], rows.shape[0]
     dev = q.device
     acc = torch.zeros((M, 3), dtype=torch.float32, device=dev)
     cnt = torch.zeros((M,), dtype=torch.int64, device=dev)
     fn = PAIRS[kind]
+    pre = PRETESTS.get(kind) if stats is not None else None
+    scales = _tile_scales(rows) if pre is not None else None
     tb = max(1, min(N, max(256, PLAIN_MAX_PAIRS // max(M, 1))))
     mc = max(1, min(M, PLAIN_MAX_PAIRS // tb))
     for m0 in range(0, M, mc):
@@ -407,6 +464,8 @@ def sweep_plain(kind, q, rows, p: Params, stats=None):
             pp = dataclasses.replace(p, keys=p.keys[j0:j0 + tb]) \
                 if p.keys is not None else p
             ok, contrib = fn(qc, bc, pp, m0, stats=stats)
+            if pre is not None:
+                _stage(stats, pre(qc, bc, p, scales[j0:j0 + tb]), "pretest")
             acc[m0:m0 + mc] += torch.stack(
                 [torch.where(ok, c, 0.0).sum(1) for c in contrib], dim=1)
             cnt[m0:m0 + mc] += ok.sum(1)
@@ -887,6 +946,10 @@ def build():
             fn.argtypes = [vp, i64, vp, vp, vp, vp, i64, i32, f32, f32, i32,
                            i64, vp, vp, vp, vp, vp]
             fn.restype = ctypes.c_int
+        for kind in QUEUED:
+            fn = getattr(libs["gsweep"], f"gvpm_gsweep_blocks_per_sm_{kind}")
+            fn.argtypes = [vp]
+            fn.restype = ctypes.c_int
         libs["gsweep"].gvpm_gsweep_shape.argtypes = [vp]
         libs["gsweep"].gvpm_gsweep_shape.restype = None
         _LIB["libs"] = libs
@@ -899,20 +962,35 @@ def _library(kind):
 
 def gsweep_shape():
     """csrc/gsweep.cu's launch shape, read from the built library:
-    dict(tq, warps, tile_b, batch, ring, min_blocks, carry, sweep_u)."""
-    out = (ctypes.c_int * 8)()
+    dict(tq, warps, tile_b, batch, ring, min_blocks, carry, sweep_u, and
+    the primal kinds' p_tq, p_min_blocks, p_sweep_u, p_ring; a primal
+    batch is 32 pairs, one a lane)."""
+    out = (ctypes.c_int * 12)()
     build()["gsweep"].gvpm_gsweep_shape(out)
     return dict(zip(("tq", "warps", "tile_b", "batch", "ring",
-                     "min_blocks", "carry", "sweep_u"), out))
+                     "min_blocks", "carry", "sweep_u", "p_tq",
+                     "p_min_blocks", "p_sweep_u", "p_ring"), out))
+
+
+def warps_per_sm(kind):
+    """Warps of csrc/gsweep.cu's kernel for queued `kind` that one SM
+    holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = (ctypes.c_int * 1)()
+    err = getattr(build()["gsweep"], f"gvpm_gsweep_blocks_per_sm_{kind}")(n)
+    if err != 0:
+        raise RuntimeError(f"gsweep occupancy of {kind}: CUDA error {err}")
+    return n[0] * gsweep_shape()["warps"]
 
 
 def build_report():
     """ptxas's resources of each kind's sweep kernel instantiation
-    (beam_sweep.cu's sweep_kernel<Pair>, gsweep.cu's gsweep_kernel<F>):
-    {kind: dict(registers, spill_stores, spill_loads, stack, smem)}."""
+    (beam_sweep.cu's sweep_kernel<Primal<Plane0D>>, gsweep.cu's
+    gsweep_kernel<F>): {kind: dict(registers, spill_stores, spill_loads,
+    stack, smem)}."""
     build()
-    # mangled names: the primal ones as Primal<Beam1D>, the gradient ones
-    # as GBeam1DT<false> ("ILb0E") and GBeam1DT<true> ("ILb1E") etc.
+    # mangled names: the primal ones as Beam1D, Primal<Plane0D>, the
+    # gradient ones as GBeam1DT<false> ("ILb0E") and GBeam1DT<true>
+    # ("ILb1E") etc.
     tags = {f"{t}TILb{int(me)}E": k + ("_me" if me else "")
             for t, k in (("GBeam1D", "gbeam1d"), ("GBeam3D", "gbeam3d"),
                          ("GPlane0D", "gplane0d")) for me in (True, False)}
@@ -939,10 +1017,12 @@ def split_plan(M, N, block=BLOCK, tile=TILE_B, target=TARGET_BLOCKS):
     return -(-N // chunk), chunk
 
 
-def gsplit_plan(M, N):
-    """split_plan for csrc/gsweep.cu's blocks and beam tiles."""
+def gsplit_plan(M, N, kind):
+    """split_plan for csrc/gsweep.cu's blocks (of the primal kinds' p_tq
+    queries or the gradient kinds' tq) and beam tiles."""
     shape = gsweep_shape()
-    return split_plan(M, N, shape["tq"], shape["tile_b"], GTARGET_BLOCKS)
+    tq = shape["p_tq" if kind in KINDS else "tq"]
+    return split_plan(M, N, tq, shape["tile_b"], GTARGET_BLOCKS)
 
 
 def launch_kernel(kind, q, rows, p: Params, qx=None, tails=None):
@@ -989,7 +1069,7 @@ def launch_kernel(kind, q, rows, p: Params, qx=None, tails=None):
         if nc == 4:
             cnt[:, 2] = ME_NONE
         return out, cnt if grad else cnt[:, 0]
-    splits, chunk = gsplit_plan(M, N) if kind in QUEUED \
+    splits, chunk = gsplit_plan(M, N, kind) if kind in QUEUED \
         else split_plan(M, N)
     # the splits' partial sums (not gbeam3d_me's chord point)
     part = torch.empty((splits, M, NF_GRAD if grad else 3),

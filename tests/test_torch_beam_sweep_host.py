@@ -1,13 +1,20 @@
-"""The beam/plane sweep kernel's own per-pair math (gvpm_tpu_torch/csrc/
+"""The beam/plane sweep kernels' own per-pair math (gvpm_tpu_torch/csrc/
 beam_eval.cuh), compiled as host C++ with g++ and driven from ctypes,
 against the plain PyTorch version of ops/beam_sweep.py on the sweep
 inputs of one 16x16 SPPM pass of each estimator (tests/
 test_torch_common.py's config), and its threefry against
-core/rng.uniform bit for bit. The host loop visits the pairs as one
-kernel thread does: each query against every beam in order. This is the
-only way the CUDA source's math runs before it reaches the card. Bar:
-accepted-pair counts exactly equal; sums at rtol 2e-4 / atol 5e-6 (the
-order of the sums and the rounding of expf differ)."""
+core/rng.uniform bit for bit. The host loop visits each query against
+every beam in order (beam1d / beam3d through their test and base parts,
+plane0d through its pair, as one thread of csrc/beam_sweep.cu does);
+beam1d and beam3d also run in csrc/gsweep.cu's queued order
+(test_torch_common.QUEUED_HOST_CPP), on those inputs and on
+chip_smoke.beam_stress_inputs (beam1d's also moved far from the origin,
+where its pre-test's guard is just held and where it is exceeded). The
+text variants of tools/sweep_variants.py are checked against the
+sources. This is the only way the CUDA source's
+math runs before it reaches the card. Bar: accepted-pair counts exactly
+equal; sums at rtol 2e-4 / atol 5e-6 (the order of the sums and the
+rounding of expf differ)."""
 
 import ctypes
 import os
@@ -22,8 +29,12 @@ from gvpm_tpu_torch.core import rng
 from gvpm_tpu_torch.core.config import PhotonConfig
 from gvpm_tpu_torch.integrators import sppm
 from gvpm_tpu_torch.ops import beam_sweep as bs
+from chip_smoke import BEAM1D_FAR_SHIFTS, beam_stress_inputs
 from tests.test_torch_common import (torch_threads,  # noqa: F401
-                                     N_PHOTONS, SIDE, SPPM_KW)
+                                     N_PHOTONS, QUEUED_HOST_CPP, SIDE,
+                                     SPPM_KW, build_host_library,
+                                     gsweep_source_shape,
+                                     queued_against_plain)
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "gvpm_tpu_torch", "csrc")
@@ -32,6 +43,25 @@ HOST_CPP = r"""
 #define __host__
 #define __device__
 #include "beam_eval.cuh"
+// a test / base functor's pair (Beam1D, Beam3D): its test (Beam1D's
+// pre-test guarded by the query's and the beam's line scales), then its
+// base
+template <class F>
+struct Parts {
+  static bool pair(const beam::Query& q, const float* b, const int* key,
+                   const beam::Params& p, float c[3]) {
+    beam::Params g = p;
+    g.pre_r2 = beam::pre_r2(p.r2, beam::line_scale(q.o, q.len) +
+                                      beam::line_scale(beam::ld3(b, beam::B_O),
+                                                       b[beam::B_LEN]));
+    typename F::Geo geo;
+    typename F::Base s;
+    if (!F::test(q, b, g, geo) || !F::base(q, b, key, p, geo, s))
+      return false;
+    for (int ch = 0; ch < 3; ++ch) c[ch] = s.c[ch];
+    return true;
+  }
+};
 template <class F>
 static void run(const float* q, long long M, const float* rows,
                 const int* keys, long long N, beam::Params p, float* out,
@@ -58,8 +88,9 @@ extern "C" void host_sweep(int kind, const float* q, long long M,
                            int tile, float r2, float k, float* out,
                            int* cnt) {
   beam::Params p{r2, k, (uint32_t)tile};
-  if (kind == 0) run<beam::Beam1D>(q, M, rows, keys, N, p, out, cnt);
-  else if (kind == 1) run<beam::Beam3D>(q, M, rows, keys, N, p, out, cnt);
+  if (kind == 0) run<Parts<beam::Beam1D>>(q, M, rows, keys, N, p, out, cnt);
+  else if (kind == 1)
+    run<Parts<beam::Beam3D>>(q, M, rows, keys, N, p, out, cnt);
   else run<beam::Plane0D>(q, M, rows, keys, N, p, out, cnt);
 }
 extern "C" void host_uniform(unsigned k0, unsigned k1, long long n,
@@ -140,6 +171,87 @@ def test_host_compiled_pair_math_matches_plain(host_lib, sweep_inputs, kind):
     # the second stage (beam3d: the threefry words) runs for a small
     # share of the pairs
     assert int(want_cnt.sum()) <= stats["stage2"] < q.shape[0] * rows.shape[0]
+    if kind != "plane0d":
+        # the kernel's test lets through every accepted pair and few
+        # others
+        assert int(want_cnt.sum()) <= stats["pretest"] \
+            < q.shape[0] * rows.shape[0] // 4
+
+
+@pytest.fixture(scope="module")
+def queued_lib(tmp_path_factory):
+    return build_host_library(tmp_path_factory, QUEUED_HOST_CPP)
+
+
+@pytest.mark.parametrize("kind", ("beam1d", "beam3d"))
+def test_queued_order_matches_plain(queued_lib, sweep_inputs, kind):
+    """csrc/gsweep.cu's order (a warp's 32 lanes testing a query against
+    32 x SWEEP_U beams, the ring, batches of a pair a lane) at the
+    source's shape, in one split and in splits of one beam tile."""
+    assert kind in bs.QUEUED
+    want = queued_against_plain(queued_lib, kind, sweep_inputs[kind])
+    assert int(want[1].sum()) > 50
+
+
+# the stress inputs: each kind's, and beam1d's moved far from the origin
+STRESS = [pytest.param(kind, 0.0, id=kind) for kind in ("beam1d", "beam3d")] \
+    + [pytest.param("beam1d", s, id=f"beam1d-moved-{s:g}")
+       for s in BEAM1D_FAR_SHIFTS]
+
+
+@pytest.mark.parametrize("kind, shift", STRESS)
+def test_queued_order_on_stress_input(queued_lib, kind, shift):
+    """A hot query accepting 800 beams over seven beam tiles (its pairs
+    wrap the ring many times and straddle the splits), beams within 1% of
+    r, beams inside the pre-test's margin that the exact test rejects,
+    near-parallel and parallel beams (beam1d), grazing beams whose chord
+    samples base rejects (beam3d), ragged counts, invalid queries and a
+    medium mismatch. beam1d's input moved by `shift` along each axis puts
+    its lines' scales A (a query's and a beam tile's, csrc/beam_eval.cuh
+    line_scale) just inside the pre-test's guard (A < 8,192 r, where the
+    pre-test's rounding bound is tightest) or all past it (the pre-test
+    radius is +inf: every pair goes on to the exact test)."""
+    q, rows, p, hot = beam_stress_inputs(kind, shift=shift)
+    stats = {}
+    want = queued_against_plain(queued_lib, kind, (q, rows, p), stats=stats)
+    shape = gsweep_source_shape()
+    assert int(want[1][hot]) >= 800 > 3 * shape["tile_b"]
+    assert q.shape[0] % shape["tq"] != 0
+    assert rows.shape[0] % shape["tile_b"] != 0
+    assert int(want[1][q[:, bs.QSLOT["valid"]] < 0.5].sum()) == 0
+    # pairs the kernel's test passes on and base rejects: beam1d's margin
+    # (and its near-parallel beams), beam3d's grazing chords
+    accepted = int(want[1].sum())
+    assert stats["pretest"] > accepted + 40
+    if kind == "beam3d":
+        assert stats["stage2"] > accepted
+    if shift:
+        assert shape["tile_b"] == bs.TILE_B
+        o, r = bs.QSLOT["o"], p.r2 ** 0.5
+        valid = q[:, bs.QSLOT["valid"]] > 0.5
+        scale = (q[valid, o:o + 3].abs().amax(1)
+                 + q[valid, bs.QSLOT["length"]].abs())[:, None] \
+            + bs._tile_scales(rows)[None, :]
+        same = int((valid[:, None] & (q[:, bs.QSLOT["med"]][:, None]
+                                      == rows[:, bs.BSLOT["med"]])).sum())
+        if shift == min(BEAM1D_FAR_SHIFTS):
+            assert 7900 * r < float(scale.min()) \
+                <= float(scale.max()) < 8192 * r
+            assert stats["pretest"] < same // 4
+        else:
+            assert float(scale.min()) > 8192 * r
+            assert stats["pretest"] == same
+
+
+def test_sweep_variants_apply_to_the_sources():
+    """Each text variant of tools/sweep_variants.py matches one place of
+    csrc/gsweep.cu and its headers, so that none is timed as a silent
+    copy of the base."""
+    from gvpm_tpu_torch.tools import sweep_variants as sv
+    for name in sv.VARIANTS:
+        texts = sv.variant_sources(name, CSRC)
+        assert (name == "base") == all(
+            texts[f] == open(os.path.join(CSRC, f)).read() for f in texts)
 
 
 def test_host_threefry_matches_rng_uniform(host_lib):

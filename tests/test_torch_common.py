@@ -434,30 +434,35 @@ def port_beam_me_gather(kind, scene, inp, seg_tile, budget):
 
 
 # ---------------------------------------------------------------------------
-# the queued gradient sweeps (csrc/gsweep.cu) on the host
+# the queued sweeps (csrc/gsweep.cu) on the host
 # ---------------------------------------------------------------------------
-# beam_eval.cuh's test / base / shift parts, compiled with g++ (with
-# __host__ / __device__ defined away) and driven in two orders: each
-# query against every beam, as the plain version visits them
-# (plain_order), and csrc/gsweep.cu's (queued): blocks of TQ queries,
-# beam splits of `chunk`, tiles of TILE_B; warp w takes the queries w, w
-# + WARPS, ... of its block, tests them against each tile 32 x SWEEP_U
-# beams a step, queues the passing pairs in its ring (which lives on
-# across tiles) and runs them `batch` at a time (32 / batch lanes a pair,
-# lane group g taking offsets g, g + 32 / batch, ...; only group 0 counts
-# the base term and the visit), the block's last batch partial; then the
-# splits are added in order, the ME keys reduced by min, and gbeam3d_me's
-# chord points recomputed from the final keys (the card's key_points;
-# gbeam3d's beam keys and tile ride along as on the card). The sums are
-# taken pair after pair into the query's accumulator: the card's term
-# buffer, added column by column in ring order, and its ring indexing
-# modulo RING are not modelled here and are held only on the card
-# (chip_smoke.py [gbeams-stress] and the gpu-marked tests, at the split
-# plan and in one split).
+# beam_eval.cuh's test / base / shift parts (the primal Beam1D / Beam3D:
+# test / base), compiled with g++ (with __host__ / __device__ defined
+# away) and driven in two orders: each query against every beam, as the
+# plain version visits them (plain_order; Beam1D's pre-test guarded by
+# the pair's own line scales), and csrc/gsweep.cu's (queued): blocks of
+# TQ queries, beam splits of `chunk`, tiles of TILE_B; warp w takes the
+# queries w, w + WARPS, ... of its block, tests them against each tile 32
+# x SWEEP_U beams a step (Beam1D's pre-test guarded by the query's and
+# the tile's line scales, as on the card), queues the passing pairs in
+# its ring (which lives on across tiles) and runs them `batch` at a time
+# (32 / batch lanes a pair, lane group g taking offsets g, g + 32 /
+# batch, ...; only group 0 counts the base term and the visit; a primal
+# batch is 32 pairs, one lane each), the block's last batch partial; then
+# the splits are added in order, the ME keys reduced by min, and
+# gbeam3d_me's chord points recomputed from the final keys (the card's
+# key_points; beam3d's beam keys and tile ride along as on the card). The
+# sums are taken pair after pair into the query's accumulator: the card's
+# term buffer, added column by column in ring order, its ring indexing
+# modulo RING, and beam1d's second ring (the exact test's batches, which
+# keep the accepted pairs in ring order) are not modelled here and are
+# held only on the card (chip_smoke.py [beams-stress], [gbeams-stress]
+# and the gpu-marked tests, at the split plan and in one split).
 QUEUED_HOST_CPP = r"""
 #define __host__
 #define __device__
 #include <algorithm>
+#include <cmath>
 #include <utility>
 #include <vector>
 #include "beam_eval.cuh"
@@ -479,8 +484,27 @@ struct HostSink {
   void reconnected(int n) { cnt[1] += n; }
 };
 
+template <class T>
+static const T* row(const T* a, long long j, int width) {
+  return a ? a + j * width : nullptr;
+}
 static const int* key_row(const int* keys, long long j) {
-  return keys ? keys + 4 * j : nullptr;
+  return row(keys, j, 4);
+}
+
+// Beam1D's pre-test radius^2 for a query and the beam rows [j0, j1): the
+// kernel's guard from their line scales (beam_eval.cuh pre_r2)
+static beam::Params guarded(const beam::Params& p, const beam::Query& q,
+                            const float* rows, long long j0, long long j1) {
+  float so = 0.0f, sl = 0.0f;
+  for (long long j = j0; j < j1; ++j) {
+    const float* b = rows + j * beam::BW;
+    so = beam::maximum_(so, beam::line_scale(beam::ld3(b, beam::B_O), 0.0f));
+    sl = beam::maximum_(sl, std::fabs(b[beam::B_LEN]));
+  }
+  beam::Params g = p;
+  g.pre_r2 = beam::pre_r2(p.r2, beam::line_scale(q.o, q.len) + (so + sl));
+  return g;
 }
 
 // gbeam3d_me's epilogue (gsweep.cu's key_points): the chord point of each
@@ -514,13 +538,15 @@ static void plain_order(const float* q, long long M, const float* rows,
     if (qq.valid)
       for (long long j = 0; j < N; ++j) {
         typename F::Geo g;
-        if (!F::test(qq, rows + j * beam::BW, p, g)) continue;
+        if (!F::test(qq, rows + j * beam::BW, guarded(p, qq, rows, j, j + 1),
+                     g))
+          continue;
         HostSink sink{acc, c, true};
         beam::pair_body<F, 1>(qq, rows + j * beam::BW, key_row(keys, j),
-                              tails + j * beam::TW, qx + m * beam::XW, p, g,
-                              0, (int)j, sink);
+                              row(tails, j, beam::TW), row(qx, m, beam::XW),
+                              p, g, 0, (int)j, sink);
       }
-    for (int f = 0; f < beam::NF_GRAD; ++f) out[m * F::NF + f] = acc[f];
+    for (int f = 0; f < F::NF_SUM; ++f) out[m * F::NF + f] = acc[f];
     for (int k = 0; k < F::NC; ++k) cnt[m * F::NC + k] = c[k];
   }
   key_points<F>(q, M, rows, keys, p, out, cnt);
@@ -531,7 +557,7 @@ static int queued(const float* q, long long M, const float* rows,
                   const int* keys, const float* tails, const float* qx,
                   long long N, beam::Params p, int tq, int warps, int tile_b,
                   int step, long long chunk, float* out, int* cnt) {
-  constexpr int NF = beam::NF_GRAD, BATCH = 32 / STRIDE;
+  constexpr int NF = F::NF_SUM, BATCH = 32 / STRIDE;
   const long long splits = (N + chunk - 1) / chunk;
   std::vector<float> part(splits * M * NF, 0.0f);
   std::vector<int> pc(splits * M * 4, 0);
@@ -558,8 +584,8 @@ static int queued(const float* q, long long M, const float* rows,
               HostSink sink{acc + qi * NF, c + qi * 4, grp == 0};
               beam::pair_body<F, STRIDE>(qq, rows + j * beam::BW,
                                          key_row(keys, j),
-                                         tails + j * beam::TW,
-                                         qx + (q0 + qi) * beam::XW, p, g,
+                                         row(tails, j, beam::TW),
+                                         row(qx, q0 + qi, beam::XW), p, g,
                                          grp, (int)j, sink);
             }
           lo += n;
@@ -570,11 +596,12 @@ static int queued(const float* q, long long M, const float* rows,
             const beam::Query qq =
                 beam::load_query(q + (q0 + qi) * beam::QW, (uint32_t)(q0 + qi));
             if (!qq.valid) continue;
+            const beam::Params pq = guarded(p, qq, rows, t0, t0 + n);
             for (int u = 0; u < n; u += step) {
               for (int lane = 0; lane < step && u + lane < n; ++lane) {
                 const long long j = t0 + u + lane;
                 typename F::Geo g;
-                if (F::test(qq, rows + j * beam::BW, p, g))
+                if (F::test(qq, rows + j * beam::BW, pq, g))
                   ring.push_back({qi, j});
               }
               most = std::max(most, (int)(ring.size() - lo));
@@ -606,12 +633,14 @@ static int queued(const float* q, long long M, const float* rows,
 }
 
 #define QUEUED_KINDS(X)            \
-  X(0, beam::GBeam1D)              \
-  X(1, beam::GBeam3D)              \
-  X(2, beam::GPlane0D)             \
-  X(3, beam::GBeam1DME)            \
-  X(4, beam::GBeam3DME)            \
-  X(5, beam::GPlane0DME)
+  X(0, beam::Beam1D)               \
+  X(1, beam::Beam3D)               \
+  X(2, beam::GBeam1D)              \
+  X(3, beam::GBeam3D)              \
+  X(4, beam::GPlane0D)             \
+  X(5, beam::GBeam1DME)            \
+  X(6, beam::GBeam3DME)            \
+  X(7, beam::GPlane0DME)
 
 extern "C" void host_plain_order(int kind, const float* q, long long M,
                                  const float* rows, const int* keys,
@@ -648,7 +677,8 @@ extern "C" int host_queued(int kind, int batch, const float* q, long long M,
 
 def gsweep_source_shape():
     """csrc/gsweep.cu's launch shape as its source states it: dict(tq,
-    warps, tile_b, batch, ring, sweep_u)."""
+    warps, tile_b, batch, ring, sweep_u, p_tq, p_sweep_u, p_ring; a
+    primal batch is 32 pairs, one a lane)."""
     import os
     import re
     path = os.path.join(os.path.dirname(os.path.dirname(
@@ -659,15 +689,22 @@ def gsweep_source_shape():
                                      text).group(1))
             for k, name in (("tq", "TQ"), ("warps", "WARPS"),
                             ("tile_b", "TILE_B"), ("batch", "BATCH"),
-                            ("ring", "RING"), ("sweep_u", "SWEEP_U"))}
+                            ("ring", "RING"), ("sweep_u", "SWEEP_U"),
+                            ("p_tq", "P_TQ"), ("p_sweep_u", "P_SWEEP_U"),
+                            ("p_ring", "P_RING"))}
 
 
-def build_host_library(tmp_path_factory, name, cpp):
+def build_host_library(tmp_path_factory, cpp):
     """`cpp` compiled with g++ against gvpm_tpu_torch/csrc into a shared
     library (no FMA contraction, as the kernels' -fmad=false) and loaded;
-    skips without g++. host_plain_order / host_queued get their
-    argument types when `cpp` holds QUEUED_HOST_CPP."""
+    skips without g++. The library is built once a test session, under a
+    digest of `cpp` and the sources, and shared by the modules and the
+    xdist workers that ask for it (QUEUED_HOST_CPP: three modules).
+    host_plain_order / host_queued get their argument types when `cpp`
+    holds QUEUED_HOST_CPP."""
     import ctypes
+    import fcntl
+    import hashlib
     import os
     import shutil
     import subprocess
@@ -675,13 +712,27 @@ def build_host_library(tmp_path_factory, name, cpp):
         pytest.skip("g++ is not installed")
     csrc = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "gvpm_tpu_torch", "csrc")
-    d = tmp_path_factory.mktemp(name)
-    src = d / "host.cpp"
-    src.write_text(cpp)
+    digest = hashlib.sha256(cpp.encode())
+    for f in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, f), "rb") as fh:
+            digest.update(f.encode() + b"\0" + fh.read())
+    # an xdist worker's base directory lies in the session's
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    d = root / f"host-{digest.hexdigest()[:16]}"
     so = d / "libhost.so"
-    subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off",
-                    "-fPIC", "-shared", "-I", csrc, str(src), "-o",
-                    str(so)], check=True, capture_output=True)
+    d.mkdir(exist_ok=True)
+    with open(d / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            src = d / "host.cpp"
+            src.write_text(cpp)
+            tmp = d / "libhost.so.part"
+            subprocess.run(["g++", "-std=c++17", "-O2", "-ffp-contract=off",
+                            "-fPIC", "-shared", "-I", csrc, str(src), "-o",
+                            str(tmp)], check=True, capture_output=True)
+            os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                          ctypes.c_int)
@@ -698,30 +749,41 @@ def build_host_library(tmp_path_factory, name, cpp):
 
 def host_queued_sweep(lib, kind, args, batch=None, chunk=None):
     """gsweep.cu's order on the host for queued kind `kind` (beam_sweep.
-    QUEUED) on gsweep's arguments (q, qx, rows, tails, params); batch and
-    chunk default to the source's batch and one split. Returns (gsweep's
-    tuple, the most pairs the ring held at once), or with batch=0 the
-    plain order's tuple and None."""
+    QUEUED) on sweep's arguments (q, rows, params; a gradient kind
+    gsweep's: q, qx, rows, tails, params); batch and chunk default to the
+    source's batch for the kind and one split. Returns (sweep's or
+    gsweep's tuple, the most pairs the ring held at once), or with
+    batch=0 the plain order's tuple and None."""
     from gvpm_tpu_torch.ops import beam_sweep as bs
-    q, qx, rows, tails, p = args
+    primal = kind in bs.KINDS
+    if primal:
+        (q, rows, p), qx, tails = args, None, None
+    else:
+        q, qx, rows, tails, p = args
     M, N = q.shape[0], rows.shape[0]
-    nf, nc = bs._widths(kind)
+    nf, nc = (3, 1) if primal else bs._widths(kind)
     out = torch.zeros((M, nf))
     cnt = torch.zeros((M, nc), dtype=torch.int32)
     i = bs.QUEUED.index(kind)
     keys = None if p.keys is None else p.keys.contiguous()
     ptrs = (q.data_ptr(), M, rows.data_ptr(),
-            None if keys is None else keys.data_ptr(), tails.data_ptr(),
-            qx.data_ptr(), N, int(p.tile), float(p.r2), float(p.k))
+            None if keys is None else keys.data_ptr(),
+            None if primal else tails.data_ptr(),
+            None if primal else qx.data_ptr(), N, int(p.tile), float(p.r2),
+            float(p.k))
     most = None
     if batch == 0:
         lib.host_plain_order(i, *ptrs, out.data_ptr(), cnt.data_ptr())
     else:
         shape = gsweep_source_shape()
-        most = lib.host_queued(i, batch or shape["batch"], *ptrs,
-                               shape["tq"], shape["warps"], shape["tile_b"],
-                               32 * shape["sweep_u"], chunk or max(N, 1),
-                               out.data_ptr(), cnt.data_ptr())
+        pre = "p_" if primal else ""
+        most = lib.host_queued(
+            i, batch or (32 if primal else shape["batch"]), *ptrs,
+            shape[pre + "tq"], shape["warps"], shape["tile_b"],
+            32 * shape[pre + "sweep_u"], chunk or max(N, 1), out.data_ptr(),
+            cnt.data_ptr())
+    if primal:
+        return (out, cnt[:, 0]), most
     return bs._grad_out(out, cnt), most
 
 
@@ -738,15 +800,29 @@ def hold_gsweep(got, want):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=5e-6, msg=name)
 
 
-def queued_against_plain(lib, kind, args, batch):
+def hold_sweep(got, want):
+    """sweep tuples: the accepted-pair counts exactly, the sums at rtol
+    2e-4 / atol 5e-6."""
+    assert torch.equal(got[1], want[1]), "accepted pairs"
+    torch.testing.assert_close(got[0], want[0], rtol=2e-4, atol=5e-6)
+
+
+def queued_against_plain(lib, kind, args, batch=None, stats=None):
     """The queued order (one split, then splits of one beam tile) against
-    gsweep_plain; the ring never holds more than a partial batch and one
-    sweep step of 32 x SWEEP_U beams. Returns the plain outputs."""
+    the plain version (gsweep_plain; a primal kind's sweep_plain, whose
+    stats land in `stats`); the ring never holds more than a partial
+    batch and one sweep step of 32 x SWEEP_U beams. Returns the plain
+    outputs."""
     from gvpm_tpu_torch.ops import beam_sweep as bs
-    want = bs.gsweep_plain(kind, *args)
+    primal = kind in bs.KINDS
+    want = bs.sweep_plain(kind, *args, stats=stats) if primal \
+        else bs.gsweep_plain(kind, *args)
     shape = gsweep_source_shape()
+    pre = "p_" if primal else ""
+    batch = batch or (32 if primal else shape["batch"])
     for chunk in (None, shape["tile_b"]):
         got, most = host_queued_sweep(lib, kind, args, batch, chunk)
-        hold_gsweep(got, want)
-        assert most <= batch - 1 + 32 * shape["sweep_u"] <= shape["ring"]
+        (hold_sweep if primal else hold_gsweep)(got, want)
+        assert most <= batch - 1 + 32 * shape[pre + "sweep_u"] \
+            <= shape[pre + "ring"]
     return want

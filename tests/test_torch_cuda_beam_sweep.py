@@ -1,9 +1,13 @@
-"""The beam/plane sweep CUDA kernel on the card: built from
-gvpm_tpu_torch/csrc, launched by the wrapper for CUDA tensors (never the
-plain version; one launch per sweep), and equal to the plain version on
-the sweep inputs of one small SPPM pass of each beam estimator: the
-accepted-pair counts exactly, the sums at rtol 2e-4 / atol 5e-6, two
-launches bitwise equal (no atomics).
+"""The beam/plane sweep CUDA kernels on the card (beam1d and beam3d on
+csrc/gsweep.cu's queued sweep, plane0d on csrc/beam_sweep.cu): built
+from gvpm_tpu_torch/csrc, launched by the wrapper for CUDA tensors
+(never the plain version; one launch per sweep), and equal to the plain
+version on the sweep inputs of one small SPPM pass of each beam
+estimator, and beam1d / beam3d on chip_smoke.beam_stress_inputs (beam1d
+also moved by chip_smoke.BEAM1D_FAR_SHIFTS, its pre-test's guard just
+held and exceeded) at the split plan and in one split: the accepted-pair
+counts exactly, the sums at rtol 2e-4 / atol 5e-6, two launches bitwise
+equal (no atomics).
 
 Needs a CUDA card and skips without one. It imports no JAX, so it runs
 on a machine without it:
@@ -15,7 +19,8 @@ on a machine without it:
 import pytest
 import torch
 
-from chip_smoke import beams_against_plain, capture_sweeps
+from chip_smoke import (BEAM1D_FAR_SHIFTS, beams_against_plain,
+                         beams_stress_against_plain, capture_sweeps)
 from gvpm_tpu_torch import scenes
 from gvpm_tpu_torch.core.config import PhotonConfig
 from gvpm_tpu_torch.integrators import sppm
@@ -55,3 +60,13 @@ def test_kernel_matches_plain(captured, kind):
     assert q.is_cuda and rows.is_cuda
     _, counts, _, _ = beams_against_plain(kind, q, rows, p)
     assert int(counts.sum()) > 0
+
+
+@pytest.mark.parametrize("kind, shift", [
+    pytest.param(kind, 0.0, id=kind) for kind in ("beam1d", "beam3d")]
+    + [pytest.param("beam1d", s, id=f"beam1d-moved-{s:g}")
+       for s in BEAM1D_FAR_SHIFTS])
+def test_queued_kernel_on_stress_input(captured, kind, shift):
+    want, counts, stats, hot, _ = beams_stress_against_plain(kind, shift)
+    assert int(counts[hot]) >= 800
+    assert stats["pretest"] > int(counts.sum())

@@ -29,8 +29,7 @@ VOLUMES = dict(gbeam1d="beam1d", gbeam3d="beam3d", gplane0d="plane0d")
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    return build_host_library(tmp_path_factory, "gbeam_eval_host",
-                              QUEUED_HOST_CPP)
+    return build_host_library(tmp_path_factory, QUEUED_HOST_CPP)
 
 
 @pytest.fixture(scope="module")

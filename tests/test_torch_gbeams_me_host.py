@@ -35,8 +35,7 @@ VOLUMES = dict(gbeam1d_me="beam1d", gbeam3d_me="beam3d",
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    return build_host_library(tmp_path_factory, "gbeam_me_eval_host",
-                              QUEUED_HOST_CPP)
+    return build_host_library(tmp_path_factory, QUEUED_HOST_CPP)
 
 
 @pytest.fixture(scope="module")
