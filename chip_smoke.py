@@ -7,9 +7,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
   1. device   — a CUDA card is required (never falls back to the CPU);
                 prints its name and power limit from nvidia-smi.
   2. build    — compiles the fused-gather and the beam-sweep kernels
-                from the sources in gvpm_tpu_torch/csrc into
-                gvpm_tpu_torch/_build/, one nvcc for each, started
-                together.
+                (fused_gather.cu, gsweep.cu) from the sources in
+                gvpm_tpu_torch/csrc into gvpm_tpu_torch/_build/, one nvcc
+                for each, started together.
   3. kernels  — captures the gather inputs of one headline pass with
                 manifold (ME) shifts and runs each kernel variant
                 (surface, volume, surface_me, volume_me) through the CUDA
@@ -30,23 +30,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 longer than 32 x a few and empty ones, a ragged last
                 tile, invalid queries, a lowest ME row in a late run.
   3c. beams  — the beam / plane pair sweeps (ops/beam_sweep.py: beam1d,
-                beam3d on the queued sweep of gsweep.cu, plane0d on
-                beam_sweep.cu) on the inputs of one pass of each at the
-                goldens' 128^2 check config: the kernel twice and the
-                plain version once, accepted-pair counts exactly equal,
-                sums at rtol 2e-4 / atol 5e-6, two launches bitwise equal;
-                kernel and plain ms, the bound (`beam_bound`; for beam1d /
-                beam3d also under one thread a query's count) and the
-                kernel's share of it, registers, spills, warps an SM, and
-                the pairs past the kernel's test (sweep_plain's model of
-                it, beam1d's guard included) and past the first stage.
-                beams-stress: beam1d and beam3d on `beam_stress_inputs`
-                (a hot query over seven tiles and splits, beams within 1%
-                of r, inside the pre-test's margin, near-parallel,
-                grazing chords), and beam1d's moved by BEAM1D_FAR_SHIFTS
-                (lines' scales just inside the pre-test's guard and past
-                it), at the split plan and in one split, against the
-                plain version, the same bar.
+                beam3d and plane0d on the queued sweep of gsweep.cu) on
+                the inputs of one pass of each at the goldens' 128^2
+                check config: the kernel twice and the plain version
+                once, accepted-pair counts exactly equal, sums at rtol
+                2e-4 / atol 5e-6, two launches bitwise equal; kernel and
+                plain ms, the bound (`beam_bound`: the lesser of the
+                kernel's operation count, BEAM_OPS, and one thread a
+                query's, BEAM_OPS_THREAD; both printed) and the kernel's
+                share of it, registers, spills, warps an SM, and the pairs past
+                the kernel's test (sweep_plain's model of it, beam1d's
+                guard included) and past the first stage.
+                beams-stress: the three on `beam_stress_inputs` (a hot
+                query over seven tiles and splits, beams within 1% of r,
+                inside the pre-test's margin, near-parallel, grazing
+                chords; planes within a few ulp of an edge, |det| across
+                1e-7, parallel planes), and beam1d's moved by
+                BEAM1D_FAR_SHIFTS (lines' scales just inside the
+                pre-test's guard and past it), at the split plan and in
+                one split, against the plain version, the same bar.
   3d. gbeams — the gradient sweeps of the gvpm beam volumes (gbeam1d,
                 gbeam3d, gplane0d; use_manifold=False) on the inputs of
                 one gvpm pass of each at the goldens' 128^2 check config:
@@ -56,10 +58,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 2e-4 / atol 5e-6, two launches bitwise equal; kernel and
                 plain ms, the bound (`gbeam_bound`) and the kernel's share
                 of it, its registers and spills; the lane use of their
-                shift bodies in one thread a query (as beam_sweep.cu ran
-                them before gsweep.cu) and in the queued kernel of gsweep.cu
-                (`gsweep_lane_use`); last, the unchanged kernels' ms as a
-                control line (plane0d and the six gradient sweeps).
+                shift bodies in one thread a query (as the kernel before
+                gsweep.cu ran them) and in the queued kernel of gsweep.cu
+                (`gsweep_lane_use`); last, the unchanged kinds' ms as a
+                control line (beam1d, beam3d and the six gradient
+                sweeps).
   3e. gbeams-me — the same three sweeps' ME instantiations (gbeam1d_me,
                 gbeam3d_me, gplane0d_me) on the inputs of one gvpm pass
                 of each with the default use_manifold=True: the kernel
@@ -252,8 +255,10 @@ BEAM_REPLACES = {"beam1d": "gvpm_tpu/integrators/estimators.py:481",
 # launches of each sweep kernel per SPPM pass (beam3d: one per distance
 # sample, volume_samples = 2)
 BEAM_LAUNCHES = {"beam1d": 1, "beam3d": 2, "plane0d": 1}
-# operations per pair counted from csrc/beam_eval.cuh, one per add,
-# multiply, divide, compare, select, clamp, sqrtf and expf: (every pair
+# the kernel's operations per pair counted from csrc/beam_eval.cuh, one
+# per add, multiply, divide, compare, select, clamp, sqrtf and expf; the
+# bound takes the lesser of this count and BEAM_OPS_THREAD's (beam_bound):
+# (every pair
 # of a valid query and a beam in its medium; each pair past the kernel's
 # test, sweep_plain's "pretest"; each pair of the second stage,
 # "stage2"; each accepted pair, its accumulation included). beam1d
@@ -266,15 +271,28 @@ BEAM_LAUNCHES = {"beam1d": 1, "beam3d": 2, "plane0d": 1}
 # 21 (chord_perp 19, pp < r2, the medium's), as GBEAM_OPS["gbeam3d"]; the
 # pairs within r of the line (pretest) chord's clip and its compare, 10;
 # past the chord test the sample and its distance test, 17. plane0d
-# (csrc/beam_sweep.cu, unchanged): 23 every pair, 32 past the
-# determinant test.
+# (Plane0D): every pair its pre-test, 66 (pv = d x e1 9, det 5, tt 3,
+# qq = tt x e0 9, a, b, c 15, |det| and the sign's compare and select 3,
+# the three signed products 3, the four bounds' products 4, eight
+# compares and their seven ands 15); the pairs past it the exact test,
+# 65 (e0, e1 6, pv 9, det 5, |det| > 1e-7 2, the division, tt 3, a, b, c
+# and their products 18, qq 9, six compares and their ands 12); each
+# accepted pair its contribution, 95 (t0, t1 2, the phase and its cosine
+# 18, surv1 2, jac 15, survival 12, sc 6, three channels' exponentials
+# and products 36, the accumulation 4).
 BEAM_OPS = {"beam1d": (29, 62, 0, 68), "beam3d": (21, 10, 17, 57),
-            "plane0d": (23, 0, 32, 109)}
-# the same count for beam_sweep.cu's one thread a query, which ran
-# beam1d's closest approach (with its divisions) and beam3d's whole chord
-# on every pair: (36, -, 21 past the parameter-range tests, 68), (30, -,
-# 17, 57); kept to set the redesigned kernels' bound beside the old one
-BEAM_OPS_THREAD = {"beam1d": (36, 0, 21, 68), "beam3d": (30, 0, 17, 57)}
+            "plane0d": (66, 65, 0, 95)}
+# the same count for one thread a query (the kernel before gsweep.cu),
+# which ran beam1d's closest approach (with its divisions) and beam3d's
+# whole chord on every pair: (36, -, 21 past the parameter-range tests,
+# 68), (30, -, 17, 57), and plane0d's plane_hit, 23 every pair and 32
+# past the determinant test (its division, the rest of Moller-Trumbore),
+# 109 accepted (the six range tests and the contribution), as
+# GBEAM_OPS["gplane0d"] counts the same test. It is the lesser count for
+# plane0d, whose pre-test (66 a pair) buys no division and no branch with
+# more operations than plane_hit needs, so plane0d's bound is this one
+BEAM_OPS_THREAD = {"beam1d": (36, 0, 21, 68), "beam3d": (30, 0, 17, 57),
+                   "plane0d": (23, 0, 32, 109)}
 # beam3d's integer operations per drawn word: threefry2x32's 20 rounds of
 # add, two shifts, or and xor, its 5 key injections of 3 adds, the key
 # schedule's 2 xors and 2 adds, and the float conversion's 4
@@ -707,26 +725,36 @@ BEAM1D_FAR_SHIFTS = (200.0, 210.0)
 
 
 def beam_stress_inputs(kind, seed=11, device="cpu", shift=0.0):
-    """A small seeded input of the primal queued sweeps (beam1d, beam3d)
-    that a render cannot be relied on to give: gsweep_stress_inputs'
-    queries and beams for g<kind> (the hot query accepting the 800 beams
-    256-1055, over seven of gsweep.cu's beam tiles and, at the wrapper's
-    split plan, seven splits; ragged counts, invalid queries, a medium
-    mismatch; beam3d's grazing beams 100-163, whose chord samples base
-    rejects by rounding), with beams placed against the hot query: 0-39
-    at a distance within 1% of r (either side), 40-79 between 1.02 r and
-    1.98 r (inside beam1d's pre-test margin, rejected by its exact test),
-    and for beam1d 164-227 nearly parallel to it (1 - cos^2 from 1e-10 to
-    0.1: across the parallel test's 1e-8 and the pre-test's 1e-2), for
-    beam3d short beams whose chords are clipped at an end. Every query
-    and beam origin is then moved by `shift` along each axis
-    (BEAM1D_FAR_SHIFTS). Returns (q, rows, params, hot)."""
+    """A small seeded input of the primal queued sweeps (beam1d, beam3d,
+    plane0d) that a render cannot be relied on to give:
+    gsweep_stress_inputs' queries and beams (planes) for g<kind> (the hot
+    query accepting the 800 beams 256-1055, over seven of gsweep.cu's beam
+    tiles and, at the wrapper's split plan, seven splits; ragged counts,
+    invalid queries, a medium mismatch; beam3d's grazing beams 100-163,
+    whose chord samples base rejects by rounding), with beams placed
+    against the hot query: 0-39 at a distance within 1% of r (either
+    side), 40-79 between 1.02 r and 1.98 r (inside beam1d's pre-test
+    margin, rejected by its exact test), and for beam1d 164-227 nearly
+    parallel to it (1 - cos^2 from 1e-10 to 0.1: across the parallel
+    test's 1e-8 and the pre-test's 1e-2), for beam3d short beams whose
+    chords are clipped at an end. plane0d's planes are placed instead
+    (plane_stress_rows): 0-39 across the hot query with u0 or u1 within
+    5 ulp of 0 or of 1, either side; 40-59 across query `hot` + 1, made
+    to run along x from the origin, at tcam within 5 ulp of 1e-5 or of its
+    length; 164-195 tiny planes whose |det| crosses 1e-7; 196-227 planes
+    that nearly hold the hot query's line (det from 0.16 sin 1e-9 to 0.16
+    sin 0.1, four of them exactly parallel). Every query and beam origin
+    is then moved by `shift` along each axis (BEAM1D_FAR_SHIFTS). Returns
+    (q, rows, params, hot)."""
     from gvpm_tpu_torch.ops import beam_sweep as bs
     q, _, rows, _, p, hot = gsweep_stress_inputs("g" + kind, seed, device)
     rng = np.random.default_rng(seed + 1)
     rows = rows.cpu().numpy()
     r = 0.05
     o, d, lb = (bs.BSLOT[k] for k in ("o", "d", "length"))
+    if kind == "plane0d":
+        q = q.clone()
+        plane_stress_rows(q, rows, hot)
 
     def put(sel, ob, db, length):
         n = len(range(*sel.indices(rows.shape[0])))
@@ -759,7 +787,7 @@ def beam_stress_inputs(kind, seed=11, device="cpu", shift=0.0):
         ob = np.stack([np.full(64, 0.2), 0.5 - 0.3 * db[:, 1],
                        np.full(64, 0.5 + 0.5 * r)], 1)
         put(slice(164, 228), ob, db, 0.6)
-    else:
+    elif kind == "beam3d":
         # the hot sample sits at (0.5, 0.5, 0.5)
         put(slice(0, 40), ring(40, near, 0.2), along_y, 0.6)
         put(slice(40, 80), ring(40, margin, 0.2), along_y, 0.6)
@@ -772,6 +800,62 @@ def beam_stress_inputs(kind, seed=11, device="cpu", shift=0.0):
         q = q.clone()
         q[:, bs.QSLOT["o"]:bs.QSLOT["o"] + 3] += shift
     return (q, torch.tensor(rows, device=device), p, hot)
+
+
+def plane_stress_rows(q, rows, hot):
+    """beam_stress_inputs' plane0d edits, in place: query hot + 1 from
+    the origin along x for 0.7, and the planes described there (origin,
+    w0, l0, w1, l1, medium 0). Edges are float32 steps (np.nextafter)
+    from the edge value."""
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    f32 = np.float32
+    qs, bsl = bs.QSLOT, bs.BSLOT
+    edge = hot + 1
+    q[edge, qs["o"]:qs["o"] + 3] = torch.tensor([0.0, 0.5, 0.5],
+                                                device=q.device)
+    q[edge, qs["d"]:qs["d"] + 3] = torch.tensor([1.0, 0.0, 0.0],
+                                                device=q.device)
+    q[edge, qs["length"]], q[edge, qs["valid"]] = 0.7, 1.0
+    q[edge, qs["med"]] = 0.0
+
+    def steps(v, n=5, stride=1):
+        """n float32 values either side of v, `stride` ulp apart"""
+        out, lo, hi = [], f32(v), f32(v)
+        for _ in range(n):
+            for _ in range(stride):
+                lo, hi = np.nextafter(lo, f32(-1)), np.nextafter(hi, f32(2))
+            out += [lo, hi]
+        return np.array(out, f32)
+
+    def put(j, po, w0, l0, w1, l1):
+        rows[j, bsl["o"]:bsl["o"] + 3] = po
+        rows[j, bsl["d"]:bsl["d"] + 3] = w0
+        rows[j, bsl["length"]] = l0
+        rows[j, bsl["w1"]:bsl["w1"] + 3] = w1
+        rows[j, bsl["l1"]] = l1
+        rows[j, bsl["med"]] = 0.0
+
+    ey, ez = (0.0, 1.0, 0.0), (0.0, 0.0, 1.0)
+    # across the hot ray (y = z = 0.5 along x from x = 0.1): u0 = (0.5 -
+    # oy) / 0.4 near 0 and 1 (8 ulp of 0.1 move u0 by about one of 1),
+    # then u1 the same through oz
+    near1 = steps(f32(0.5) - f32(0.4), stride=8)
+    for i, (oy, oz) in enumerate(
+            [(v, 0.3) for v in steps(0.5)] + [(v, 0.3) for v in near1]
+            + [(0.3, v) for v in steps(0.5)] + [(0.3, v) for v in near1]):
+        put(i, (0.2 + 0.015 * i, oy, oz), ey, 0.4, ez, 0.4)
+    # across the edge query: tcam = x near 1e-5 and near its length 0.7
+    for i, x in enumerate(np.concatenate([steps(1e-5), steps(0.7)])):
+        put(40 + i, (x, 0.3, 0.3), ey, 0.4, ez, 0.4)
+    # tiny squares centred on the hot ray: |det| = l^2 across 1e-7
+    for i, side in enumerate(np.sqrt(1e-7) * np.linspace(0.97, 1.03, 32)):
+        put(164 + i, (0.3 + 0.01 * i, 0.5 - side / 2, 0.5 - side / 2), ey,
+            side, ez, side)
+    # planes spanned by z and a direction eps off x: det = 0.16 sin eps
+    for i, eps in enumerate(np.concatenate([np.zeros(4),
+                                            np.logspace(-9, -1, 28)])):
+        put(196 + i, (0.3, 0.5 - 0.2 * np.sin(eps), 0.3), ez, 0.4,
+            (np.cos(eps), np.sin(eps), 0.0), 0.4)
 
 
 def lane_use(ev, plan, tbl, qrows, r2, k3, md):
@@ -843,15 +927,18 @@ def kernel_bound(ev, slots, plan, tbl, qrows, candidates, visits):
             "bytes" if t_bytes >= t_ops else "operations", detail)
 
 
-def beam_bound(kind, q, rows, stats, accepted, ops=None):
+def beam_bound(kind, q, rows, stats, accepted):
     """The least time the card could take for one sweep on these inputs:
     the larger of the bytes that must move over the memory rate (each
     query row, beam row, beam key and output once) and the operations
-    these inputs need (`ops`, by default BEAM_OPS: every pair of a valid
-    query and a beam in its medium, the pairs past the kernel's test, the
-    pairs of the second stage, the accepted pairs) at the float32 rate,
-    beam3d's threefry words at the INT32 rate. Returns (ms, "bytes" |
-    "operations", detail)."""
+    these inputs need at the float32 rate, beam3d's threefry words at the
+    INT32 rate. The operations are the lesser of two counts of the same
+    work on this run's pairs (every pair of a valid query and a beam in
+    its medium, the pairs past the kernel's test, the pairs of the second
+    stage, the accepted pairs): the kernel's (BEAM_OPS) and one thread a
+    query's (BEAM_OPS_THREAD). plane0d's pre-test costs more operations
+    than plane_hit, so its bound is plane_hit's count. Returns (ms,
+    "bytes" | "operations", detail); detail holds both counts."""
     from gvpm_tpu_torch.ops import beam_sweep as bs
     M, N = q.shape[0], rows.shape[0]
     valid = q[:, bs.QSLOT["valid"]] > 0.5
@@ -861,9 +948,14 @@ def beam_bound(kind, q, rows, stats, accepted, ops=None):
     pairs = int(torch.bincount(b_med, minlength=n_med)[q_med].sum())
     n_bytes = 4 * (M * bs.QW + N * bs.BW + M * 4) \
         + (16 * N if kind == "beam3d" else 0)
-    a, b, c, d = (ops or BEAM_OPS)[kind]
-    fops = pairs * a + stats.get("pretest", 0) * b + stats["stage2"] * c \
-        + accepted * d
+
+    def count(ops):
+        a, b, c, d = ops[kind]
+        return pairs * a + stats.get("pretest", 0) * b \
+            + stats["stage2"] * c + accepted * d
+
+    kernel_ops, thread_ops = count(BEAM_OPS), count(BEAM_OPS_THREAD)
+    fops = min(kernel_ops, thread_ops)
     iops = stats["stage2"] * BEAM_INT_OPS if kind == "beam3d" else 0
     t = dict(bytes=n_bytes / PEAK_BYTES_S * 1e3,
              operations=max(fops / PEAK_FP32_S, iops / PEAK_INT32_S) * 1e3)
@@ -874,7 +966,9 @@ def beam_bound(kind, q, rows, stats, accepted, ops=None):
         accepted=accepted, bytes=n_bytes,
         float_ops=fops, int_ops=iops, float_ms=fops / PEAK_FP32_S * 1e3,
         int_ms=iops / PEAK_INT32_S * 1e3,
-        float_unfused_ms=fops / PEAK_FP32_UNFUSED_S * 1e3)
+        float_unfused_ms=fops / PEAK_FP32_UNFUSED_S * 1e3,
+        kernel_ops=kernel_ops, kernel_ops_ms=kernel_ops / PEAK_FP32_S * 1e3,
+        thread_ops=thread_ops, thread_ops_ms=thread_ops / PEAK_FP32_S * 1e3)
 
 
 def gbeam_bound(kind, q, rows, stats):
@@ -1033,7 +1127,7 @@ def gsweep_lane_use(kind, q, rows, tails, p, shape, chunk):
     inputs, in tensor code from the dense base-test planes that
     gsweep_stats builds.
 
-    One thread a query (beam_sweep.cu's sweep_kernel): a warp holds 32
+    One thread a query (the kernel before gsweep.cu): a warp holds 32
     consecutive queries and visits the beams in order; in an iteration
     where some lane accepts its pair, the shift body runs with the
     accepting lanes busy (`iterations_with_accept`,
@@ -1216,8 +1310,8 @@ def beams_against_plain(kind, q, rows, p):
 
 def beams_stress_against_plain(kind, shift=0.0):
     """The primal stress input (beam_stress_inputs) of a queued sweep
-    (beam1d, beam3d), moved by `shift`, on the card: the kernel twice at
-    its split plan and twice in one split (whose ring then lives across
+    (beam1d, beam3d, plane0d), moved by `shift`, on the card: the kernel
+    twice at its split plan and twice in one split (whose ring then lives across
     every beam tile) against the plain version once: accepted-pair
     counts exactly equal, sums within TOL, each pair of launches bitwise
     equal; the hot query must keep its 800 beams. Returns (plain sums,
@@ -1290,7 +1384,7 @@ def main():
         th.join()
     if errors:
         raise errors[0]
-    phase("build", f"fused_gather and beam_sweep kernels built in "
+    phase("build", f"fused_gather and beam_sweep (gsweep.cu) kernels built in "
                    f"{time.perf_counter() - t0:.2f} s; ptxas per "
                    f"instantiation (registers a thread, bytes): "
                    f"{json.dumps(fg.build_report())}; beam_sweep "
@@ -1411,14 +1505,11 @@ def main():
         beam_kernels[kind] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by)
         r = regs[kind]
-        src = "gsweep.cu" if kind in bs.QUEUED else "beam_sweep.cu"
-        old = ""
-        if kind in BEAM_OPS_THREAD:
-            old_ms, _, _ = beam_bound(kind, q, rows, st, accepted,
-                                      BEAM_OPS_THREAD)
-            old = (f" (one thread a query's count: {old_ms:.4f} ms); "
-                   f"{bs.warps_per_sm(kind)} warps an SM")
-        phase("beams", f"{kind} ({src}): {q.shape[0]} camera queries x "
+        old = (f" (operations at the float32 rate by the kernel's own "
+               f"count: {detail['kernel_ops_ms']:.4f} ms, by one thread a "
+               f"query's: {detail['thread_ops_ms']:.4f} ms); "
+               f"{bs.warps_per_sm(kind)} warps an SM")
+        phase("beams", f"{kind} (gsweep.cu): {q.shape[0]} camera queries x "
                        f"{rows.shape[0]} beams (valid of "
                        f"{bscene.width}^2 x {BEAM_GOLD_KW['surface_photons']}"
                        f" paths), accepted pairs {accepted} equal, max|err| "
@@ -1434,7 +1525,7 @@ def main():
     del q, rows, p, want, n_acc
 
     # ---- 3c'. the queued primal sweeps on their stress input ----
-    for kind, shift in ((("beam1d", 0.0), ("beam3d", 0.0))
+    for kind, shift in (tuple((k, 0.0) for k in bs.KINDS)
                         + tuple(("beam1d", s) for s in BEAM1D_FAR_SHIFTS)):
         want, n_acc, st, hot, err = beams_stress_against_plain(kind, shift)
         phase("beams-stress", f"{kind} moved by {shift}: {want.shape[0]} "
@@ -1474,7 +1565,7 @@ def main():
         chunk = bs.gsplit_plan(q.shape[0], rows.shape[0], kind)[1]
         lu = gsweep_lane_use(kind, q, rows, tails, p, shape, chunk)
         phase("gbeams", f"{kind} lane use, one thread a query "
-                        f"(beam_sweep.cu before) and queued (gsweep.cu "
+                        f"(the kernel before) and queued (gsweep.cu "
                         f"{json.dumps(shape)}): {json.dumps(lu)}")
     del q, qx, rows, tails, p, args, want
 
@@ -1531,10 +1622,11 @@ def main():
                                f" shift_ok {int(want[4].sum())}{me} equal at "
                                f"the split plan and in one split, max|err| "
                                f"{err:.3g}, two launches bitwise equal")
-    phase("gbeams", "controls (plane0d on beam_sweep.cu and the gradient "
-                    "sweeps, unchanged), ms a launch: " + json.dumps(
+    phase("gbeams", "controls (beam1d, beam3d and the gradient sweeps, "
+                    "unchanged), ms a launch: " + json.dumps(
                         {k: round(beam_kernels[k]["ms"], 3)
-                         for k in ("plane0d",) + bs.GKINDS + bs.GKINDS_ME}))
+                         for k in ("beam1d", "beam3d") + bs.GKINDS
+                         + bs.GKINDS_ME}))
 
     # ---- 4. the main paths at the headline size ----
     def drive(label, cfg, passes, expect):
@@ -2039,8 +2131,7 @@ def main():
              library_ms=None)
         for n, k in kernels.items()] + [
         dict(name=f"beam_sweep_{n}", route="cuda",
-             source="gvpm_tpu_torch/csrc/"
-             + ("gsweep.cu" if n in bs.QUEUED else "beam_sweep.cu"),
+             source="gvpm_tpu_torch/csrc/gsweep.cu",
              replaces={**BEAM_REPLACES, **GBEAM_REPLACES,
                        **GBEAM_ME_REPLACES}[n],
              launches=main_launches[n],

@@ -13,13 +13,11 @@
 // operation, in the same order, so that a build without FMA contraction
 // (-fmad=false) takes the same accept decisions (the accepted-pair
 // counts match exactly) and the sums agree to the rounding of expf.
-// Beam1D and Beam3D come in the test / base parts of csrc/gsweep.cu's
-// queued sweep, as the gradient functors do; Plane0D's `pair` (for
-// csrc/beam_sweep.cu) returns whether the pair is accepted and, if so,
-// its contribution; a rejected pair adds nothing, as the JAX package's
-// where(ok, ., 0). The header also compiles as plain host C++ (with
-// __host__/__device__ defined away), which is how the CPU tests exercise
-// this source, threefry included.
+// Every functor comes in the test / base (gradient: and shift) parts of
+// csrc/gsweep.cu's queued sweep; a primal functor's test reads the
+// floats its stage puts in the sweep's beam tile. The header also
+// compiles as plain host C++ (with __host__/__device__ defined away),
+// which is how the CPU tests exercise this source, threefry included.
 #pragma once
 
 #include <stdint.h>
@@ -250,16 +248,27 @@ __host__ __device__ inline bool plane_hit(V3 o, V3 d, V3 po, V3 e0, V3 e1,
 }
 
 // ------------------------------------------------------- pair functors
-// Beam1D and Beam3D, in the parts of csrc/gsweep.cu's queued sweep:
-// test(q, b, p, g) the sweep's test, run on every pair of a valid query
-// (b: the beam row, BW floats), leaving in g what base reuses; test_u
-// the same test of U beams (b[v]: their first 8 floats, o, d, length,
-// medium), written so that the U tests interleave;
-// base(q, b, key, p, g, s) a queued pair's contribution in s.c (key: the
-// beam's beam_keys row, k1, k2, lane, 0; Beam3D's only), returning
-// whether the pair is accepted. pair_body below strings them together.
+// Beam1D, Beam3D and Plane0D, in the parts of csrc/gsweep.cu's queued
+// sweep: stage(b, s) the SW floats of a beam row b (BW floats) that the
+// sweep's tile holds, computed once a tile; test(q, s, p, g) the sweep's
+// test on those floats, run on every pair of a valid query, leaving in g
+// what base reuses; test_u the same test of U beams (s[v]), written so
+// that the U tests interleave; base(q, b, key, p, g, s) a queued pair's
+// contribution in s.c (b: the whole beam row; key: the beam's beam_keys
+// row, k1, k2, lane, 0; Beam3D's only), returning whether the pair is
+// accepted. test_row below runs stage and test on a whole row; pair_body
+// strings test and base together.
 
-struct Beam1D {
+// Beam1D's and Beam3D's staged floats: the line's o, d, length and medium
+// (B_O .. B_MED, the row's first 8)
+struct LineStage {
+  static constexpr int SW = 8;
+  __host__ __device__ static void stage(const float* b, float* s) {
+    for (int c = 0; c < SW; ++c) s[c] = b[c];
+  }
+};
+
+struct Beam1D : LineStage {
   static constexpr bool RANDOM = false, ME = false, PRIMAL = true,
                         PRETEST = true;
   static constexpr int NF = 3, NC = 1, NF_SUM = 3;
@@ -292,7 +301,7 @@ struct Beam1D {
     return (b[B_MED] == q.med) & ((nn <= 1e-2f) | (s * s <= p.pre_r2 * nn));
   }
   template <int U>
-  __host__ __device__ static void test_u(const Query& q, const float (*b)[8],
+  __host__ __device__ static void test_u(const Query& q, const float (*b)[SW],
                                          const Params& p, Geo* g,
                                          bool* pass) {
     for (int v = 0; v < U; ++v) pass[v] = test(q, b[v], p, g[v]);
@@ -326,7 +335,7 @@ struct Beam1D {
   }
 };
 
-struct Beam3D {
+struct Beam3D : LineStage {
   static constexpr bool RANDOM = true, ME = false, PRIMAL = true,
                         PRETEST = false;
   static constexpr int NF = 3, NC = 1, NF_SUM = 3;
@@ -339,7 +348,7 @@ struct Beam3D {
   // is a branch (its sqrtf has a slow path), which the U beams' loads and
   // products then do not wait for
   template <int U>
-  __host__ __device__ static void test_u(const Query& q, const float (*b)[8],
+  __host__ __device__ static void test_u(const Query& q, const float (*b)[SW],
                                          const Params& p, Geo* g,
                                          bool* pass) {
     Perp h[U];
@@ -365,22 +374,87 @@ struct Beam3D {
   }
 };
 
-// Plane0D's pair(q, b, key, p, c) (csrc/beam_sweep.cu): whether the pair
-// is accepted; then c holds its contribution.
+// Plane0D's pre-test bounds: the exact test's u0, u1 in [0, 1] and
+// 1e-5 < tcam < len widened by PLANE_M = 8 u (u = 2^-24), relative
+constexpr float PLANE_M = 0x1p-21f;
+constexpr float PLANE_HI = 1.0f + PLANE_M;    // exact
+constexpr float PLANE_T0 = 0x1.4f8b4ep-17f;   // 1e-5f (1 - PLANE_M), rounded
+
 struct Plane0D {
-  __host__ __device__ static bool pair(const Query& q, const float* b,
+  static constexpr bool RANDOM = false, ME = false, PRIMAL = true,
+                        PRETEST = false;
+  static constexpr int NF = 3, NC = 1, NF_SUM = 3, SW = 12;
+  // the staged floats: the plane's origin po, its medium, its edges
+  // e0 = w0 l0 and e1 = w1 l1 (the products plane_hit's caller forms, so
+  // the same bits), two unused
+  enum : int { S_O = 0, S_MED = 3, S_E0 = 4, S_E1 = 8 };
+  struct Geo {};
+  __host__ __device__ static void stage(const float* b, float* s) {
+    const V3 e0 = scale3(ld3(b, B_D), b[B_LEN]);
+    const V3 e1 = scale3(ld3(b, B_W1), b[B_L1]);
+    const float v[SW] = {b[B_O], b[B_O + 1], b[B_O + 2], b[B_MED],
+                         e0.x,   e0.y,       e0.z,       0.0f,
+                         e1.x,   e1.y,       e1.z,       0.0f};
+    for (int c = 0; c < SW; ++c) s[c] = v[c];
+  }
+  // The medium match and a pre-test with no division and no early
+  // return: plane_hit's det, a = tt . pv, b = d . qq and c = e1 . qq,
+  // computed as plane_hit computes them (the same bits), then, with
+  // s = sign(det), s a and s b against [-m |det|, (1 + m) |det|] and s c
+  // against (PLANE_T0 |det|, (len (1 + m)) |det|), m = PLANE_M, and
+  // |det| > 1e-7 as plane_hit tests it. It only rejects pairs that
+  // plane_hit and the six range tests (base) reject. Rounding argument,
+  // u = 2^-24: plane_hit's u0 = fl(a fl(1 / det)) = (a / det)(1 + e)
+  // with |e| <= 2.0001 u (two roundings; 1 / det is normal for 1e-7 <
+  // |det| < 2^126, edges far below 2^63), and the same for u1 and tcam.
+  // So u0 <= 1 means s a <= |det| (1 + 2.0002 u), below fl((1 + m) |det|)
+  // >= (1 + 8u)(1 - u) |det|; u0 >= 0 means s a >= 0, or a product that
+  // rounds to -0 (|s a| < 2^-149 |det|), both above -fl(m |det|); tcam >
+  // 1e-5 means s c > 1e-5 |det| (1 - 2.0001 u), above fl(PLANE_T0 |det|)
+  // <= 1e-5 |det| (1 - 8u)(1 + u)^2; tcam < len means s c < len |det| (1
+  // + 2.0002 u), below fl(fl(len (1 + m)) |det|) >= len |det| (1 + 8u)(1
+  // - u)^2. The margins let through the pairs within a few ulp of an
+  // edge, which base's exact test then rejects. No guard is needed: a, b,
+  // c and det are the exact test's own values, so only the rounding of
+  // 1 / det and of the final product separates the two tests.
+  __host__ __device__ static bool test(const Query& q, const float* s,
+                                       const Params& /*p*/, Geo& /*g*/) {
+    const V3 e0 = ld3(s, S_E0), e1 = ld3(s, S_E1);
+    const V3 pv = cross3(q.d, e1);
+    const float det = dot3(e0, pv);
+    const V3 tt = sub3(q.o, ld3(s, S_O));
+    const V3 qq = cross3(tt, e0);
+    const float sg = det < 0.0f ? -1.0f : 1.0f, ad = fabsf(det);
+    const float a = sg * dot3(tt, pv), b = sg * dot3(q.d, qq),
+                c = sg * dot3(e1, qq);
+    const float lo = PLANE_M * ad, hi = PLANE_HI * ad;
+    return (s[S_MED] == q.med) & (ad > 1e-7f) & (a >= -lo) & (a <= hi) &
+           (b >= -lo) & (b <= hi) & (c > PLANE_T0 * ad) &
+           (c < q.len * PLANE_HI * ad);
+  }
+  template <int U>
+  __host__ __device__ static void test_u(const Query& q, const float (*s)[SW],
+                                         const Params& p, Geo* g,
+                                         bool* pass) {
+    for (int v = 0; v < U; ++v) pass[v] = test(q, s[v], p, g[v]);
+  }
+  struct Base {
+    float c[3];
+  };
+  // the exact test (plane_hit, with its IEEE division, and the six range
+  // tests) and the contribution; a pair that the pre-test let through and
+  // this test rejects adds nothing
+  __host__ __device__ static bool base(const Query& q, const float* b,
                                        const int* /*key*/,
-                                       const Params& /*p*/, float c[3]) {
-    if (b[B_MED] != q.med) return false;
+                                       const Params& /*p*/, const Geo& /*g*/,
+                                       Base& s) {
     V3 pw0 = ld3(b, B_D), pw1 = ld3(b, B_W1);
     float pl0 = b[B_LEN], pl1 = b[B_L1];
-    float t0, t1, tcam;
-    if (!plane_hit(q.o, q.d, ld3(b, B_O), scale3(pw0, pl0), scale3(pw1, pl1),
-                   t0, t1, tcam))
-      return false;
-    if (!(t0 >= 0.0f) || !(t0 <= 1.0f) || !(t1 >= 0.0f) || !(t1 <= 1.0f) ||
-        !(tcam > 1e-5f) || !(tcam < q.len))
-      return false;
+    float t0 = 0.0f, t1 = 0.0f, tcam = 0.0f;
+    const bool hit = plane_hit(q.o, q.d, ld3(b, B_O), scale3(pw0, pl0),
+                               scale3(pw1, pl1), t0, t1, tcam);
+    const bool ok = hit & (t0 >= 0.0f) & (t0 <= 1.0f) & (t1 >= 0.0f) &
+                    (t1 <= 1.0f) & (tcam > 1e-5f) & (tcam < q.len);
     t0 = t0 * pl0;
     t1 = t1 * pl1;
     float pf = phase(-dot3(pw1, q.d), q.g, q.pt);
@@ -389,32 +463,10 @@ struct Plane0D {
     float sc = pf / (cmin_(survival(q, t0), 1e-9f) * cmin_(surv1, 1e-9f) *
                      cmin_(jac, 1e-6f));
     for (int ch = 0; ch < 3; ++ch)
-      c[ch] = b[B_ALPHA + ch] *
-              (expf(-q.st[ch] * tcam) * expf(-q.st[ch] * t0) *
-               expf(-q.st[ch] * t1) * q.ss[ch] * q.ss[ch] * sc);
-    return true;
-  }
-};
-
-// ------------------------------------------------------- primal visit
-// beam_sweep.cu's interface: visit(q, b, key, p, acc, cnt) adds the pair
-// of the query and the beam to the query's NF float and NC integer
-// accumulators, its contribution and one count.
-
-template <class P>
-struct Primal {
-  static constexpr bool ME = false;
-  static constexpr int NF = 3, NC = 1, NF_SUM = 3;
-  __host__ __device__ static void visit(const Query& q, const float* b,
-                                        const int* key, const Params& p,
-                                        float* acc, int* cnt) {
-    float c[3];
-    if (P::pair(q, b, key, p, c)) {
-      acc[0] += c[0];
-      acc[1] += c[1];
-      acc[2] += c[2];
-      ++cnt[0];
-    }
+      s.c[ch] = b[B_ALPHA + ch] *
+                (expf(-q.st[ch] * tcam) * expf(-q.st[ch] * t0) *
+                 expf(-q.st[ch] * t1) * q.ss[ch] * q.ss[ch] * sc);
+    return ok;
   }
 };
 
@@ -898,6 +950,21 @@ struct GPlane0DT {
   }
 };
 
+// F's test of a pair from its whole beam row b (BW floats): a primal
+// functor's on the floats its stage takes from the row
+template <class F>
+__host__ __device__ inline bool test_row(const Query& q, const float* b,
+                                         const Params& p,
+                                         typename F::Geo& g) {
+  if constexpr (F::PRIMAL) {
+    float s[F::SW];
+    F::stage(b, s);
+    return F::test(q, s, p, g);
+  } else {
+    return F::test(q, b, p, g);
+  }
+}
+
 // One queued pair of a test / base / shift functor F in a shift batch:
 // its base term, then its shifts to the offsets i = first, first +
 // STRIDE, ... < 4 (STRIDE 1: all four in one lane; 4: one offset a
@@ -908,9 +975,10 @@ struct GPlane0DT {
 // pair that base rejects (GBeam3DT's sample outside the sphere) writes
 // zeros and no visit, as the reference's okb excludes it. The sink keeps
 // one lane's share of each pair's base, visit and ME counts. A primal
-// functor's pair (F::PRIMAL: Beam1D, Beam3D) is its base term and visit
-// alone: no tail, no offsets (both may be null), STRIDE 1; a pair that
-// its base rejects (Beam1D's exact test, Beam3D's sample) adds nothing.
+// functor's pair (F::PRIMAL: Beam1D, Beam3D, Plane0D) is its base term
+// and visit alone: no tail, no offsets (both may be null), STRIDE 1; a
+// pair that its base rejects (Beam1D's and Plane0D's exact test, Beam3D's
+// sample) adds nothing.
 template <class F, int STRIDE, class Sink>
 __host__ __device__ inline void pair_body(const Query& q, const float* b,
                                           const int* key, const float* tail,

@@ -1,19 +1,19 @@
-// The queued beam / plane sweeps for Hopper (sm_90a): the primal beam1d
-// and beam3d, and the gradient gbeam1d, gbeam3d and gplane0d, each of
-// those with and without the manifold (ME) outputs (ops/beam_sweep.py
-// kinds beam1d, beam3d, the gsweep kinds gbeam1d, gbeam3d, gplane0d and
-// their _me kinds; per-pair math in beam_eval.cuh's Beam1D / Beam3D and
-// GBeam1DT / GBeam3DT / GPlane0DT, split into test, base and (gradient)
-// shift parts).
+// The queued beam / plane sweeps for Hopper (sm_90a): the primal beam1d,
+// beam3d and plane0d, and the gradient gbeam1d, gbeam3d and gplane0d,
+// each of those with and without the manifold (ME) outputs
+// (ops/beam_sweep.py kinds beam1d, beam3d, plane0d, the gsweep kinds
+// gbeam1d, gbeam3d, gplane0d and their _me kinds; per-pair math in
+// beam_eval.cuh's Beam1D / Beam3D / Plane0D and GBeam1DT / GBeam3DT /
+// GPlane0DT, split into test, base and (gradient) shift parts).
 //
 // What it replaces: the XLA tile loops (lax.scan over every beam slot)
-// of gvpm_tpu/integrators/estimators.py:481 beam_beam_gather and :262
-// beam_point_gather, of gradient_gather.py:1232 beam_gradient_gather,
-// :1580 beam3d_gradient_gather and :1960 plane_gradient_gather, and
-// with use_manifold=True their ME pair collection (:1346-1355,
-// :1710-1720, :2091-2100). The TPU has no kernel for them; on this card
-// they first ran on beam_sweep.cu's one thread a query, which now serves
-// plane0d only.
+// of gvpm_tpu/integrators/estimators.py:481 beam_beam_gather, :262
+// beam_point_gather and :401 plane_gather, of gradient_gather.py:1232
+// beam_gradient_gather, :1580 beam3d_gradient_gather and :1960
+// plane_gradient_gather, and with use_manifold=True their ME pair
+// collection (:1346-1355, :1710-1720, :2091-2100). The TPU has no kernel
+// for them; on this card they first ran on a kernel of one thread a
+// query, which this one replaced.
 //
 // What it computes: every camera query (a row of pack_queries, and for
 // a gradient kind its four offset rays, pack_offsets) against every
@@ -33,10 +33,11 @@
 // (gplane0d) counted float operations, a rejected one 36, 21 or 23
 // (gbeam3d's chord test, its clip only near the beam's line; a pair past
 // it also draws one threefry word, 123 integer operations). The primal
-// kinds test 29 (beam1d's pre-test, no division) or 21 (beam3d's chord
-// test) operations a pair; the pairs past them, 5.5% and 0.06%, take the
-// exact test (beam1d: its two IEEE divisions) and the contribution in a
-// batch. One thread a query (beam_sweep.cu, before this kernel) ran the
+// kinds test 29 (beam1d's pre-test, no division), 21 (beam3d's chord
+// test) or 66 (plane0d's pre-test, no division) operations a pair; the
+// pairs past them, 3.17%, 0.06% and about 4.7%, take the exact test
+// (beam1d: its two IEEE divisions; plane0d: one) and the contribution in
+// a batch. One thread a query (before this kernel) ran the
 // shifts inside its beam loop with 11.9% (gbeam1d), 3.8% (gbeam3d) and
 // 35.8% (gplane0d) of the 32 lanes busy in the iterations where some
 // lane accepted (chip_smoke.py::gsweep_lane_use), held 27 sums a thread
@@ -57,9 +58,13 @@
 //    registers (the whole warp shares it), and its 32 lanes test 32 x
 //    SWEEP_U beams a step (SWEEP_U independent tests a lane, written
 //    without early returns, so that their latencies overlap) with the
-//    functor's test alone: beam1d's pre-test (Beam1D::test; its guard,
-//    the tile's line scale, comes from the staging threads), beam3d's
-//    and gbeam3d's chord test without its threefry word. Invalid
+//    functor's test alone: beam1d's and plane0d's pre-tests
+//    (Beam1D::test, whose guard, the tile's line scale, comes from the
+//    staging threads; Plane0D::test), beam3d's and gbeam3d's chord test
+//    without its threefry word. A primal kind's tile holds the floats
+//    its test reads (F::stage, once a tile: a line's o, d, length and
+//    medium; a plane's origin, medium and edges e0 = w0 l0, e1 = w1 l1),
+//    a thread a row. Invalid
 //    queries cost nothing (the warp skips them; one thread a query kept
 //    their lanes idle), and a block with no valid query stages no beam.
 //  * Queue: passing pairs go into the warp's ring in shared memory
@@ -78,7 +83,9 @@
 //    queued pairs pass, then the contribution; beam3d / gbeam3d: the
 //    chord sample's threefry word from the beam's key row, read through
 //    L2 beside the row, and the sample's in-sphere test, which rejects a
-//    queued pair only by rounding at a chord's end), and a gradient lane
+//    queued pair only by rounding at a chord's end; plane0d: plane_hit
+//    with its division and the six range tests, which reject the pairs
+//    the pre-test's margin let through), and a gradient lane
 //    loads the parent from the beam's gradient tail only in its
 //    reconnection branch, from device memory through L2: the 30 parent
 //    values are live in one shift, not across four. Because a batch
@@ -98,7 +105,9 @@
 //    the same inputs give the same bits. Segmented shuffles, one
 //    reduction a term as in fused_gather.cu, would cost 27 x 5 shuffles a
 //    pair; here a lane spends about one shared load and three adds a
-//    pair.
+//    pair. A primal batch has 4 columns and 32 pairs, so there the column
+//    loop's 32 steps in 4 lanes cost more than 4 x 5 shuffles in all 32
+//    lanes: it sums its runs by a segmented scan (primal_sums).
 //  * Filling the card: blocks of TQ queries, the beam range split into
 //    whole tiles over blockIdx.y (ops/beam_sweep.gsplit_plan, about 4,000
 //    blocks, a function of the shapes: the 128^2 pass's 32,768 queries in
@@ -124,7 +133,12 @@
 //    6): a batch's tails copied to shared memory first, the pairs on
 //    reconnectable beams queued in a second ring, so that a batch takes
 //    one branch, and a primal pair's base run in the lane that tested it,
-//    with no queue; all three ran slower.
+//    with no queue; all three ran slower. For the primal kinds, two
+//    queries tested a step against the same staged floats (plane0d 1.4%
+//    faster, beam3d 4% slower), a shuffle tree for a batch whose pairs
+//    are all one query's (no faster: such batches are few; primal_sums'
+//    segmented scan serves every batch) and blocks of one or two warps
+//    (slower).
 //  * No wgmma and no TMA: the sweep has no matrix product, and the
 //    accepted pairs are not rectangular tiles; staging a beam tile (8 KB)
 //    is well under 1% of the work tested against it (TQ x TILE_B pairs),
@@ -151,8 +165,8 @@ constexpr int SWEEP_U = 2;       // 32-beam slots a sweep step
 constexpr int RING = 128;        // a warp's queue, a power of two
 constexpr int MIN_BLOCKS = 4;    // blocks an SM (__launch_bounds__)
 constexpr bool CARRY = false;    // the base test's values ride in the ring
-// the primal kinds' own (beam1d, beam3d; their batch is 32 pairs, one a
-// lane): their query tile, register cap, sweep step and ring
+// the primal kinds' own (beam1d, beam3d, plane0d; their batch is 32
+// pairs, one a lane): their query tile, register cap, sweep step and ring
 constexpr int P_TQ = 128;        // queries a primal block
 constexpr int P_MIN_BLOCKS = 6;  // primal blocks an SM (__launch_bounds__)
 constexpr int P_SWEEP_U = 4;     // 32-beam slots a primal sweep step
@@ -162,12 +176,22 @@ static_assert(BATCH == 32 || BATCH == 8, "a batch is 32 or 8 pairs");
 
 constexpr int BS = beam::BW + 1;              // staged beam row, odd
 
+// a primal functor's staged floats a beam (a multiple of 4)
+template <class F>
+constexpr int staged_width() {
+  if constexpr (F::PRIMAL)
+    return F::SW;
+  else
+    return 4;
+}
+
 // A functor's shape: the gradient kinds' batch of BATCH pairs x 32 / BATCH
 // lanes and their offset rows; a primal kind's batch of 32 pairs, one
 // lane each, with no offsets and a query's 3 sums and 1 count.
 template <class F>
 struct Shape {
   static constexpr int tq = F::PRIMAL ? P_TQ : TQ;
+  static constexpr int sw = staged_width<F>();
   static constexpr int batch = F::PRIMAL ? 32 : BATCH;
   static constexpr int sweep_u = F::PRIMAL ? P_SWEEP_U : SWEEP_U;
   static constexpr int ring = F::PRIMAL ? P_RING : RING;
@@ -187,17 +211,18 @@ struct Shape {
   static_assert(TILE_B % (32 * sweep_u) == 0, "whole sweep steps a tile");
   static_assert(tq <= 256 && tq % WARPS == 0, "a query in tile is a byte");
   static_assert(ncol <= 32, "a lane a column");
+  static_assert(sw % 4 == 0, "whole float4s a staged row");
 };
 
 template <class F>
 struct Tile {
   using S = Shape<F>;
   float q[S::tq * S::qs];      // query rows (gradient: then offset rows)
-  // the beam tile: a gradient kind's rows; a primal kind's test floats
-  // (o, d, length, medium) in two halves, read as two 16-byte loads
-  // (consecutive lanes, consecutive 16 bytes: no bank conflict)
+  // the beam tile: a gradient kind's rows; a primal kind's staged floats
+  // (F::stage) in quarters of 4, read as 16-byte loads (consecutive
+  // lanes, consecutive 16 bytes: no bank conflict)
   float b[F::PRIMAL ? 1 : TILE_B * BS];
-  float4 b4[2][F::PRIMAL ? TILE_B : 1];
+  float4 b4[S::sw / 4][F::PRIMAL ? TILE_B : 1];
   float acc[S::tq * F::NF_SUM];
   int cnt[S::tq * S::ncnt];    // visits (gradient: shift_ok, ME key, pairs)
   float scale[WARPS][2];       // the tile's line scale (F::PRETEST)
@@ -237,14 +262,62 @@ struct TermSink {
   }
 };
 
+// A primal batch's sums: pair k is lane k's (k < count). Each lane reads
+// its pair's row; a segmented inclusive scan over the lanes (5 shuffle
+// steps, a fixed tree order) sums each run of one query's pairs into the
+// run's last lane, which adds it to that query's accumulators. A query
+// that comes back later in the batch (from a later beam tile) has a run
+// of its own; its runs are added in lane order, one a round. No atomics:
+// two launches give the same bits. (The gradient kinds' column loop
+// below, 4 lanes each adding 32 rows one after another, took 6 of
+// plane0d's 25 ms; PERF.md section 6.)
+template <class F>
+__device__ __forceinline__ void primal_sums(Tile<F>& t, int lane,
+                                            const float* terms,
+                                            const unsigned char* ring_q,
+                                            int first, int count) {
+  using S = Shape<F>;
+  const float* row = terms + lane * S::nt;
+  const int qk = ring_q[(first + lane) & (S::ring - 1)];
+  const int q_prev = __shfl_up_sync(FULL, qk, 1);
+  const int q_next = __shfl_down_sync(FULL, qk, 1);
+  int head = lane == 0 || q_prev != qk;   // a run starts at this lane
+  bool pending = lane < count && (lane == count - 1 || q_next != qk);
+  float x[F::NF_SUM];
+  for (int c = 0; c < F::NF_SUM; ++c) x[c] = row[c];
+  int n = __float_as_int(row[S::t_visit]);
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int h = __shfl_up_sync(FULL, head, d);
+    const int m = __shfl_up_sync(FULL, n, d);
+    float y[F::NF_SUM];
+    for (int c = 0; c < F::NF_SUM; ++c) y[c] = __shfl_up_sync(FULL, x[c], d);
+    if (lane >= d && !head) {
+      for (int c = 0; c < F::NF_SUM; ++c) x[c] = y[c] + x[c];
+      n += m;
+      head = h;
+    }
+  }
+  while (__any_sync(FULL, pending)) {
+    // the lowest pending lane of each query adds its run this round
+    const unsigned same = __match_any_sync(FULL, pending ? qk : 256 + lane);
+    if (pending && (same & ((1u << lane) - 1)) == 0) {
+      for (int c = 0; c < F::NF_SUM; ++c) t.acc[qk * F::NF_SUM + c] += x[c];
+      t.cnt[qk * S::ncnt] += n;
+      pending = false;
+    }
+  }
+}
+
 // The shifts of `count` (1..batch) pairs of the warp's ring from ring
 // position `first`. Lane l takes pair l % batch and offsets l / batch,
 // + stride, ... (a primal batch: pair l, its base alone); idle lanes of a
 // partial batch repeat the first pair and write rows that nobody reads.
-// Then lane c < ncol adds column c of the pairs' rows in order, one sum a
-// run of pairs of one query, into that query's accumulator: a fixed
-// order, no atomics, and a query that comes back later in the batch (from
-// a later beam tile) simply opens a new run.
+// Then a primal batch adds its runs (primal_sums); a gradient batch's
+// lane c < ncol adds column c of the pairs' rows in order, one sum a run
+// of pairs of one query, into that query's accumulator: a fixed order,
+// no atomics, and a query that comes back later in the batch (from a
+// later beam tile) simply opens a new run.
 template <class F>
 __device__ __forceinline__ void shift_batch(Tile<F>& t, int warp, int lane,
                                             const int* ring_j,
@@ -287,11 +360,13 @@ __device__ __forceinline__ void shift_batch(Tile<F>& t, int warp, int lane,
   if constexpr (CARRY)
     g = t.ring_g[warp][e];
   else
-    F::test(q, rb, p, g);   // true: the sweep queued this pair
+    beam::test_row<F>(q, rb, p, g);   // true: the sweep queued this pair
   beam::pair_body<F, S::stride>(q, rb, kr, rt, qr + beam::QW, p, g, grp, j,
                                 sink);
   __syncwarp();
-  if (lane < S::ncol) {
+  if constexpr (F::PRIMAL) {
+    primal_sums<F>(t, lane, terms, ring_q, first, count);
+  } else if (lane < S::ncol) {
     float sum = 0.0f;
     int n = 0, key = beam::ME_NONE;
     int cur = ring_q[first & (S::ring - 1)];
@@ -403,19 +478,32 @@ __global__ void __launch_bounds__(WARPS * 32, Shape<F>::min_blocks)
     const int n = (int)min((long long)TILE_B, j1 - t0);
     __syncthreads();
     float so = 0.0f, sl = 0.0f;   // F::PRETEST: max |ob|_inf, max |lb|
-    for (int i = threadIdx.x; i < n * (beam::BW / 4); i += blockDim.x) {
-      const float4 v = brows[t0 * (beam::BW / 4) + i];
-      if constexpr (F::PRIMAL) {
-        if ((i & 3) < 2) t.b4[i & 3][i >> 2] = v;
-      } else {
+    if constexpr (F::PRIMAL) {
+      // a thread a row: its staged floats and its line scale
+      for (int jj = threadIdx.x; jj < n; jj += blockDim.x) {
+        float r[beam::BW], st[S::sw];
+#pragma unroll
+        for (int c = 0; c < beam::BW / 4; ++c) {
+          const float4 v = brows[(t0 + jj) * (beam::BW / 4) + c];
+          r[4 * c] = v.x, r[4 * c + 1] = v.y, r[4 * c + 2] = v.z,
+          r[4 * c + 3] = v.w;
+        }
+        F::stage(r, st);
+#pragma unroll
+        for (int c = 0; c < S::sw / 4; ++c)
+          t.b4[c][jj] = make_float4(st[4 * c], st[4 * c + 1], st[4 * c + 2],
+                                    st[4 * c + 3]);
+        if constexpr (F::PRETEST) {
+          so = beam::maximum_(so,
+                              beam::line_scale(beam::ld3(r, beam::B_O), 0.0f));
+          sl = beam::maximum_(sl, fabsf(r[beam::B_LEN]));
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < n * (beam::BW / 4); i += blockDim.x) {
+        const float4 v = brows[t0 * (beam::BW / 4) + i];
         float* d = t.b + (i >> 2) * BS + 4 * (i & 3);
         d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
-      }
-      if constexpr (F::PRETEST) {   // row floats 0-3: o, d.x; 4-7: d.yz, len
-        if ((i & 3) == 0)
-          so = beam::maximum_(so, beam::line_scale({v.x, v.y, v.z}, 0.0f));
-        else if ((i & 3) == 1)
-          sl = beam::maximum_(sl, fabsf(v.z));
       }
     }
     if constexpr (F::PRETEST) {   // non-negative or NaN: max of the bits
@@ -446,14 +534,16 @@ __global__ void __launch_bounds__(WARPS * 32, Shape<F>::min_blocks)
         typename F::Geo g[S::sweep_u];
         bool pass[S::sweep_u];
         if constexpr (F::PRIMAL) {
-          float rb[S::sweep_u][8];
+          float rb[S::sweep_u][S::sw];
 #pragma unroll
           for (int v = 0; v < S::sweep_u; ++v) {
             const int jj = min(u + 32 * v + lane, n - 1);
-            const float4 h0 = t.b4[0][jj], h1 = t.b4[1][jj];
-            rb[v][0] = h0.x, rb[v][1] = h0.y, rb[v][2] = h0.z,
-            rb[v][3] = h0.w, rb[v][4] = h1.x, rb[v][5] = h1.y,
-            rb[v][6] = h1.z, rb[v][7] = h1.w;
+#pragma unroll
+            for (int c = 0; c < S::sw / 4; ++c) {
+              const float4 h = t.b4[c][jj];
+              rb[v][4 * c] = h.x, rb[v][4 * c + 1] = h.y,
+              rb[v][4 * c + 2] = h.z, rb[v][4 * c + 3] = h.w;
+            }
           }
           F::template test_u<S::sweep_u>(q, rb, pq, g, pass);
         } else {
@@ -612,8 +702,7 @@ extern "C" void gvpm_gsweep_shape(int* out) {
   for (int i = 0; i < 12; ++i) out[i] = shape[i];
 }
 
-// the same C interface as beam_sweep.cu's entry, and each kind's blocks
-// an SM
+// each kind's entry (one C interface for all) and its blocks an SM
 #define GSWEEP_ENTRY(NAME, F)                                                \
   extern "C" int gvpm_beam_sweep_##NAME(                                     \
       const float* q, long long M, const float* rows, const int* keys,       \
@@ -629,6 +718,7 @@ extern "C" void gvpm_gsweep_shape(int* out) {
 
 GSWEEP_ENTRY(beam1d, beam::Beam1D)
 GSWEEP_ENTRY(beam3d, beam::Beam3D)
+GSWEEP_ENTRY(plane0d, beam::Plane0D)
 GSWEEP_ENTRY(gbeam1d, beam::GBeam1D)
 GSWEEP_ENTRY(gbeam3d, beam::GBeam3D)
 GSWEEP_ENTRY(gplane0d, beam::GPlane0D)

@@ -1,5 +1,5 @@
-// The second kernel of the beam / plane sweeps (beam_sweep.cu,
-// gsweep.cu): each (beam split, query) wrote its partial sums and counts
+// The second kernel of the beam / plane sweeps (gsweep.cu): each (beam
+// split, query) wrote its partial sums and counts
 // into part / part_cnt ([splits, M, NF_SUM] and [splits, M, NC]); one
 // thread a (query, accumulator) adds the splits in order, so two
 // launches on the same inputs give the same bits. An ME instantiation's

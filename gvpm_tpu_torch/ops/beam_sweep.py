@@ -27,21 +27,21 @@ the host's ME stage resolves that pair (integrators/gradient_gather.py).
 The JAX package leaves these to XLA as dense lax.scan tile loops over
 all beam slots; the TPU has no kernel for them. Here `sweep` / `gsweep`
 launch a CUDA kernel for CUDA tensors and run the plain PyTorch version
-(`sweep_plain` / `gsweep_plain`) only for CPU tensors: beam1d, beam3d
-and the gradient kinds (QUEUED) the queued sweep of csrc/gsweep.cu,
-which tests pairs 32 lanes to a query and runs the ones that pass a
-batch at a time (a primal pair a lane; a gradient pair's shifts 8 pairs
-x 4 offsets); plane0d csrc/beam_sweep.cu's one thread a query. Per-pair
-math for both in csrc/beam_eval.cuh. `sweep` returns
+(`sweep_plain` / `gsweep_plain`) only for CPU tensors: every kind
+(QUEUED) the queued sweep of csrc/gsweep.cu, which tests pairs 32 lanes
+to a query and runs the ones that pass a batch at a time (a primal pair
+a lane; a gradient pair's shifts 8 pairs x 4 offsets), per-pair math in
+csrc/beam_eval.cuh. `sweep` returns
 per query the summed contribution [M,3] and the number of accepted
 pairs [M] (int32); `gsweep` the base sum [M,3], the shifted and the
 MIS-weighted base sums of each offset [4,M,3], the accepted pairs and
 the successful reconnections [M] (int32), all without the camera
 throughputs, which are per query. The work is floating-point (and, for
 beam3d, integer: a threefry word a pair inside the chord test) bound:
-each pair reads a few floats and does 20-40 operations in the test
-(beam1d's a pre-test with no division, which lets ~3% of the pairs on to
-its exact closest-approach test), the few that pass it 50-200 more, and
+each pair reads a few floats and does 20-70 operations in the test
+(beam1d's and plane0d's pre-tests with no division, which let ~3% and
+~5% of the pairs on to their exact tests), the few that pass it 50-200
+more, and
 the beams are read once per tile of queries; a gradient pair that
 passes the base test also reads its beam's gradient tail and its query's
 offset rays.
@@ -58,9 +58,8 @@ package's word: position m * tile + j % tile of
 uniform(fold_in(k_s, j // tile), [M, tile]); `beam_keys` gives each
 kept beam its tile key and lane, and the kernel computes the words.
 
-The kernels are built with nvcc (-fmad=false, no fast math, sm_90a) at
-first use into gvpm_tpu_torch/_build/ (ops/nvcc.py), one library a
-launcher source, the two compiled at once.
+The kernel is built with nvcc (-fmad=false, no fast math, sm_90a) at
+first use into gvpm_tpu_torch/_build/ (ops/nvcc.py), one library.
 """
 
 from __future__ import annotations
@@ -84,9 +83,9 @@ from ..scene.types import PHASE_HG, PHASE_RAYLEIGH
 KINDS = ("beam1d", "beam3d", "plane0d")
 GKINDS = ("gbeam1d", "gbeam3d", "gplane0d")
 GKINDS_ME = tuple(k + "_me" for k in GKINDS)
-# the kinds csrc/gsweep.cu runs: beam1d, beam3d and every gradient kind
-# (plane0d runs on csrc/beam_sweep.cu)
-QUEUED = ("beam1d", "beam3d") + GKINDS + GKINDS_ME
+# the kinds csrc/gsweep.cu runs: every kind (the host tests index their
+# instantiations in this order)
+QUEUED = ("beam1d", "beam3d") + GKINDS + GKINDS_ME + ("plane0d",)
 # kernel launches per kind, counted by the wrapper where it launches
 LAUNCHES = dict.fromkeys(KINDS + GKINDS + GKINDS_ME, 0)
 
@@ -113,9 +112,7 @@ TSLOT = dict(parent_p=0, parent_wi=3, parent_ns=6, scatter_base=9,
              bp_btype=27, bp_alpha=28, bp_eta1=29, bp_g=30, bp_ptype=31)
 TW = 32
 NF_GRAD = 27         # base 3, S 4 x 3, W 4 x 3 floats a gradient query
-BLOCK = 128          # queries (threads) a block: csrc/beam_sweep.cu
-TILE_B = 128         # beams a shared-memory tile (also gsweep.cu's)
-TARGET_BLOCKS = 1056  # 8 blocks an SM of 132: beam splits fill the card
+TILE_B = 128         # beams a shared-memory tile (csrc/gsweep.cu's)
 # csrc/gsweep.cu's blocks (of gsweep_shape()["tq"] queries) a launch
 # aims at: about 4,000, so that the blocks that hold valid queries (the
 # segment compaction puts them first) still make several waves of 4
@@ -126,8 +123,7 @@ PLAIN_MAX_PAIRS = 1 << 24   # pairs per chunk of the plain version
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("beam_sweep.cu", "beam_eval.cuh", "shift_math.cuh", "splits.cuh")
-GSOURCES = ("gsweep.cu",) + SOURCES[1:]
+SOURCES = ("gsweep.cu", "beam_eval.cuh", "shift_math.cuh", "splits.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
@@ -317,7 +313,36 @@ def _pretest_beam3d(q, b, p, tile_scale):
             & (_dot3(perp, perp) < p.r2))
 
 
-PRETESTS = dict(beam1d=_pretest_beam1d, beam3d=_pretest_beam3d)
+# Plane0D::test's margin and bounds (csrc/beam_eval.cuh PLANE_M, PLANE_HI,
+# PLANE_T0), float32
+PLANE_M = np.float32(2.0 ** -21)
+PLANE_HI = np.float32(1.0) + PLANE_M
+PLANE_T0 = np.float32(1e-5) * (np.float32(1.0) - PLANE_M)
+
+
+def _pretest_plane0d(q, b, p, tile_scale):
+    """Plane0D::test, the pre-test with no division, as the kernel runs
+    it: plane_hit's det, a, b and c, signed by det, against the exact
+    test's bounds times |det|, widened by PLANE_M."""
+    oc, dc = q.f3("o"), q.f3("d")
+    e0 = tuple(c * b.f1("length") for c in b.f3("d"))
+    e1 = tuple(c * b.f1("l1") for c in b.f3("w1"))
+    pv = _cross3(dc, e1)
+    det = _dot3(e0, pv)
+    tt = _sub3(oc, b.f3("o"))
+    qq = _cross3(tt, e0)
+    sg = torch.where(det < 0.0, -1.0, 1.0)
+    ad = det.abs()
+    a, bb, c = (sg * _dot3(tt, pv), sg * _dot3(dc, qq), sg * _dot3(e1, qq))
+    lo, hi = float(PLANE_M) * ad, float(PLANE_HI) * ad
+    return (q.b1("valid") & (q.f1("med") == b.f1("med")) & (ad > 1e-7)
+            & (a >= -lo) & (a <= hi) & (bb >= -lo) & (bb <= hi)
+            & (c > float(PLANE_T0) * ad)
+            & (c < q.f1("length") * float(PLANE_HI) * ad))
+
+
+PRETESTS = dict(beam1d=_pretest_beam1d, beam3d=_pretest_beam3d,
+                plane0d=_pretest_plane0d)
 
 
 def _closest(oc, dc, ob, db):
@@ -446,7 +471,8 @@ def sweep_plain(kind, q, rows, p: Params, stats=None):
     reach the pair function's second stage ("stage2"; for beam3d the
     pairs that draw a threefry word) and of those that pass the kernel's
     test ("pretest", PRETESTS: beam1d's pre-test with its guard, beam3d's
-    pairs within r of the beam's line). Returns (sums [M,3] float32,
+    pairs within r of the beam's line, plane0d's pre-test). Returns (sums
+    [M,3] float32,
     accepted pairs [M] int32)."""
     M, N = q.shape[0], rows.shape[0]
     dev = q.device
@@ -915,49 +941,27 @@ _LOCK = threading.Lock()
 
 
 def build():
-    """Compile csrc/beam_sweep.cu and csrc/gsweep.cu with nvcc into
-    _build/ (once each, the two at the same time; ops/nvcc.py) and load
-    them; returns {"beam_sweep": library, "gsweep": library}."""
+    """Compile csrc/gsweep.cu with nvcc into _build/ (once; ops/nvcc.py)
+    and load it; returns the library."""
     with _LOCK:
-        if "libs" in _LIB:
-            return _LIB["libs"]
-        paths, errors = {}, []
-
-        def one(name, sources):
-            try:
-                paths[name] = nvcc.build_library(_CSRC, sources, _BUILD,
-                                                 NVCC_FLAGS, name)
-            except Exception as e:          # noqa: BLE001 -- raised below
-                errors.append(e)
-
-        threads = [threading.Thread(target=one, args=a)
-                   for a in (("beam_sweep", SOURCES), ("gsweep", GSOURCES))]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        if errors:
-            raise errors[0]
-        libs = {name: ctypes.CDLL(path) for name, path in paths.items()}
+        if "lib" in _LIB:
+            return _LIB["lib"]
+        lib = ctypes.CDLL(nvcc.build_library(_CSRC, SOURCES, _BUILD,
+                                             NVCC_FLAGS, "gsweep"))
         vp, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_longlong,
                              ctypes.c_float, ctypes.c_int)
-        for kind in LAUNCHES:
-            fn = getattr(libs[_library(kind)], f"gvpm_beam_sweep_{kind}")
+        for kind in QUEUED:
+            fn = getattr(lib, f"gvpm_beam_sweep_{kind}")
             fn.argtypes = [vp, i64, vp, vp, vp, vp, i64, i32, f32, f32, i32,
                            i64, vp, vp, vp, vp, vp]
             fn.restype = ctypes.c_int
-        for kind in QUEUED:
-            fn = getattr(libs["gsweep"], f"gvpm_gsweep_blocks_per_sm_{kind}")
+            fn = getattr(lib, f"gvpm_gsweep_blocks_per_sm_{kind}")
             fn.argtypes = [vp]
             fn.restype = ctypes.c_int
-        libs["gsweep"].gvpm_gsweep_shape.argtypes = [vp]
-        libs["gsweep"].gvpm_gsweep_shape.restype = None
-        _LIB["libs"] = libs
-        return libs
-
-
-def _library(kind):
-    return "gsweep" if kind in QUEUED else "beam_sweep"
+        lib.gvpm_gsweep_shape.argtypes = [vp]
+        lib.gvpm_gsweep_shape.restype = None
+        _LIB["lib"] = lib
+        return lib
 
 
 def gsweep_shape():
@@ -966,7 +970,7 @@ def gsweep_shape():
     the primal kinds' p_tq, p_min_blocks, p_sweep_u, p_ring; a primal
     batch is 32 pairs, one a lane)."""
     out = (ctypes.c_int * 12)()
-    build()["gsweep"].gvpm_gsweep_shape(out)
+    build().gvpm_gsweep_shape(out)
     return dict(zip(("tq", "warps", "tile_b", "batch", "ring",
                      "min_blocks", "carry", "sweep_u", "p_tq",
                      "p_min_blocks", "p_sweep_u", "p_ring"), out))
@@ -976,36 +980,30 @@ def warps_per_sm(kind):
     """Warps of csrc/gsweep.cu's kernel for queued `kind` that one SM
     holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     n = (ctypes.c_int * 1)()
-    err = getattr(build()["gsweep"], f"gvpm_gsweep_blocks_per_sm_{kind}")(n)
+    err = getattr(build(), f"gvpm_gsweep_blocks_per_sm_{kind}")(n)
     if err != 0:
         raise RuntimeError(f"gsweep occupancy of {kind}: CUDA error {err}")
     return n[0] * gsweep_shape()["warps"]
 
 
 def build_report():
-    """ptxas's resources of each kind's sweep kernel instantiation
-    (beam_sweep.cu's sweep_kernel<Primal<Plane0D>>, gsweep.cu's
-    gsweep_kernel<F>): {kind: dict(registers, spill_stores, spill_loads,
+    """ptxas's resources of each kind's instantiation of gsweep.cu's
+    gsweep_kernel<F>: {kind: dict(registers, spill_stores, spill_loads,
     stack, smem)}."""
     build()
-    # mangled names: the primal ones as Beam1D, Primal<Plane0D>, the
-    # gradient ones as GBeam1DT<false> ("ILb0E") and GBeam1DT<true>
-    # ("ILb1E") etc.
+    # mangled names: the primal ones as Beam1D, the gradient ones as
+    # GBeam1DT<false> ("ILb0E") and GBeam1DT<true> ("ILb1E") etc.
     tags = {f"{t}TILb{int(me)}E": k + ("_me" if me else "")
             for t, k in (("GBeam1D", "gbeam1d"), ("GBeam3D", "gbeam3d"),
                          ("GPlane0D", "gplane0d")) for me in (True, False)}
     tags.update(Beam1D="beam1d", Beam3D="beam3d", Plane0D="plane0d")
-    out = {}
-    for sources, kernel in ((SOURCES, "12sweep_kernel"),
-                            (GSOURCES, "13gsweep_kernel")):
-        for name, r in nvcc.build_report(_CSRC, sources, _BUILD,
-                                         NVCC_FLAGS).items():
-            if kernel in name:
-                out[next(k for t, k in tags.items() if t in name)] = r
-    return out
+    return {next(k for t, k in tags.items() if t in name): r
+            for name, r in nvcc.build_report(_CSRC, SOURCES, _BUILD,
+                                             NVCC_FLAGS).items()
+            if "13gsweep_kernel" in name}
 
 
-def split_plan(M, N, block=BLOCK, tile=TILE_B, target=TARGET_BLOCKS):
+def split_plan(M, N, block, tile, target):
     """(splits, beams per split): the beam range is cut into `splits`
     parts of whole shared-memory tiles so that the grid holds about
     `target` blocks of `block` queries; a function of the shapes only, so
@@ -1019,7 +1017,7 @@ def split_plan(M, N, block=BLOCK, tile=TILE_B, target=TARGET_BLOCKS):
 
 def gsplit_plan(M, N, kind):
     """split_plan for csrc/gsweep.cu's blocks (of the primal kinds' p_tq
-    queries or the gradient kinds' tq) and beam tiles."""
+    queries or the gradient kinds' tq), beam tiles and GTARGET_BLOCKS."""
     shape = gsweep_shape()
     tq = shape["p_tq" if kind in KINDS else "tq"]
     return split_plan(M, N, tq, shape["tile_b"], GTARGET_BLOCKS)
@@ -1069,13 +1067,12 @@ def launch_kernel(kind, q, rows, p: Params, qx=None, tails=None):
         if nc == 4:
             cnt[:, 2] = ME_NONE
         return out, cnt if grad else cnt[:, 0]
-    splits, chunk = gsplit_plan(M, N, kind) if kind in QUEUED \
-        else split_plan(M, N)
+    splits, chunk = gsplit_plan(M, N, kind)
     # the splits' partial sums (not gbeam3d_me's chord point)
     part = torch.empty((splits, M, NF_GRAD if grad else 3),
                        dtype=torch.float32, device=dev)
     part_cnt = torch.empty((splits, M, nc), dtype=torch.int32, device=dev)
-    err = getattr(build()[_library(kind)], f"gvpm_beam_sweep_{kind}")(
+    err = getattr(build(), f"gvpm_beam_sweep_{kind}")(
         q.data_ptr(), M, rows.data_ptr(), keys,
         tails.data_ptr() if grad else None,
         qx.data_ptr() if grad else None, N,

@@ -3,14 +3,14 @@
 
     python3 gvpm_tpu_torch/tools/sweep_variants.py [kind ...] [variant ...]
 
-Captures the sweep inputs of one SPPM pass of beam1d and beam3d at the
-goldens' 128^2 check config and the gradient sweep inputs of one gvpm
-pass of each beam volume at the same config with ME off (the inputs
-chip_smoke.py times the kernels on), then, for each variant, copies
+Captures the sweep inputs of one SPPM pass of beam1d, beam3d and plane0d
+at the goldens' 128^2 check config and the gradient sweep inputs of one
+gvpm pass of each beam volume at the same config with ME off (the inputs
+chip_smoke.py times the kernel on), then, for each variant, copies
 csrc/ into _build/sweep_variants/<name>/ with the variant's text
 substitutions applied, builds it through ops.beam_sweep.build and times
-the queued sweeps (beam1d, beam3d, gbeam1d, gbeam3d and gplane0d, or the
-kinds named on the command line) through the same wrapper, with
+the sweeps (beam1d, beam3d, plane0d, gbeam1d, gbeam3d and gplane0d, or
+the kinds named on the command line) through the same wrapper, with
 chip_smoke.cuda_ms. A variant is a list of (old, new) source
 substitutions of gsweep.cu and its headers (variant_sources): each must
 match one place, so a variant that the sources have outgrown fails
@@ -28,22 +28,30 @@ sweep step (`sweep_u_1`, `sweep_u_4`), the gradient register cap
 (`regs_168` / `regs_255`: 3 / 2 blocks of 128 threads an SM), the primal
 one (`p_blocks_4` / `p_blocks_8`: 128 / 64 registers, 16 / 32 warps an
 SM, against 6 blocks' 80 and 24), `offsets_unrolled` (the shift loop
-unrolled), `batch_noinline` (the batch a function of its own), `inline`
-(a primal pair's base in the lane that tested it, no queue: the lane's
-sums of a query's pairs in a tile added by a fixed shuffle tree), the primal
-sweep step (`p_sweep_u_1`, `p_sweep_u_2`), `margin_2r` (beam1d's
+unrolled), `batch_noinline` (the batch a function of its own), the
+primal sweep step (`p_sweep_u_1`, `p_sweep_u_2`), `margin_2r` (beam1d's
 pre-test at (2 r)^2 instead of (1.1 r)^2), `pretest_off` (beam1d's test
 is its exact closest-approach test on every pair, with its divisions),
 `exact_in_test` (beam1d's exact test in the sweep behind its pre-test, a
 branch, so that only accepted pairs are queued), `chord_dense` (beam3d's
 and gbeam3d's test runs chord's clip on every pair, not only where the
-query is within r of the beam's line), and `shifts_out`, which returns
+query is within r of the beam's line), `plane_exact` (plane0d's test is
+its exact test, plane_hit's division and the six range tests, on every
+pair: the one-thread-a-query kernel's test on the queue), and variants
+that take parts out, to say what each costs: `shifts_out` returns
 before a batch's pair bodies (beam3d / gbeam3d: also before the chord
-sample's threefry word; beam1d's exact-test batches still run): its sums and counts are wrong on purpose and
-say what the sweep, the queue and the batches' loads cost alone. Every
-other variant must agree with `base` (counts, visits and shift_ok equal,
-sums at rtol 2e-4 / atol 5e-6) or the script raises. Prints one line per
-variant: ms per launch, registers a thread and spill bytes per kernel.
+sample's threefry word; beam1d's exact-test batches still run), so it
+times the sweep and the queue alone; `plane_contrib_out` returns from
+plane0d's base after its exact test (the batches' loads, exact test and
+sums stay, the contribution goes); `plane_exp_out` takes the nine
+`expf` of plane0d's three channels out of the contribution;
+`batch_sums_out` skips a primal batch's sums into the queries'
+accumulators; `batch_row_0` has every pair of a batch read beam row 0
+(one cached row in place of a row a lane from L2). Their sums are wrong
+on purpose (and the counts of shifts_out, batch_sums_out and
+batch_row_0). Every other variant must agree with `base` (counts,
+visits and shift_ok equal, sums at rtol 2e-4 / atol 5e-6) or the script
+raises. Prints one line per variant: ms per launch, registers a thread and spill bytes per kernel.
 """
 
 import os
@@ -61,51 +69,22 @@ def shape(name, old, new, kind="int"):
             f"constexpr {kind} {name} = {new};")
 
 
-# `inline`: gsweep_kernel's lines before the sweep loop, before its queue
-# pushes and after the sweep loop (csrc/gsweep.cu)
-SWEEP_LOOP = "      for (int u = 0; u < n; u += 32 * S::sweep_u) {\n"
-PUSHES = ("#pragma unroll\n        for (int v = 0; v < S::sweep_u; ++v) {\n"
-          "          const unsigned hit")
-SWEEP_END = ("          lo += S::batch;\n        }\n      }\n"
-             "    }\n  }\n#pragma unroll 1\n")
-INLINE_BASE = """\
-        if constexpr (F::PRIMAL) {
-#pragma unroll
-          for (int v = 0; v < S::sweep_u; ++v) {
-            if (!pass[v]) continue;
-            const long long j = t0 + u + 32 * v + lane;
-            float rb[beam::BW];
-            for (int c = 0; c < beam::BW / 4; ++c) {
-              const float4 w = __ldg(brows + j * (beam::BW / 4) + c);
-              rb[4 * c] = w.x, rb[4 * c + 1] = w.y, rb[4 * c + 2] = w.z,
-              rb[4 * c + 3] = w.w;
-            }
-            int kr[4] = {0, 0, 0, 0};
-            if constexpr (F::RANDOM) {
-              const int4 kv = __ldg(keys + j);
-              kr[0] = kv.x, kr[1] = kv.y, kr[2] = kv.z;
-            }
-            typename F::Base b;
-            if (F::base(q, rb, kr, p, g[v], b)) {
-              la[0] += b.c[0], la[1] += b.c[1], la[2] += b.c[2];
-              ++ln;
-            }
-          }
-          continue;
-        }
-"""
-INLINE_TREE = """\
-      if constexpr (F::PRIMAL) {   // a fixed tree: same bits
-        for (int o = 16; o > 0; o >>= 1) {
-          for (int c = 0; c < 3; ++c) la[c] += __shfl_xor_sync(FULL, la[c], o);
-          ln += __shfl_xor_sync(FULL, ln, o);
-        }
-        if (lane == 0) {
-          for (int c = 0; c < 3; ++c) t.acc[qi * 3 + c] += la[c];
-          t.cnt[qi] += ln;
-        }
-      }
-"""
+# the end of Plane0D::test, of its base's exact test and of its
+# contribution (csrc/beam_eval.cuh)
+PLANE_RETURN = ("    return (s[S_MED] == q.med) & (ad > 1e-7f) & (a >= -lo) & "
+                "(a <= hi) &\n"
+                "           (b >= -lo) & (b <= hi) & (c > PLANE_T0 * ad) &\n"
+                "           (c < q.len * PLANE_HI * ad);")
+PLANE_EXACT_RETURN = (
+    "    const float inv_det = 1.0f / det;\n"
+    "    return (s[S_MED] == q.med) & (ad > 1e-7f) & "
+    "(sg * a * inv_det >= 0.0f) &\n"
+    "           (sg * a * inv_det <= 1.0f) & (sg * b * inv_det >= 0.0f) &\n"
+    "           (sg * b * inv_det <= 1.0f) & (sg * c * inv_det > 1e-5f) &\n"
+    "           (sg * c * inv_det < q.len);")
+PLANE_OK = "(t1 <= 1.0f) & (tcam > 1e-5f) & (tcam < q.len);\n"
+PLANE_EXP = ("(expf(-q.st[ch] * tcam) * expf(-q.st[ch] * t0) *\n"
+             "                 expf(-q.st[ch] * t1) * q.ss[ch]")
 # Beam1D::test's last line (csrc/beam_eval.cuh)
 PRETEST = ("    return (b[B_MED] == q.med) & ((nn <= 1e-2f) | "
            "(s * s <= p.pre_r2 * nn));")
@@ -126,12 +105,6 @@ VARIANTS = {
     "p_tq_256": [shape("P_TQ", 128, 256)],
     "p_blocks_4": [shape("P_MIN_BLOCKS", 6, 4)],
     "p_blocks_8": [shape("P_MIN_BLOCKS", 6, 8)],
-    "inline": [(SWEEP_LOOP, "      float la[3] = {0.0f, 0.0f, 0.0f};\n"
-                            "      int ln = 0;\n" + SWEEP_LOOP),
-               (PUSHES, INLINE_BASE + PUSHES),
-               (SWEEP_END, SWEEP_END.replace("      }\n    }\n  }\n",
-                                             "      }\n" + INLINE_TREE
-                                             + "    }\n  }\n", 1))],
     "p_sweep_u_1": [shape("P_SWEEP_U", 4, 1), shape("P_RING", 256, 128)],
     "p_sweep_u_2": [shape("P_SWEEP_U", 4, 2), shape("P_RING", 256, 128)],
     "margin_2r": [("g * g <= r2 ? 1.21f * r2 : INFINITY;",
@@ -150,22 +123,30 @@ VARIANTS = {
                     "  beam::pair_body<F, S::stride>(")],
     "chord_dense": [("  if (h.pp < p.r2) g.ch = chord_clip(",
                      "  g.ch = chord_clip(")],
+    "plane_exact": [(PLANE_RETURN, PLANE_EXACT_RETURN)],
+    "plane_contrib_out": [(PLANE_OK, PLANE_OK + "    s.c[0] = t0, s.c[1] = t1, "
+                           "s.c[2] = tcam;\n    return ok;\n")],
+    "plane_exp_out": [(PLANE_EXP, "(tcam * t0 * t1 * q.ss[ch]")],
+    "batch_sums_out": [("    primal_sums<F>(",
+                        "    if (p.k == -1.0f) primal_sums<F>(")],
+    "batch_row_0": [("  const int j = ring_j[e];",
+                     "  const int j = ring_j[e] & 0;")],
 }
-WRONG_ON_PURPOSE = ("shifts_out",)
+WRONG_ON_PURPOSE = ("shifts_out", "plane_contrib_out", "plane_exp_out",
+                    "batch_sums_out", "batch_row_0")
 
 
 def variant_sources(name, csrc):
     """The kernel sources of csrc/ with variant `name`'s substitutions
     applied, by file name; raises unless each substitution's old text
-    occurs in exactly one place of gsweep.cu and its headers
-    (beam_sweep.cu, which plane0d alone runs, is copied as it is)."""
+    occurs in exactly one place of gsweep.cu and its headers."""
     from gvpm_tpu_torch.ops import beam_sweep as bs
     texts = {}
-    for f in sorted(set(bs.SOURCES + bs.GSOURCES)):
+    for f in bs.SOURCES:
         with open(os.path.join(csrc, f)) as fh:
             texts[f] = fh.read()
     for old, new in VARIANTS[name]:
-        where = [f for f in bs.GSOURCES if old in texts[f]]
+        where = [f for f in bs.SOURCES if old in texts[f]]
         if len(where) != 1 or texts[where[0]].count(old) != 1:
             raise SystemExit(f"{name}: {len(where)} sources hold "
                              f"{old!r}, not one, once")
@@ -188,7 +169,7 @@ def main(kinds, names):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
     scene = scenes.box_medium(128, 128)
-    kinds = kinds or [k for k in bs.QUEUED if k in bs.KINDS + bs.GKINDS]
+    kinds = kinds or list(bs.KINDS + bs.GKINDS)
     captured = {}
     for config, capture, of in (
             (PhotonConfig(**chip_smoke.BEAM_GOLD_KW),
@@ -238,7 +219,8 @@ def main(kinds, names):
 
 
 if __name__ == "__main__":
-    QUEUED = ("beam1d", "beam3d", "gbeam1d", "gbeam3d", "gplane0d")
+    QUEUED = ("beam1d", "beam3d", "plane0d", "gbeam1d", "gbeam3d",
+              "gplane0d")
     kinds = [n for n in sys.argv[1:] if n in QUEUED]
     names = [n for n in sys.argv[1:] if n not in QUEUED]
     unknown = [n for n in names if n not in VARIANTS]

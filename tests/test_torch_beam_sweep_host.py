@@ -1,12 +1,11 @@
-"""The beam/plane sweep kernels' own per-pair math (gvpm_tpu_torch/csrc/
+"""The beam/plane sweep kernel's own per-pair math (gvpm_tpu_torch/csrc/
 beam_eval.cuh), compiled as host C++ with g++ and driven from ctypes,
 against the plain PyTorch version of ops/beam_sweep.py on the sweep
 inputs of one 16x16 SPPM pass of each estimator (tests/
 test_torch_common.py's config), and its threefry against
 core/rng.uniform bit for bit. The host loop visits each query against
-every beam in order (beam1d / beam3d through their test and base parts,
-plane0d through its pair, as one thread of csrc/beam_sweep.cu does);
-beam1d and beam3d also run in csrc/gsweep.cu's queued order
+every beam in order through the functor's test and base parts; the
+three kinds also run in csrc/gsweep.cu's queued order
 (test_torch_common.QUEUED_HOST_CPP), on those inputs and on
 chip_smoke.beam_stress_inputs (beam1d's also moved far from the origin,
 where its pre-test's guard is just held and where it is exceeded). The
@@ -43,9 +42,9 @@ HOST_CPP = r"""
 #define __host__
 #define __device__
 #include "beam_eval.cuh"
-// a test / base functor's pair (Beam1D, Beam3D): its test (Beam1D's
-// pre-test guarded by the query's and the beam's line scales), then its
-// base
+// a test / base functor's pair (Beam1D, Beam3D, Plane0D): its test
+// (Beam1D's pre-test guarded by the query's and the beam's line scales),
+// then its base
 template <class F>
 struct Parts {
   static bool pair(const beam::Query& q, const float* b, const int* key,
@@ -56,7 +55,7 @@ struct Parts {
                                                        b[beam::B_LEN]));
     typename F::Geo geo;
     typename F::Base s;
-    if (!F::test(q, b, g, geo) || !F::base(q, b, key, p, geo, s))
+    if (!beam::test_row<F>(q, b, g, geo) || !F::base(q, b, key, p, geo, s))
       return false;
     for (int ch = 0; ch < 3; ++ch) c[ch] = s.c[ch];
     return true;
@@ -91,7 +90,7 @@ extern "C" void host_sweep(int kind, const float* q, long long M,
   if (kind == 0) run<Parts<beam::Beam1D>>(q, M, rows, keys, N, p, out, cnt);
   else if (kind == 1)
     run<Parts<beam::Beam3D>>(q, M, rows, keys, N, p, out, cnt);
-  else run<beam::Plane0D>(q, M, rows, keys, N, p, out, cnt);
+  else run<Parts<beam::Plane0D>>(q, M, rows, keys, N, p, out, cnt);
 }
 extern "C" void host_uniform(unsigned k0, unsigned k1, long long n,
                              float* out) {
@@ -171,11 +170,9 @@ def test_host_compiled_pair_math_matches_plain(host_lib, sweep_inputs, kind):
     # the second stage (beam3d: the threefry words) runs for a small
     # share of the pairs
     assert int(want_cnt.sum()) <= stats["stage2"] < q.shape[0] * rows.shape[0]
-    if kind != "plane0d":
-        # the kernel's test lets through every accepted pair and few
-        # others
-        assert int(want_cnt.sum()) <= stats["pretest"] \
-            < q.shape[0] * rows.shape[0] // 4
+    # the kernel's test lets through every accepted pair and few others
+    assert int(want_cnt.sum()) <= stats["pretest"] \
+        < q.shape[0] * rows.shape[0] // 4
 
 
 @pytest.fixture(scope="module")
@@ -183,7 +180,7 @@ def queued_lib(tmp_path_factory):
     return build_host_library(tmp_path_factory, QUEUED_HOST_CPP)
 
 
-@pytest.mark.parametrize("kind", ("beam1d", "beam3d"))
+@pytest.mark.parametrize("kind", ("beam1d", "beam3d", "plane0d"))
 def test_queued_order_matches_plain(queued_lib, sweep_inputs, kind):
     """csrc/gsweep.cu's order (a warp's 32 lanes testing a query against
     32 x SWEEP_U beams, the ring, batches of a pair a lane) at the
@@ -194,7 +191,7 @@ def test_queued_order_matches_plain(queued_lib, sweep_inputs, kind):
 
 
 # the stress inputs: each kind's, and beam1d's moved far from the origin
-STRESS = [pytest.param(kind, 0.0, id=kind) for kind in ("beam1d", "beam3d")] \
+STRESS = [pytest.param(kind, 0.0, id=kind) for kind in bs.KINDS] \
     + [pytest.param("beam1d", s, id=f"beam1d-moved-{s:g}")
        for s in BEAM1D_FAR_SHIFTS]
 
@@ -205,8 +202,10 @@ def test_queued_order_on_stress_input(queued_lib, kind, shift):
     wrap the ring many times and straddle the splits), beams within 1% of
     r, beams inside the pre-test's margin that the exact test rejects,
     near-parallel and parallel beams (beam1d), grazing beams whose chord
-    samples base rejects (beam3d), ragged counts, invalid queries and a
-    medium mismatch. beam1d's input moved by `shift` along each axis puts
+    samples base rejects (beam3d), planes with u0, u1 or tcam within a few
+    ulp of an edge, |det| across 1e-7 and planes (nearly) parallel to the
+    query (plane0d), ragged counts, invalid queries and a medium
+    mismatch. beam1d's input moved by `shift` along each axis puts
     its lines' scales A (a query's and a beam tile's, csrc/beam_eval.cuh
     line_scale) just inside the pre-test's guard (A < 8,192 r, where the
     pre-test's rounding bound is tightest) or all past it (the pre-test
@@ -220,9 +219,10 @@ def test_queued_order_on_stress_input(queued_lib, kind, shift):
     assert rows.shape[0] % shape["tile_b"] != 0
     assert int(want[1][q[:, bs.QSLOT["valid"]] < 0.5].sum()) == 0
     # pairs the kernel's test passes on and base rejects: beam1d's margin
-    # (and its near-parallel beams), beam3d's grazing chords
+    # (and its near-parallel beams), beam3d's grazing chords, plane0d's
+    # margin at the edges
     accepted = int(want[1].sum())
-    assert stats["pretest"] > accepted + 40
+    assert stats["pretest"] > accepted + (10 if kind == "plane0d" else 40)
     if kind == "beam3d":
         assert stats["stage2"] > accepted
     if shift:
@@ -285,9 +285,11 @@ def test_beam_keys_and_split_plan():
     assert keys[:, 2].tolist() == [0, 3, 255, 0, 44]
     assert (keys[:, :2].to(torch.int64) & rng.M32).tolist() == \
         [[1, 2 ** 32 - 1]] * 3 + [[2 ** 31, 5]] * 2
+    shape = gsweep_source_shape()
     for M, N in ((32768, 1_000_000), (512, 3000), (1, 1), (5000, 129)):
-        splits, chunk = bs.split_plan(M, N)
-        assert chunk % bs.TILE_B == 0 and 1 <= splits
+        splits, chunk = bs.split_plan(M, N, shape["p_tq"], shape["tile_b"],
+                                      bs.GTARGET_BLOCKS)
+        assert chunk % shape["tile_b"] == 0 and 1 <= splits
         assert (splits - 1) * chunk < N <= splits * chunk
 
 

@@ -436,8 +436,9 @@ def port_beam_me_gather(kind, scene, inp, seg_tile, budget):
 # ---------------------------------------------------------------------------
 # the queued sweeps (csrc/gsweep.cu) on the host
 # ---------------------------------------------------------------------------
-# beam_eval.cuh's test / base / shift parts (the primal Beam1D / Beam3D:
-# test / base), compiled with g++ (with __host__ / __device__ defined
+# beam_eval.cuh's test / base / shift parts (the primal Beam1D / Beam3D /
+# Plane0D: test, on the floats their stage takes from a row, and base),
+# compiled with g++ (with __host__ / __device__ defined
 # away) and driven in two orders: each query against every beam, as the
 # plain version visits them (plain_order; Beam1D's pre-test guarded by
 # the pair's own line scales), and csrc/gsweep.cu's (queued): blocks of
@@ -538,8 +539,8 @@ static void plain_order(const float* q, long long M, const float* rows,
     if (qq.valid)
       for (long long j = 0; j < N; ++j) {
         typename F::Geo g;
-        if (!F::test(qq, rows + j * beam::BW, guarded(p, qq, rows, j, j + 1),
-                     g))
+        if (!beam::test_row<F>(qq, rows + j * beam::BW,
+                               guarded(p, qq, rows, j, j + 1), g))
           continue;
         HostSink sink{acc, c, true};
         beam::pair_body<F, 1>(qq, rows + j * beam::BW, key_row(keys, j),
@@ -580,7 +581,7 @@ static int queued(const float* q, long long M, const float* rows,
               const beam::Query qq =
                   beam::load_query(q + (q0 + qi) * beam::QW, (uint32_t)(q0 + qi));
               typename F::Geo g;
-              F::test(qq, rows + j * beam::BW, p, g);
+              beam::test_row<F>(qq, rows + j * beam::BW, p, g);
               HostSink sink{acc + qi * NF, c + qi * 4, grp == 0};
               beam::pair_body<F, STRIDE>(qq, rows + j * beam::BW,
                                          key_row(keys, j),
@@ -601,7 +602,7 @@ static int queued(const float* q, long long M, const float* rows,
               for (int lane = 0; lane < step && u + lane < n; ++lane) {
                 const long long j = t0 + u + lane;
                 typename F::Geo g;
-                if (F::test(qq, rows + j * beam::BW, pq, g))
+                if (beam::test_row<F>(qq, rows + j * beam::BW, pq, g))
                   ring.push_back({qi, j});
               }
               most = std::max(most, (int)(ring.size() - lo));
@@ -640,7 +641,8 @@ static int queued(const float* q, long long M, const float* rows,
   X(4, beam::GPlane0D)             \
   X(5, beam::GBeam1DME)            \
   X(6, beam::GBeam3DME)            \
-  X(7, beam::GPlane0DME)
+  X(7, beam::GPlane0DME)           \
+  X(8, beam::Plane0D)
 
 extern "C" void host_plain_order(int kind, const float* q, long long M,
                                  const float* rows, const int* keys,

@@ -1,13 +1,13 @@
-"""The beam/plane sweep CUDA kernels on the card (beam1d and beam3d on
-csrc/gsweep.cu's queued sweep, plane0d on csrc/beam_sweep.cu): built
-from gvpm_tpu_torch/csrc, launched by the wrapper for CUDA tensors
-(never the plain version; one launch per sweep), and equal to the plain
-version on the sweep inputs of one small SPPM pass of each beam
-estimator, and beam1d / beam3d on chip_smoke.beam_stress_inputs (beam1d
-also moved by chip_smoke.BEAM1D_FAR_SHIFTS, its pre-test's guard just
-held and exceeded) at the split plan and in one split: the accepted-pair
-counts exactly, the sums at rtol 2e-4 / atol 5e-6, two launches bitwise
-equal (no atomics).
+"""The beam/plane sweep CUDA kernel on the card (beam1d, beam3d and
+plane0d on csrc/gsweep.cu's queued sweep): built from
+gvpm_tpu_torch/csrc, launched by the wrapper for CUDA tensors (never the
+plain version; one launch per sweep), and equal to the plain version on
+the sweep inputs of one small SPPM pass of each beam estimator, and on
+chip_smoke.beam_stress_inputs (beam1d's also moved by
+chip_smoke.BEAM1D_FAR_SHIFTS, its pre-test's guard just held and
+exceeded) at the split plan and in one split: the accepted-pair counts
+exactly, the sums at rtol 2e-4 / atol 5e-6, two launches bitwise equal
+(no atomics).
 
 Needs a CUDA card and skips without one. It imports no JAX, so it runs
 on a machine without it:
@@ -63,7 +63,7 @@ def test_kernel_matches_plain(captured, kind):
 
 
 @pytest.mark.parametrize("kind, shift", [
-    pytest.param(kind, 0.0, id=kind) for kind in ("beam1d", "beam3d")]
+    pytest.param(kind, 0.0, id=kind) for kind in bs.KINDS]
     + [pytest.param("beam1d", s, id=f"beam1d-moved-{s:g}")
        for s in BEAM1D_FAR_SHIFTS])
 def test_queued_kernel_on_stress_input(captured, kind, shift):
