@@ -143,17 +143,42 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 mean within 2% of the primal's, and the correlation of gx
                 with the golden's finite differences above 0.5 as
                 tools/goldens.py:237-255 holds gvpm:distance), and the
-                same three with ME on (their relMSE beside ME off's,
-                the same bars); the 32^2
-                gvpm render once
-                more with the gathers' plain version, to show how far a
-                different order of the sums moves the relMSE.
+                same three with ME on at half the passes (5 / 5 / 15;
+                their relMSE beside ME off's, the same bars); the 32^2
+                ME-off gvpm render once more with the gathers' plain
+                version, to show how far a different order of the sums
+                moves the relMSE.
   6. entry    — the port's entry() (one SPPM pass of a 32^2 tiny scene)
                 on the card: a finite image.
      volpath  — volpath.render of box-medium at each golden's generation
                 config (1024 spp, max_depth 12, seed 101; 32^2 and 128^2):
                 seconds, and relMSE against the golden under the
                 agreement bar it was accepted at (agree_relmse).
+  7. scenes   — the kernels against their plain versions (the holds of
+                3 / 3c) on inputs of the scenes the box-medium phases do
+                not reach: K1-ME / K2-ME on one caustic-glass 128^2 ME
+                pass (gather points and photons around a delta
+                dielectric sphere), K2 on one pass of scenes.feature_box's
+                materials box (plastic, phong and rough-conductor
+                surfaces: gather points and visits on each lobe), beam1d
+                / beam3d / plane0d on one laser 128^2 check-config pass;
+                each kernel's ms beside its box-medium figure. Then the
+                golden bars of laser and caustic-glass: at 128^2 sppm
+                distance / bre / beam1d / beam3d / plane0d and
+                gvpm:distance (ME off, tools/goldens.py's check configs,
+                10 passes, plane0d 30, seed 5), at 32^2 sppm:distance /
+                sppm:beam1d / gvpm:distance, gvpm:distance on
+                caustic-glass at 32^2 with ME on (no bar: finite, beside
+                ME off), volpath at the 32^2 generation config within
+                agree_relmse, and gx against the 128^2 golden's finite
+                differences above 0.5; each relMSE beside its bar, with
+                seconds.
+     het, lights — one SPPM pass and one volpath render (FEATURE_SPP
+                spp) at 128^2 of the heterogeneous-fog box, of the box lit
+                by point, spot and directional lights and a constant
+                environment, and of the box lit by an environment map:
+                finite images with a positive mean, timed; gvpm.render on
+                the heterogeneous box raises ValueError.
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -321,6 +346,10 @@ GBEAM_ME_REPLACES = {
 # valid queries
 PLAIN_EVERY = 4
 GBEAM_GOLD_PASSES = {"beam1d": 10, "beam3d": 10, "plane0d": 30}
+# the same renders with ME on run half the passes (the script's time:
+# their relMSE is printed beside ME off's, the reconstruction and gx
+# checks are the same)
+GBEAM_GOLD_ME_DIVISOR = 2
 # operations counted from csrc/beam_eval.cuh's gradient functors, one
 # per add, multiply, divide, compare, select, clamp, sqrtf and expf, on
 # box_medium's path (diffuse and medium parents; parent_lobe 112 as in
@@ -1266,6 +1295,281 @@ def gbeams_me_against_plain(kind, args):
     return got, start.elapsed_time(end), err, n, me_queries
 
 
+def gather_against_plain(name, ev, args):
+    """The fused gather kernel twice and its plain version once on `args`:
+    visits, shift_ok and ME keys equal, sums within TOL, the two
+    launches bitwise equal. Returns (plain out, ME queries, err)."""
+    from gvpm_tpu_torch.ops import fused_gather as fg
+    got, got_me = fg.fused_gather(ev, *args)
+    again, again_me = fg.fused_gather(ev, *args)
+    want, want_me = fg.fused_gather_plain(ev, *args)
+    torch.cuda.synchronize()
+    if not torch.equal(got[:, 27:29], want[:, 27:29]):
+        raise AssertionError(f"{name}: visits/shift_ok differ from the "
+                             "plain version")
+    torch.testing.assert_close(got, want, **TOL)
+    me_queries = None
+    if ev.me:
+        if got_me.dtype != torch.int32 or not torch.equal(got_me,
+                                                          want_me):
+            raise AssertionError(f"{name}: ME row keys differ from the "
+                                 "plain version")
+        me_queries = int((got_me != fg.ME_NONE).sum())
+        if not me_queries > 0:
+            raise AssertionError(f"{name}: no query has an ME pair")
+    elif got_me is not None or want_me is not None:
+        raise AssertionError(f"{name}: unexpected ME output")
+    # the sums' order is fixed (segmented warp reductions, no atomics)
+    if not (torch.equal(got.view(torch.int32), again.view(torch.int32))
+            and (not ev.me or torch.equal(got_me, again_me))):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             "differ")
+    return want, me_queries, float((got - want).abs().max())
+
+
+# the scenes of the registry besides box-medium that the goldens hold
+# bars for, and the feature scenes of [het] / [lights]
+GOLD_SCENES = ("laser", "caustic-glass")
+FEATURE_SPP = 4           # volpath spp of the [het] / [lights] renders
+
+
+def _gold_meta(sub):
+    gdir = os.path.normpath(os.path.join(ROOT, "goldens", sub))
+    with open(os.path.join(gdir, "meta.json")) as f:
+        return gdir, json.load(f)
+
+
+def scene_kernels(smi, base_ms):
+    """The kernels against their plain versions on inputs of the scenes
+    this slice added: K1-ME / K2-ME on one caustic-glass 128^2 ME pass
+    (photons and gather points around a delta dielectric sphere), K2 on
+    one pass of the materials box (plastic, phong and rough-conductor
+    surfaces), and the primal sweeps on one laser 128^2 check-config
+    pass (a dense anisotropic fog). Prints each kernel's ms beside the
+    box-medium figure of the same kernel (`base_ms`)."""
+    from gvpm_tpu_torch import scenes
+    from gvpm_tpu_torch.core.config import GradientConfig, PhotonConfig
+    from gvpm_tpu_torch.integrators import gradient_gather, gvpm, sppm
+    from gvpm_tpu_torch.ops import beam_sweep as bs
+    from gvpm_tpu_torch.ops import fused_gather as fg
+    from gvpm_tpu_torch.scene.types import (BSDF_PHONG, BSDF_PLASTIC,
+                                            BSDF_ROUGH_CONDUCTOR)
+
+    def gathers(scene, cfg):
+        captured, launch = {}, fg.fused_gather
+
+        def capture(ev, *args):
+            captured.setdefault(ev.name, args)
+            return launch(ev, *args)
+
+        fg.fused_gather = capture
+        try:
+            gvpm.render_pass(scene, cfg, "distance", cfg.volume_photons, 5,
+                             0, 1.0, 1.0, sppm.base_volume_radius(scene, cfg))
+        finally:
+            fg.fused_gather = launch
+        return captured
+
+    def hold(label, name, args):
+        ev = gradient_gather.EVALS[name]
+        want, me_q, err = gather_against_plain(name, ev, args)
+        ms = cuda_ms(lambda: fg.fused_gather(ev, *args), 10, warm=5)
+        me = f", ME queries {me_q} (row keys equal)" if ev.me else ""
+        phase("scenes", f"{label} {name}: {args[2].shape[0]} queries x "
+                        f"{args[1].shape[0]} rows, visits "
+                        f"{int(want[:, 27].sum())} and shift_ok "
+                        f"{int(want[:, 28].sum())} equal{me}"
+                        f", max|err| {err:.3g} (rtol 2e-4 atol 5e-6), two "
+                        f"launches bitwise equal; kernel {ms:.3f} ms "
+                        f"(box-medium headline {base_ms[name]:.3f} ms; "
+                        f"{smi})")
+        return want
+
+    cfg_me = GradientConfig(**dict(GVPM_GOLD_KW, use_manifold=True))
+    caught = gathers(scenes.caustic_glass(128, 128), cfg_me)
+    for name in ("surface_me", "volume_me"):
+        hold("caustic-glass 128^2 ME pass:", name, caught[name])
+    caught = gathers(scenes.feature_scene("materials", 128, 128, seed=5),
+                     GradientConfig(**GVPM_GOLD_KW))
+    args = caught["surface"]
+    ev = gradient_gather.EVALS["surface"]
+    qbt = args[2][:, ev.q_slots["btype"]].round().long()
+    want = hold("materials box 128^2 pass:", "surface", args)
+    by_lobe = {}
+    for lobe, bt in (("plastic", BSDF_PLASTIC), ("phong", BSDF_PHONG),
+                     ("rough_conductor", BSDF_ROUGH_CONDUCTOR)):
+        by_lobe[lobe] = (int((qbt == bt).sum()),
+                         int(want[qbt == bt, 27].sum()))
+        if not by_lobe[lobe][1] > 0:
+            raise AssertionError(f"materials box: no photon visits a "
+                                 f"{lobe} gather point")
+    phase("scenes", "materials box: (gather points, visits) on each lobe "
+                    + json.dumps(by_lobe))
+    lscene = scenes.laser_beam(128, 128)
+    bcfg = PhotonConfig(**BEAM_GOLD_KW)
+    b_pass = dict(n_photons=max(bcfg.surface_photons, bcfg.volume_photons),
+                  seed=5, it=0, surf_scale=1.0, vol_scale=1.0,
+                  r_vol_base=sppm.base_volume_radius(lscene, bcfg))
+    for kind, (q, rows, p) in capture_sweeps(lscene, bcfg, b_pass).items():
+        _, n_acc, _, err = beams_against_plain(kind, q, rows, p)
+        ms = cuda_ms(lambda: bs.sweep(kind, q, rows, p), 5)
+        phase("scenes", f"laser 128^2 check-config pass: {kind} "
+                        f"(gsweep.cu) {q.shape[0]} camera queries x "
+                        f"{rows.shape[0]} beams, accepted pairs "
+                        f"{int(n_acc.sum())} equal, max|err| {err:.3g} "
+                        f"(rtol 2e-4 atol 5e-6), two launches bitwise "
+                        f"equal; kernel {ms:.3f} ms (box-medium "
+                        f"{base_ms[kind]:.3f} ms; {smi})")
+
+
+def scene_goldens():
+    """[scenes]: the golden bars of laser and caustic-glass. At 128^2
+    (goldens/meta.json) sppm distance / bre / beam1d / beam3d / plane0d
+    and gvpm:distance with ME off at tools/goldens.py's check configs
+    (10 passes, plane0d 30, seed 5); at 32^2 (goldens/ci) sppm:distance,
+    sppm:beam1d and gvpm:distance (10 passes), gvpm:distance once more
+    with ME on (no bar: finite, printed beside ME off); volpath at the
+    32^2 golden's generation config within agree_relmse; the gvpm gx
+    against the 128^2 golden's finite differences above 0.5
+    (tools/goldens.py:237-255: 2^15 paths, seed 7, 10 passes)."""
+    from gvpm_tpu_torch import scenes
+    from gvpm_tpu_torch.core.config import (GradientConfig, PhotonConfig,
+                                            VolPathConfig)
+    from gvpm_tpu_torch.integrators import gvpm, sppm, volpath
+    from gvpm_tpu_torch.utils import image as imglib
+    ci_kw = dict(surface_photons=1 << 15, volume_photons=1 << 15,
+                 max_depth=12, grid_hash_size=1 << 15)
+    for name in GOLD_SCENES:
+        for sub in (".", "ci"):
+            gdir, meta = _gold_meta(sub)
+            size = meta["size"]
+            bars = meta["scenes"][name]["thresholds"]
+            ref = imglib.read_pfm(os.path.join(gdir, f"{name}_ref.pfm"))
+            seen = {}
+            for tech, bar in bars.items():
+                integ, _, vol = tech.partition(":")
+                passes = 30 if vol == "plane0d" else 10
+                t0 = time.perf_counter()
+                scene = scenes.get(name, width=size, height=size)
+                if integ == "sppm":
+                    out = sppm.render(scene, PhotonConfig(
+                        **(BEAM_GOLD_KW if size >= 128 else ci_kw)),
+                        volume=vol, seed=5, passes=passes)
+                else:
+                    out = gvpm.render(scene, GradientConfig(
+                        **(GVPM_GOLD_KW if size >= 128 else dict(
+                            ci_kw, use_manifold=False))),
+                        volume=vol, seed=5, passes=passes)
+                img = out["image"].cpu().numpy()
+                if not np.isfinite(img).all():
+                    raise AssertionError(f"{name} {tech} {size}: non-finite")
+                r = imglib.relmse(img, ref)
+                seen[tech] = r
+                phase("scenes", f"{name} {tech} {size}^2 {passes} passes: "
+                                f"relMSE {r:.5f} (bar {bar}) in "
+                                f"{time.perf_counter() - t0:.2f} s")
+                if not r <= bar:
+                    raise AssertionError(f"{name} {tech} {size}: relMSE "
+                                         f"{r} > {bar}")
+            if sub == "ci" and name == "caustic-glass":
+                t0 = time.perf_counter()
+                out = gvpm.render(scenes.get(name, width=size, height=size),
+                                  GradientConfig(**dict(
+                                      ci_kw, use_manifold=True)),
+                                  volume="distance", seed=5, passes=10)
+                img = out["image"].cpu().numpy()
+                if not np.isfinite(img).all():
+                    raise AssertionError(f"{name} ME on {size}: non-finite")
+                phase("scenes", f"{name} gvpm:distance {size}^2 10 passes, "
+                                f"ME on: relMSE {imglib.relmse(img, ref):.5f}"
+                                f" (ME off {seen['gvpm:distance']:.5f}; no "
+                                f"bar) in {time.perf_counter() - t0:.2f} s")
+            if sub == "ci":
+                agree = meta["scenes"][name]["agree_relmse"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = volpath.render(scenes.get(name, width=size,
+                                                height=size),
+                                     VolPathConfig(spp=meta["gen_spp"],
+                                                   max_depth=12), seed=101)
+                torch.cuda.synchronize()
+                img = img.cpu().numpy()
+                r = imglib.relmse(img, ref)
+                phase("scenes", f"{name} volpath {size}^2 "
+                                f"{meta['gen_spp']} spp, max_depth 12, seed "
+                                f"101: relMSE against the golden {r:.3g} "
+                                f"(agree_relmse {agree}) in "
+                                f"{time.perf_counter() - t0:.2f} s")
+                if not (np.isfinite(img).all() and r < agree):
+                    raise AssertionError(f"{name} volpath {size}: relMSE "
+                                         f"{r} >= {agree}")
+            else:
+                t0 = time.perf_counter()
+                out = gvpm.render(scenes.get(name, width=size, height=size),
+                                  GradientConfig(**dict(
+                                      ci_kw, use_manifold=False)),
+                                  volume="distance", seed=7, passes=10)
+                gx = out["gx"].cpu().numpy()
+                fdx = ref[:, 1:] - ref[:, :-1]
+                corr = float(np.corrcoef(gx[:, :-1].ravel(),
+                                         fdx.ravel())[0, 1])
+                phase("scenes", f"{name} gvpm gx~FD(golden) {size}^2: "
+                                f"correlation {corr:.3f} (> 0.5) in "
+                                f"{time.perf_counter() - t0:.2f} s")
+                if not corr > 0.5:
+                    raise AssertionError(f"{name}: gx correlation {corr}")
+
+
+def feature_renders(smi):
+    """[het] and [lights]: one SPPM pass (the 128^2 check config,
+    `distance`) and one volpath render (FEATURE_SPP spp, max_depth 12) at
+    128^2 on the heterogeneous box (a 32^3 density from seed 5), on the
+    box lit by point + spot + directional lights and a constant
+    environment, and on the box lit by an environment map: finite images
+    with a positive mean, timed; gvpm.render on the heterogeneous box
+    must raise the JAX package's ValueError."""
+    from gvpm_tpu_torch import scenes
+    from gvpm_tpu_torch.core.config import (GradientConfig, PhotonConfig,
+                                            VolPathConfig)
+    from gvpm_tpu_torch.integrators import gvpm, sppm, volpath
+    cfg = PhotonConfig(**BEAM_GOLD_KW)
+    for label, kind in (("het", "het"), ("lights", "lights"),
+                        ("lights", "envmap")):
+        scene = scenes.feature_scene(kind, 128, 128, seed=5)
+        for what in ("sppm", "volpath"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if what == "sppm":
+                img = sppm.render_pass(
+                    scene, cfg, "distance", cfg.volume_photons, 5, 0, 1.0,
+                    1.0, sppm.base_volume_radius(scene, cfg))
+            else:
+                img = volpath.render(scene, VolPathConfig(
+                    spp=FEATURE_SPP, max_depth=12), seed=101)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if not (img.shape == (128, 128, 3)
+                    and bool(torch.isfinite(img).all())
+                    and float(img.mean()) > 0):
+                raise AssertionError(f"{kind} {what}: image not finite or "
+                                     "dark")
+            extra = (f"{cfg.volume_photons} paths" if what == "sppm" else
+                     f"{FEATURE_SPP} spp, max_depth 12")
+            phase(label, f"{kind} box 128^2 {what} ({extra}): "
+                         f"{secs:.3f} s, image mean "
+                         f"{float(img.mean()):.5g}, finite ({smi})")
+        if kind == "het":
+            try:
+                gvpm.render(scene, GradientConfig(**GVPM_GOLD_KW),
+                            volume="distance", seed=5, passes=1)
+            except ValueError as e:
+                phase(label, f"gvpm.render on the het box raises "
+                             f"ValueError: {str(e)[:60]}...")
+            else:
+                raise AssertionError("gvpm.render accepted a "
+                                     "heterogeneous medium")
+
+
 def capture_sweeps(scene, cfg, passes_kw):
     """One SPPM pass of each beam estimator on `scene`; returns {kind:
     the (q, rows, params) of its first sweep call}."""
@@ -1409,41 +1713,11 @@ def main():
                          1.0, r_vol_base)
     finally:
         fg.fused_gather = launch
-    def against_plain(name, ev, args):
-        """The kernel twice and the plain version once on `args`:
-        visits, shift_ok and ME keys equal, sums within TOL, the two
-        launches bitwise equal. Returns (plain out, ME queries, err)."""
-        got, got_me = fg.fused_gather(ev, *args)
-        again, again_me = fg.fused_gather(ev, *args)
-        want, want_me = fg.fused_gather_plain(ev, *args)
-        torch.cuda.synchronize()
-        if not torch.equal(got[:, 27:29], want[:, 27:29]):
-            raise AssertionError(f"{name}: visits/shift_ok differ from the "
-                                 "plain version")
-        torch.testing.assert_close(got, want, **TOL)
-        me_queries = None
-        if ev.me:
-            if got_me.dtype != torch.int32 or not torch.equal(got_me,
-                                                              want_me):
-                raise AssertionError(f"{name}: ME row keys differ from the "
-                                     "plain version")
-            me_queries = int((got_me != fg.ME_NONE).sum())
-            if not me_queries > 0:
-                raise AssertionError(f"{name}: no query has an ME pair")
-        elif got_me is not None or want_me is not None:
-            raise AssertionError(f"{name}: unexpected ME output")
-        # the sums' order is fixed (segmented warp reductions, no atomics)
-        if not (torch.equal(got.view(torch.int32), again.view(torch.int32))
-                and (not ev.me or torch.equal(got_me, again_me))):
-            raise AssertionError(f"{name}: two launches on the same inputs "
-                                 "differ")
-        return want, me_queries, float((got - want).abs().max())
-
     kernels = {}
     for name, ev in gradient_gather.EVALS.items():
         inputs = name if name.endswith("_me") else name + "_me"
         plan, tbl, qrows, r2, k3, md = args = captured[inputs]
-        want, me_queries, err = against_plain(name, ev, args)
+        want, me_queries, err = gather_against_plain(name, ev, args)
         candidates = int((plan.r1 - plan.r0).sum())
         visits = int(want[:, 27].sum())
         bound_ms, bound_by, detail = kernel_bound(
@@ -1475,7 +1749,8 @@ def main():
     for name, ev in gradient_gather.EVALS.items():
         r0, r1, *rest, hot = stress_inputs(ev, device="cuda")
         plan = fg.Plan(torch.arange(r0.shape[0], device="cuda"), r0, r1)
-        want, me_queries, err = against_plain(name, ev, (plan, *rest))
+        want, me_queries, err = gather_against_plain(name, ev,
+                                                     (plan, *rest))
         if not int(want[hot, 27]) > 256:
             raise AssertionError(f"{name}: the stress input's hot query "
                                  f"has {int(want[hot, 27])} visits")
@@ -1935,7 +2210,7 @@ def main():
         ("ci", "ME off", ci),
         ("ci", "ME on", dict(ci, use_manifold=True)),
         (".", "ME off", dict(GVPM_GOLD_KW, passes=10))]
-    seen = {}
+    seen, kept = {}, {}
     for sub, label, kw in gold_cfgs:
         gdir = os.path.normpath(os.path.join(ROOT, "goldens", sub))
         with open(os.path.join(gdir, "meta.json")) as f:
@@ -1954,6 +2229,7 @@ def main():
         r = imglib.relmse(img, imglib.read_pfm(
             os.path.join(gdir, "box-medium_ref.pfm")))
         seen[(size, label)] = r
+        kept[(size, label)] = res
         phase("goldens", f"box-medium gvpm:distance {size}^2 {passes} "
                          f"passes, {label}: relMSE {r:.5f} (bar {bar}) in "
                          f"{time.perf_counter() - t0:.2f} s")
@@ -2028,6 +2304,8 @@ def main():
     beam_gold = {}
     for label, cfg_ in (("ME off", gcfg), ("ME on", gcfg_me)):
         for volume, passes in GBEAM_GOLD_PASSES.items():
+            if label == "ME on":
+                passes //= GBEAM_GOLD_ME_DIVISOR
             t0 = time.perf_counter()
             res = gvpm.render(scenes.box_medium(128, 128), cfg_,
                               volume=volume, seed=5, passes=passes)
@@ -2040,7 +2318,8 @@ def main():
             corr = float(np.corrcoef(gx[:, :-1].ravel(), fdx.ravel())[0, 1])
             r = imglib.relmse(res["image"].cpu().numpy(), gref)
             beam_gold[(volume, label)] = r
-            off = (f" (ME off {beam_gold[(volume, 'ME off')]:.5f})"
+            off = (f" (ME off {beam_gold[(volume, 'ME off')]:.5f} at "
+                   f"{GBEAM_GOLD_PASSES[volume]} passes)"
                    if label == "ME on" else "")
             phase("goldens", f"box-medium gvpm:{volume} 128^2 {passes} "
                              f"passes, {label}: relMSE {r:.5f}{off} (no "
@@ -2058,12 +2337,13 @@ def main():
     phase("goldens", "32^2 relMSE ME off / ME on: "
                      f"{seen[(32, 'ME off')]:.5f} / "
                      f"{seen[(32, 'ME on')]:.5f}")
-    # how far rounding alone moves a golden: the same 32^2 render with
-    # the gathers' plain version (same pairs, sums in another order)
+    # how far rounding alone moves a golden: the 32^2 ME-off render
+    # again with the gathers' plain version (same pairs, sums in another
+    # order)
     kw = dict(ci)
     passes = kw.pop("passes")
-    kernel = gvpm.render(scenes.box_medium(32, 32), GradientConfig(**kw),
-                         volume="distance", seed=5, passes=passes)
+    kernel = kept[(32, "ME off")]
+    del kept
     fg.fused_gather = fg.fused_gather_plain
     try:
         plain = gvpm.render(scenes.box_medium(32, 32), GradientConfig(**kw),
@@ -2118,6 +2398,12 @@ def main():
                          f"(agree_relmse {agree})")
         if not r < agree:
             raise AssertionError(f"volpath {size}: relMSE {r} >= {agree}")
+
+    # ---- 7. the rest of the scene description ----
+    base_ms = {n: k["ms"] for n, k in {**kernels, **beam_kernels}.items()}
+    scene_kernels(smi, base_ms)
+    scene_goldens()
+    feature_renders(smi)
 
     src = "gvpm_tpu_torch/csrc/fused_gather.cu"
     print(json.dumps({"kernels": [

@@ -63,6 +63,23 @@ def reflect_local(wo):
     return torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
 
 
+def fresnel_dielectric(cos_i, eta):
+    """Unpolarized dielectric Fresnel reflectance. cos_i signed
+    (positive = outside), eta = int/ext IOR ratio. Returns (F, cos_t),
+    cos_t signed opposite to cos_i."""
+    rel_eta = torch.where(cos_i > 0.0, eta, 1.0 / eta)
+    abs_ci = torch.abs(cos_i)
+    sin2_t = (1.0 - abs_ci * abs_ci) / (rel_eta * rel_eta)
+    tir = sin2_t >= 1.0
+    abs_ct = safe_sqrt(1.0 - sin2_t)
+    r_s = (abs_ci - rel_eta * abs_ct) / torch.clamp(
+        abs_ci + rel_eta * abs_ct, min=1e-12)
+    r_p = (rel_eta * abs_ci - abs_ct) / torch.clamp(
+        rel_eta * abs_ci + abs_ct, min=1e-12)
+    F = torch.where(tir, 1.0, 0.5 * (r_s * r_s + r_p * r_p))
+    return F, torch.where(cos_i > 0.0, -abs_ct, abs_ct)
+
+
 def fresnel_conductor(cos_i, eta, k):
     """Approximate unpolarized conductor Fresnel (per-channel eta, k)."""
     ci2 = torch.clamp(cos_i * cos_i, 0.0, 1.0)[..., None]

@@ -49,6 +49,21 @@ def key(seed, device="cpu"):
                         device=device)
 
 
+def seed_keys(seeds):
+    """jax.random.key(s) for each uint32 seed of a tensor: words
+    (0, s) -> [..., 2] (threefry_seed: the high word of a 32-bit seed is
+    its logical shift by 32, i.e. 0)."""
+    seeds = seeds.to(torch.int64) & M32
+    return torch.stack([torch.zeros_like(seeds), seeds], dim=-1)
+
+
+def float_bits(x):
+    """The bit pattern of float32 values as non-negative int64 words
+    (lax.bitcast_convert_type(x, uint32))."""
+    return x.to(torch.float32).contiguous().view(torch.int32).to(
+        torch.int64) & M32
+
+
 def fold_in(k, data):
     """jax.random.fold_in; `data` is an int or an int tensor (batched)."""
     if not torch.is_tensor(data):

@@ -1,5 +1,5 @@
-"""Sampling warps (mirrors the slice of gvpm_tpu/core/warp.py the
-G-VPM distance pass uses)."""
+"""Sampling warps: [0,1)^2 -> distributions on spheres, disks, cones
+and triangles (mirrors gvpm_tpu/core/warp.py)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,9 @@ import torch
 from .math import safe_sqrt
 
 INV_PI = 1.0 / math.pi
+INV_TWOPI = 1.0 / (2.0 * math.pi)
 INV_FOURPI = 1.0 / (4.0 * math.pi)
+FOURPI = 4.0 * math.pi
 
 
 def square_to_uniform_sphere(u):
@@ -46,6 +48,25 @@ def square_to_uniform_disk_concentric(u):
     r = torch.where(both_zero, 0.0, r)
     phi = torch.where(both_zero, 0.0, phi)
     return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def square_to_uniform_disk(u):
+    """Uniform unit disk (polar mapping); returns (x, y)."""
+    r = safe_sqrt(u[..., 0])
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def square_to_uniform_cone(u, cos_cutoff):
+    """Uniform direction in the cone around +z with the given cutoff
+    cosine -> (d, pdf_sa) (warp.cpp squareToUniformCone)."""
+    cos_t = 1.0 - u[..., 0] * (1.0 - cos_cutoff)
+    sin_t = safe_sqrt(1.0 - cos_t * cos_t)
+    phi = 2.0 * math.pi * u[..., 1]
+    d = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t],
+                    dim=-1)
+    pdf = INV_TWOPI / torch.clamp(1.0 - cos_cutoff, min=1e-12)
+    return d, pdf.expand(cos_t.shape)
 
 
 def square_to_uniform_triangle(u):

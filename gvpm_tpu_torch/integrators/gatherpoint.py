@@ -19,7 +19,7 @@ from ..core.config import PhotonConfig
 from ..core.math import coordinate_system, dot, to_local, to_world
 from ..core.struct import TensorStruct
 from ..render import medium as med
-from ..render.bsdf import is_diffuse_like, require_ported, sample_bsdf
+from ..render.bsdf import is_diffuse_like, sample_bsdf
 from ..render.emitter import eval_radiance
 from ..render.visibility import medium_transition
 from ..scene.camera import generate_rays
@@ -66,7 +66,6 @@ def trace(scene: Scene, cfg: PhotonConfig, key, px, py, rand_tile=1):
     rand_tile > 1: px/py hold `rand_tile` equal pixel groups and every
     random draw is tiled so lane i of each group sees the SAME randoms
     (the one-wavefront form of the base + 4 offset retraces)."""
-    require_ported(scene)
     n = px.shape[0]
     if n % rand_tile:
         raise ValueError("rand_tile must divide the lane count")

@@ -27,8 +27,6 @@ from ..core import rng
 from ..core.config import GradientConfig
 from ..core.logging import PhaseClock, StatsCounter, log
 from ..ops import cellgrid, hashgrid, poisson
-from ..render.bsdf import require_ported
-from ..render.medium import require_homogeneous
 from ..scene.types import Scene
 from ..utils import checkpoint as ckpt
 from . import estimators, gatherpoint, gradient_gather, ptracer, sppm
@@ -243,6 +241,21 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     return p_s, S_s, W_s, stats
 
 
+def reject_heterogeneous(scene: Scene):
+    """The gradient shifts use homogeneous closed forms (exp(-sigma_t*d)
+    transmittance ratios along reconnected segments); on a heterogeneous
+    medium they would be silently biased. The reference has the same
+    limitation (its README lists G-VPM heterogeneous as missing), and the
+    JAX package rejects such scenes with this error."""
+    if scene.het_medium >= 0:
+        raise ValueError(
+            "gradient-domain integrators do not support heterogeneous "
+            "media: the reconnection/ME shifts use homogeneous "
+            "closed-form transmittance ratios and would be biased "
+            "(reference parity: README.md:66). Render this scene with "
+            "the primal integrators (volpath/sppm) instead.")
+
+
 def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
                 seed, it, surf_scale, vol_scale, r_vol_base, timings=None):
     """One gradient pass. Returns (primal, gx, gy, stats): images
@@ -251,8 +264,7 @@ def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
     successful shifts (reconnection + ME), and the ME pairs dropped by /
     taken within the per-gather budget.
     `timings` (optional dict) collects per-phase seconds."""
-    require_homogeneous(scene)
-    require_ported(scene)
+    reject_heterogeneous(scene)
     dev = scene.device
     if dev.type == "cuda":
         # float32 throughout, as the JAX package: no TF32 rounding

@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import torch
 
-from ..core.math import coordinate_system, cross, dot, normalize
+from ..core.math import (coordinate_system, cross, dot, fresnel_dielectric,
+                         normalize)
 from ..scene.intersect import intersect
 from ..scene.types import (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_NULL,
                            Scene)
@@ -293,17 +294,6 @@ def _bounce(d, n, eta, is_diel, refl):
     return d_new, cos_i, ok
 
 
-def _fresnel_diel(cos_i, eta):
-    rel = torch.where(cos_i > 0.0, eta, 1.0 / eta)
-    ci = torch.abs(cos_i)
-    sin2_t = (1.0 - ci * ci) / (rel * rel)
-    tir = sin2_t >= 1.0
-    ct = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
-    r_s = (ci - rel * ct) / torch.clamp(ci + rel * ct, min=1e-12)
-    r_p = (rel * ci - ct) / torch.clamp(rel * ci + ct, min=1e-12)
-    return torch.where(tir, 1.0, 0.5 * (r_s * r_s + r_p * r_p))
-
-
 def _retrace(scene: Scene, chl, w1, want_pos=False):
     """Trace the delta chains from their anchors along w1 [N,3].
     chl: lane-major chain dict (`_lanes`); returns (exit_p [N,3],
@@ -321,7 +311,7 @@ def _retrace(scene: Scene, chl, w1, want_pos=False):
         p_new = p + d * t[..., None]
         d_new, cos_i, bok = _bounce(d, n, eta, is_diel,
                                     chl["branch_refl"][:, j])
-        F = torch.where(is_diel, _fresnel_diel(cos_i, eta), 1.0)
+        F = torch.where(is_diel, fresnel_dielectric(cos_i, eta)[0], 1.0)
         ok = ok & ((hok & bok) | ~live)
         fres.append(torch.where(live, F, 1.0))
         coss.append(torch.where(live, cos_i, 1.0))

@@ -192,7 +192,7 @@ def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key,
         s_ax, t_ax = coordinate_system(ns)
         wi_loc = to_local(ns, s_ax, t_ax, -d)
         u3 = rng.uniform(k_scat, (n, 3))
-        bs = sample_bsdf(scene, bi, wi_loc, u3)
+        bs = sample_bsdf(scene, bi, wi_loc, u3, transport="importance")
         wo_surf = to_world(ns, s_ax, t_ax, bs.wo)
         alpha_surf_out = alpha_in_surf * bs.weight
 

@@ -23,8 +23,6 @@ from ..core import rng
 from ..core.config import PhotonConfig
 from ..core.logging import PhaseClock, log
 from ..ops import hashgrid
-from ..render.bsdf import require_ported
-from ..render.medium import require_homogeneous
 from ..scene.types import Scene
 from ..utils import checkpoint as ckpt
 from . import estimators, gatherpoint, ptracer
@@ -64,8 +62,6 @@ def shoot_photons(scene: Scene, cfg: PhotonConfig, n_photons, key,
     """Light pass -> (photon dict, beam dict), both flattened [S*P]. The
     beam dict carries the shift caches of the beam reconnection; it is
     None when with_beams is false (the pass reads no beam)."""
-    require_ported(scene)
-    require_homogeneous(scene)
     lv, lb = ptracer.shoot(scene, cfg, n_photons, key, with_beams=with_beams)
     pv, _ = ptracer.flatten_vertices(lv)
     if lb is None:

@@ -20,7 +20,7 @@ from ..core.math import coordinate_system, dot, to_local, to_world
 from ..render import film
 from ..render import medium as med
 from ..render import phase as ph
-from ..render.bsdf import eval_bsdf, require_ported, sample_bsdf
+from ..render.bsdf import eval_bsdf, sample_bsdf
 from ..render.emitter import (env_le, eval_radiance, pdf_direct_area,
                               pdf_env_sa, sample_direct)
 from ..render.visibility import medium_transition, segment_transmittance
@@ -149,7 +149,7 @@ def trace_radiance(scene: Scene, cfg: VolPathConfig, o, d, med_idx, key,
         else:
             L_nee = torch.zeros((n, 3), **f32)
 
-        # escaped rays: constant environment, MIS vs the NEE env strategy
+        # escaped rays: the environment, MIS vs the NEE env strategy
         esc = active & ~ms.success & ~hit.valid
         w_env = torch.where(spec | (not cfg.nee), 1.0,
                             _mis(last_pdf, pdf_env_sa(scene, d)))
@@ -203,8 +203,6 @@ def render(scene: Scene, cfg: VolPathConfig = VolPathConfig(), seed=0,
     As many spp as fit into `max_lanes` wavefront lanes run per pass:
     that decides which pass key each sample draws from (the JAX
     package's streams) and bounds the memory of a pass."""
-    require_ported(scene)
-    med.require_homogeneous(scene)
     dev = scene.device
     H, W = scene.height, scene.width
     spp_per_pass = max(1, min(cfg.spp, max_lanes // (H * W)))
@@ -221,10 +219,12 @@ def render(scene: Scene, cfg: VolPathConfig = VolPathConfig(), seed=0,
         si = torch.repeat_interleave(
             it * nspp + torch.arange(nspp, device=dev), H * W)
         u = qmc.pixel_samples(cfg.sampler, k_pix, pix, si, cfg.spp)
-        k_path = rng.split(key, 3)[2]
+        _, k_lens, k_path = rng.split(key, 3)
         px = px0.reshape(-1).repeat(nspp).to(torch.float32)
         py = py0.reshape(-1).repeat(nspp).to(torch.float32)
-        o, d, _ = generate_rays(scene, px, py, u)
+        u_lens = rng.uniform(k_lens, tuple(u.shape)) \
+            if scene.cam_aperture > 0 else None
+        o, d, _ = generate_rays(scene, px, py, u, u_lens=u_lens)
         L = trace_radiance(scene, cfg, o, d, scene.cam_medium, k_path)
         if cfg.rfilter == "box":
             img = img + L.reshape(nspp, H, W, 3).mean(0) * nspp

@@ -42,7 +42,8 @@ def segment_transmittance(scene: Scene, a, b, med_start):
         hit = intersect(scene, o + d * SEG_EPS, d,
                         t_max=remaining - 2.0 * SEG_EPS)
         seg_len = torch.where(hit.valid, hit.t + SEG_EPS, remaining)
-        tr_new = tr * med.transmittance(scene, cur_med, seg_len)
+        tr_new = tr * med.transmittance(scene, cur_med, seg_len,
+                                        o=o + d * SEG_EPS, d=d)
         bi = torch.clamp(scene.prim_bsdf(hit.prim), 0,
                          scene.bsdf_type.shape[0] - 1)
         is_null = hit.valid & (scene.bsdf_type[bi] == BSDF_NULL)

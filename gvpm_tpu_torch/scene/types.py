@@ -8,6 +8,7 @@ Float tables are float32, id tables int64, all on one device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -126,6 +127,13 @@ class Scene(TensorStruct):
         return {f.name: getattr(self, f.name)
                 for f in dataclasses.fields(self)
                 if f.name not in STATIC_FIELDS}
+
+    @functools.cached_property
+    def bsdf_kinds(self):
+        """The BSDF type ids the table holds, read to the host once: the
+        samplers compute only these lobes (every lane selects its own
+        type's, so the others cannot change a result)."""
+        return frozenset(self.bsdf_type.tolist())
 
     @property
     def n_tris(self):

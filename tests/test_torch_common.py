@@ -110,6 +110,13 @@ def jax_mirror_scene(side=SIDE):
     return b.build(width=side, height=side)
 
 
+def jax_feature_scene(kind, side=SIDE, seed=0, grid=8):
+    """scenes.feature_box's test scene built by the JAX package's builder
+    (the port's recipe takes any builder with the same methods)."""
+    return scenes.feature_box(JaxSceneBuilder(), kind, seed, grid).build(
+        width=side, height=side)
+
+
 def port_scene_from_jax(js):
     """The port's Scene carried over from the JAX Scene's tables."""
     arrays = {k: np.asarray(getattr(js, k))

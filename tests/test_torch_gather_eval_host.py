@@ -9,19 +9,30 @@ the kernel does: `inside` on the row's head, then `body` on the row for
 the pairs that pass. This is the only way the CUDA source's math runs
 before it reaches the card. Bar: visits and shift_ok exact, sums at rtol
 2e-4 / atol 5e-6; the ME row key (the minimum row over the pairs whose
-`body<true>` returns the ME mask) exactly equal."""
+`body<true>` returns the ME mask) exactly equal. The surface gather also
+runs on a pass of scenes.feature_box's "materials" box, whose photons
+land on plastic, phong and rough-conductor surfaces, and shift_math.cuh's
+eval_bsdf_pdf is held against render/bsdf.eval_bsdf_pdf_params lobe by
+lobe on random directions (rtol 1e-4 / atol 1e-7: host libm's expf /
+powf against PyTorch's, a few ulp apart, which the Beckmann term's
+exp(-tan^2 / alpha^2) scales by its argument, up to ~40: 5 of 12,288
+rough-conductor values sit 1.3e-5 apart)."""
 
 import ctypes
 import os
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
 from chip_smoke import stress_inputs
 from gvpm_tpu_torch.integrators import gradient_gather, gvpm, sppm
 from gvpm_tpu_torch.ops import fused_gather as fg
+from gvpm_tpu_torch.render.bsdf import eval_bsdf_pdf_params
+from gvpm_tpu_torch.scene.types import (BSDF_DIFFUSE, BSDF_PHONG,
+                                        BSDF_PLASTIC, BSDF_ROUGH_CONDUCTOR)
 from tests.test_torch_common import (torch_threads,  # noqa: F401
                                      ME_TORCH_CFG, N_PHOTONS, SIDE,
                                      TORCH_CFG, jax_mirror_scene,
@@ -63,6 +74,18 @@ static void run(const float* tbl, const float* head, long long P,
     if (ME) me_row[q] = me_min;
   }
 }
+extern "C" void host_eval_bsdf(long long n, const int* btype,
+                               const float* par, const float* wi,
+                               const float* wo, float* f, float* pdf) {
+  for (long long i = 0; i < n; ++i) {
+    const float* p = par + i * 11;
+    gvpm::BsdfParams bp{btype[i], {p[0], p[1], p[2]}, {p[3], p[4], p[5]},
+                        {p[6], p[7], p[8]}, p[9], p[10]};
+    gvpm::eval_bsdf_pdf(bp, {wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]},
+                        {wo[3 * i], wo[3 * i + 1], wo[3 * i + 2]},
+                        f + 3 * i, pdf[i]);
+  }
+}
 extern "C" void host_gather(int surface, int me, const float* tbl,
                             const float* head, long long P, long long row_w,
                             const float* qrows, const int* r0,
@@ -97,13 +120,16 @@ def host_lib(tmp_path_factory):
                                 ctypes.c_longlong, ctypes.c_float,
                                 ctypes.c_float, ctypes.c_int, vp, vp]
     lib.host_gather.restype = None
+    lib.host_eval_bsdf.argtypes = [ctypes.c_longlong] + [vp] * 6
+    lib.host_eval_bsdf.restype = None
     return lib
 
 
 @pytest.fixture(scope="module")
 def kernel_inputs():
     """The fused gather's inputs of one port pass without ME (the box)
-    and one with ME (the mirror-wall box), by eval name."""
+    and one with ME (the mirror-wall box), by eval name, and of a pass
+    of the materials box ("surface:materials")."""
     from gvpm_tpu_torch import scenes
     calls = {}
     orig = fg.fused_gather
@@ -119,6 +145,14 @@ def kernel_inputs():
                 (port_scene_from_jax(jax_mirror_scene()), ME_TORCH_CFG)):
             gvpm.render_pass(scene, cfg, "distance", N_PHOTONS, 0, 1, 1.0,
                              1.0, sppm.base_volume_radius(scene, cfg))
+        mat = {}
+        fg.fused_gather = lambda ev, *a: (mat.setdefault(ev.name, (ev,) + a),
+                                          orig(ev, *a))[1]
+        gvpm.render_pass(scenes.feature_scene("materials", SIDE, SIDE,
+                                              device="cpu"),
+                         TORCH_CFG, "distance", N_PHOTONS, 0, 1, 1.0, 1.0,
+                         sppm.base_volume_radius(scene, TORCH_CFG))
+        calls["surface:materials"] = mat["surface"]
     finally:
         fg.fused_gather = orig
     return calls
@@ -141,7 +175,7 @@ def _host_gather(host_lib, ev, plan, tbl, qrows, r2, k3, md):
 EVALS = ["surface", "volume", "surface_me", "volume_me"]
 
 
-@pytest.mark.parametrize("which", EVALS)
+@pytest.mark.parametrize("which", EVALS + ["surface:materials"])
 def test_host_compiled_kernel_math_matches_plain(host_lib, kernel_inputs,
                                                  which):
     ev, plan, tbl, qrows, r2, k3, md = kernel_inputs[which]
@@ -209,6 +243,46 @@ def test_stress_input_host_source_matches_plain(host_lib, which):
         assert int((ref_me != fg.ME_NONE).sum()) > 0
         # the hot query's lowest ME row lies in one of its last runs
         assert int(plan.r0[hot, 7]) <= int(ref_me[hot]) < fg.ME_NONE
+
+
+@pytest.mark.parametrize("btype", [BSDF_DIFFUSE, BSDF_ROUGH_CONDUCTOR,
+                                   BSDF_PHONG, BSDF_PLASTIC])
+def test_host_eval_bsdf_pdf_matches_plain(host_lib, btype):
+    """shift_math.cuh::eval_bsdf_pdf, the kernel's baked-parameter BSDF
+    at the base and the shifted points, on each reconnectable lobe with
+    randomized parameters (rough conductor alpha 0.05-0.6, phong
+    exponents 1-60, plastic IOR 1.3-1.8) and random directions."""
+    rs = np.random.default_rng(btype)
+    n = 4096
+    par = np.concatenate([
+        rs.uniform(0.05, 0.95, (n, 3)),           # albedo
+        rs.uniform(0.0, 4.0, (n, 3)) if btype == BSDF_ROUGH_CONDUCTOR
+        else rs.uniform(0.0, 0.5, (n, 3)),        # k / phong specular
+        rs.uniform(0.2, 1.5, (n, 3)),             # conductor eta
+        rs.uniform(0.05, 0.6, (n, 1)) if btype != BSDF_PHONG
+        else rs.uniform(1.0, 60.0, (n, 1)),       # alpha / exponent
+        rs.uniform(1.3, 1.8, (n, 1))], axis=1).astype(np.float32)
+    wi, wo = (rs.normal(size=(n, 3)).astype(np.float32) for _ in range(2))
+    wi /= np.linalg.norm(wi, axis=1, keepdims=True)
+    wo /= np.linalg.norm(wo, axis=1, keepdims=True)
+    wi[:, 2] = np.abs(wi[:, 2])                   # the upper side
+    wo[: n // 2, 2] = np.abs(wo[: n // 2, 2])
+    bt = np.full(n, btype, np.int32)
+    f = np.zeros((n, 3), np.float32)
+    pdf = np.zeros(n, np.float32)
+    host_lib.host_eval_bsdf(n, *(a.ctypes.data for a in (bt, par, wi, wo,
+                                                         f, pdf)))
+    t = torch.from_numpy(par)
+    params = dict(btype=torch.from_numpy(bt.astype(np.int64)),
+                  alb=t[:, 0:3].unbind(-1), spec=t[:, 3:6].unbind(-1),
+                  eta3=t[:, 6:9].unbind(-1), alpha=t[:, 9], eta1=t[:, 10])
+    fr, fg_, fb, pdf_ref = eval_bsdf_pdf_params(
+        params, torch.from_numpy(wi).unbind(-1),
+        torch.from_numpy(wo).unbind(-1))
+    ref = torch.stack([fr, fg_, fb], dim=-1).numpy()
+    assert (pdf_ref > 0).float().mean() > 0.3
+    np.testing.assert_allclose(f, ref, rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(pdf, pdf_ref.numpy(), rtol=1e-4, atol=1e-7)
 
 
 def test_cpu_tensors_take_the_plain_version(kernel_inputs):

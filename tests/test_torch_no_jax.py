@@ -1,7 +1,8 @@
 """gvpm_tpu_torch imports no JAX and nothing of the JAX package: a fresh
 interpreter with jax, flax and gvpm_tpu made unimportable imports every
 module of the port, renders with the default manifold shifts, renders
-SPPM (every volume estimator), gvpm `bre` and volpath, round-trips a
+SPPM (every volume estimator, and a pass of every built-in and feature
+scene), gvpm `bre` and volpath, round-trips a
 PFM, and saves and resumes a checkpoint of both progressive loops; and no source file of the port, nor
 chip_smoke.py, holds an import of them."""
 
@@ -67,6 +68,15 @@ for v in ("bre", "beam1d", "beam3d", "plane0d"):
         sppm.base_volume_radius(scene, pcfg))).all(), v
 assert torch.isfinite(gvpm.render(scene, cfg, volume="bre",
                                   passes=1)["image"]).all()
+# every registry scene and feature scene (dielectrics, every lobe,
+# delta / env lights, heterogeneous fog, triangle-free) through SPPM
+for sc in ([scenes.get(n, width=8, height=8, device="cpu")
+            for n in scenes.REGISTRY]
+           + [scenes.feature_scene(k, 8, 8, grid=4, device="cpu")
+              for k in scenes.FEATURES]):
+    assert torch.isfinite(sppm.render_pass(
+        sc, pcfg, "distance", 1 << 8, 0, 0, 1.0, 1.0,
+        sppm.base_volume_radius(sc, pcfg))).all()
 assert callable(entry.entry)
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "gvpm_tpu")
@@ -114,7 +124,9 @@ def test_entry_points_default_to_the_card():
     calls = (lambda: scenes.box_medium(8, 8),
              lambda: entry.entry(),
              lambda: entry.tiny_scene(),
-             lambda: scenes.get("box-medium", width=8, height=8),
+             *(lambda n=n: scenes.get(n, width=8, height=8)
+               for n in scenes.REGISTRY),
+             lambda: scenes.feature_scene("het", 8, 8, grid=4),
              lambda: SceneBuilder().build(),
              lambda: interop.tensors_from_arrays({"a": [1.0]}),
              lambda: interop.gather_points_from_arrays({}),

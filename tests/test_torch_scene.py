@@ -1,6 +1,8 @@
-"""The port's scene layer against gvpm_tpu: the built-in box_medium
-tables, the camera rays, the exact closest-hit intersection and the
-homogeneous medium's three distance-sampling strategies."""
+"""The port's scene layer against gvpm_tpu: the tables of every built-in
+scene and of the feature scenes (heterogeneous fog, delta and
+environment lights, an environment map, every lobe, thinlens,
+triangle-free), the camera rays, the exact closest-hit intersection and
+the homogeneous medium's three distance-sampling strategies."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +18,7 @@ from gvpm_tpu.scene.intersect import occluded as jax_occluded
 from gvpm_tpu_torch import scenes
 from gvpm_tpu_torch.render import medium
 from gvpm_tpu_torch.scene import camera, intersect
-from tests.test_torch_common import port_scene_from_jax
+from tests.test_torch_common import jax_feature_scene, port_scene_from_jax
 from tests.test_torch_common import torch_threads  # noqa: F401
 
 
@@ -26,16 +28,30 @@ def pair():
     return js, port_scene_from_jax(js)
 
 
-def test_interop_scene_equals_port_box_medium(pair):
-    _, carried = pair
-    own = scenes.box_medium(width=24, height=16, device="cpu")
-    for name, v in own.tensors().items():
-        c = getattr(carried, name)
-        assert c.dtype == v.dtype and c.shape == v.shape, name
-        assert torch.equal(c, v), name
-    for name in ("width", "height", "cam_aperture", "cam_focus",
-                 "het_medium"):
-        assert getattr(carried, name) == getattr(own, name), name
+@pytest.mark.parametrize("name", sorted(jscenes.REGISTRY)
+                         + [f"feature:{k}" for k in scenes.FEATURES])
+def test_interop_scene_equals_port_box_medium(pair, name):
+    """The port's SceneBuilder gives the JAX builder's tables value for
+    value: each registry scene (box-medium at the module's 24x16) and
+    each feature scene of scenes.feature_box (an 8^3 density grid)."""
+    if name == "box-medium":
+        _, carried = pair
+        own = scenes.box_medium(width=24, height=16, device="cpu")
+    elif name.startswith("feature:"):
+        kind = name.split(":")[1]
+        carried = port_scene_from_jax(jax_feature_scene(kind, 12))
+        own = scenes.feature_scene(kind, 12, 12, grid=8, device="cpu")
+    else:
+        carried = port_scene_from_jax(jscenes.get(name, width=12,
+                                                  height=10))
+        own = scenes.get(name, width=12, height=10, device="cpu")
+    for k, v in own.tensors().items():
+        c = getattr(carried, k)
+        assert c.dtype == v.dtype and c.shape == v.shape, k
+        assert torch.equal(c, v), k
+    for k in ("width", "height", "cam_aperture", "cam_focus",
+              "het_medium"):
+        assert getattr(carried, k) == getattr(own, k), k
 
 
 def test_scene_floats_are_float32(pair):

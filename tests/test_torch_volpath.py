@@ -7,8 +7,6 @@ random streams: per-pass keys, per-step splits). Bar for the render:
 rtol 1e-4 / atol 1e-5, with at most 2% of the pixels allowed to differ
 by a Russian-roulette decision flipped at the last bit (0 measured)."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +17,7 @@ from gvpm_tpu.integrators import volpath as jvolpath
 from gvpm_tpu.render import film as jfilm
 from gvpm_tpu_torch.core.config import VolPathConfig
 from gvpm_tpu_torch.integrators import volpath
-from gvpm_tpu_torch.render import emitter, film
+from gvpm_tpu_torch.render import film
 from gvpm_tpu_torch.scene import SceneBuilder
 from gvpm_tpu_torch.utils import image as imglib
 from tests.test_torch_common import (jax_scene, port_scene_from_jax,
@@ -119,6 +117,11 @@ def test_render_box_medium_matches_jax(rfilter, max_lanes):
 
 
 def test_unported_branches_raise():
+    """What volpath still leaves to ROADMAP queue 1 item 16: tile_rngs
+    and u_explicit (the G-PT and PSSMLT callers) and the QMC pixel
+    samplers. Delta lights and environment maps, which raised here
+    before, are parity cases of tests/test_torch_lights.py and
+    tests/test_torch_scene_passes.py."""
     scene = port_scene_from_jax(jax_scene())
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(4, 1)
@@ -129,9 +132,3 @@ def test_unported_branches_raise():
                                    **kw)
     with pytest.raises(NotImplementedError, match="item 16"):
         volpath.render(scene, VolPathConfig(spp=1, sampler="sobol"))
-    delta = dataclasses.replace(scene, de_type=torch.tensor([0]))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        emitter.sample_direct(delta, o, torch.rand(4, 3))
-    env_map = dataclasses.replace(scene, env_map=torch.ones(2, 4, 3))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        emitter.env_le(env_map, d)
