@@ -179,6 +179,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 environment, and of the box lit by an environment map:
                 finite images with a positive mean, timed; gvpm.render on
                 the heterogeneous box raises ValueError.
+  8. paths   — the path-space integrators (no new kernel): G-PT with
+                the primary-sample shift (gpt) and the path-space
+                reconnection / half-vector shift (gpt_shift) on
+                box-medium at 128^2, GPT_SPP spp each, seed 5: seconds
+                per pass, one profiled pass (device kernel launches,
+                device-busy share, the five kernels that took the most
+                device time), the correlation of gx / gy with the 128^2
+                golden's finite differences (above 0.5, as
+                tools/goldens.py:237-255 holds gvpm; gpt_shift's on the
+                pixel pairs that see no light straight from the camera,
+                which its gradients leave to the -direct buffer), and the L1
+                reconstruction's relMSE against the golden (no bar,
+                printed beside gvpm:distance's). Then direct, ao, path,
+                the light tracer (ptracer), the photon mapper, PPM, VPL,
+                PSSMLT, MLT and ERPT on box-surface at 64^2, timed, each
+                mean against a 256-spp volpath render under the JAX
+                package's ratio bars (0.7-1.35; VPL 0.6-1.2; light tracer
+                0.8-1.2); direct and ao finite with a positive mean;
+                path equal to volpath.render at its config and seed.
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -386,25 +405,34 @@ def phase(name, msg):
           flush=True)
 
 
-def profile_pass(run, name="gather_dense"):
-    """One call of `run` under torch.profiler (CPU + CUDA): returns
+def profile_pass(run, name="gather_dense", ops=None):
+    """One call of `run` under torch.profiler: returns
     (device kernel launches, device-busy share of the profiled wall
     time, share of device kernel time inside record_function ranges named
     `name` or None where none was attributed, how it was attributed,
     profiled wall seconds). Busy time is the union of the kernels'
     intervals; the profiler slows the host, so the busy share reads low
-    against an unprofiled pass."""
+    against an unprofiled pass. A list `ops` receives the five device
+    kernels that took the most time, as (name, share of device kernel
+    time, launches). With `name` None only the device is traced (no
+    attribution; the host's op events of a pass of ~150k launches take
+    the profiler a minute to process), and the launches are the kernels
+    the device ran."""
     act = torch.profiler.ProfilerActivity
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+    with torch.profiler.profile(activities=[act.CUDA] if name is None
+                                else [act.CPU, act.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
-    launches = sum(1 for e in events if e.name == "cudaLaunchKernel")
     cuda = torch.autograd.DeviceType.CUDA
     on_card = [e for e in events if e.device_type == cuda]
+    launches = sum(1 for e in events if e.name == "cudaLaunchKernel") \
+        if name is not None else sum(
+            1 for e in on_card if not e.name.startswith(("Memcpy",
+                                                         "Memset")))
     # device-side ranges of the `name` annotation, where the profiler
     # reports them; every other device event is work
     ann = [(e.time_range.start, e.time_range.end) for e in on_card
@@ -413,6 +441,16 @@ def profile_pass(run, name="gather_dense"):
                      if e.name != name
                      and not getattr(e, "is_user_annotation", False))
     total = sum(b - a for a, b in kernels)
+    if ops is not None:
+        per = {}
+        for e in on_card:
+            if e.name != name and not getattr(e, "is_user_annotation",
+                                              False):
+                t, c = per.get(e.name, (0.0, 0))
+                per[e.name] = (t + e.time_range.end - e.time_range.start,
+                               c + 1)
+        ops.extend((k[:60], round(t / total, 4), c) for k, (t, c) in
+                   sorted(per.items(), key=lambda kv: -kv[1][0])[:5])
     busy, lo, hi = 0.0, None, None
     for a, b in kernels:
         if hi is None or a > hi:
@@ -1570,6 +1608,156 @@ def feature_renders(smi):
                                      "heterogeneous medium")
 
 
+GPT_SPP = 16                # spp of each G-PT render in [paths]
+PATHS_SIZE = 64             # film of the primal integrators in [paths]
+PATHS_REF_SPP = 256         # spp of their volpath reference
+# each primal integrator of [paths]: (render call, ratio bar of its mean
+# against volpath, or None: finite with a positive mean). The configs
+# and bars are the JAX package's cross-checks:
+# tests/test_more_integrators.py:47-114 (photon mapper, PPM, VPL, the
+# Metropolis family) and tests/test_lighttrace.py:21 (light tracer)
+PM_KW = dict(max_depth=5, null_bounces=2, max_cam_depth=5,
+             surface_photons=1 << 16, volume_photons=1 << 16,
+             grid_hash_size=1 << 16, grid_max_photons_per_cell=64)
+MLT_KW = dict(spp=1, max_depth=5, null_bounces=2)
+# the JAX tests' 2048 chains x 48 mutations (erpt 24) as 8192 x 12 (erpt
+# 6): a mutation costs ~17k launches of f(u) whatever the chain count
+MLT_CHAINS = dict(n_chains=8192, n_mutations=12)
+
+
+def path_integrators(smi, gvpm_relmse):
+    """[paths]: G-PT with both shifts on box-medium at 128^2 (GPT_SPP spp
+    each, seed 5): pass seconds, one profiled pass (device launches,
+    busy share, top kernels), gx / gy against the 128^2 golden's finite
+    differences (correlation above 0.5) and the L1 reconstruction's
+    relMSE against the golden beside gvpm:distance's (the path-space
+    shift's gradients leave out the light seen straight from the camera,
+    its -direct buffer, so they are held on the pixel pairs where neither
+    pixel sees any); then the primal
+    integrators on box-surface at 64^2, each mean against a 256-spp
+    volpath render under the JAX package's ratio bars, `path` equal to
+    volpath.render at its config and seed."""
+    from gvpm_tpu_torch import scenes
+    from gvpm_tpu_torch.core.config import PhotonConfig, VolPathConfig
+    from gvpm_tpu_torch.integrators import (erpt, gpt, gpt_shift,
+                                            lighttrace, mlt, photonmapper,
+                                            pssmlt, simple, volpath, vpl)
+    from gvpm_tpu_torch.utils import image as imglib
+    ref = imglib.read_pfm(os.path.join(ROOT, "goldens",
+                                       "box-medium_ref.pfm"))
+    scene = scenes.box_medium(128, 128)
+    cfg = VolPathConfig(spp=GPT_SPP, max_depth=12)
+    for label, mod in (("pss", gpt), ("path-space", gpt_shift)):
+        marks = []
+
+        def on_pass(it, _img):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mod.render(scene, cfg, seed=5, callback=on_pass)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        pass_s = [b - a for a, b in zip([t0] + marks[:-1], marks)]
+        ops = []
+        n_launch, busy, _, _, wall = profile_pass(
+            lambda: mod.render_pass(scene, cfg, 5, GPT_SPP), name=None,
+            ops=ops)
+        gx, gy, img = (out[k].cpu().numpy() for k in ("gx", "gy", "image"))
+        if not (np.isfinite(gx).all() and np.isfinite(gy).all()
+                and np.isfinite(img).all()):
+            raise AssertionError(f"gpt {label}: non-finite buffers")
+        # the path-space shift keeps light seen straight from the camera
+        # out of its gradients (the -direct buffer): hold it on the pixel
+        # pairs where neither pixel sees such light
+        lit = out["direct"].amax(-1).cpu().numpy() > 0 \
+            if "direct" in out else np.zeros(gx.shape[:2], bool)
+        mx = ~(lit[:, 1:] | lit[:, :-1])
+        my = ~(lit[1:, :] | lit[:-1, :])
+        cx = float(np.corrcoef(gx[:, :-1][mx].ravel(),
+                               (ref[:, 1:] - ref[:, :-1])[mx].ravel())[0, 1])
+        cy = float(np.corrcoef(gy[:-1, :][my].ravel(),
+                               (ref[1:, :] - ref[:-1, :])[my].ravel())[0, 1])
+        phase("paths", f"gpt {label} shift, box-medium 128^2, {GPT_SPP} spp,"
+                       f" max_depth 12, seed 5: {total:.3f} s (pass s "
+                       f"mean {np.mean(pass_s):.4f}, min {min(pass_s):.4f},"
+                       f" max {max(pass_s):.4f}); gx~FD(golden) "
+                       f"{cx:.3f}, gy~FD(golden) {cy:.3f} (> 0.5; over "
+                       f"{int(mx.sum())} / {mx.size} x-pairs not lit "
+                       f"directly); L1 "
+                       f"reconstruction relMSE {imglib.relmse(img, ref):.5f}"
+                       f" (no bar; gvpm:distance 10 passes "
+                       f"{gvpm_relmse:.5f}) ({smi})")
+        phase("paths", f"gpt {label} one profiled pass ({wall:.4f} s): "
+                       f"{n_launch} device kernel launches, device busy "
+                       f"{busy:.1%}; top kernels (name, share of device "
+                       f"kernel time, launches): {json.dumps(ops)}")
+        if not (cx > 0.5 and cy > 0.5):
+            raise AssertionError(f"gpt {label}: gradient correlation "
+                                 f"{cx}, {cy} not above 0.5")
+
+    n = PATHS_SIZE
+    scene = scenes.box_surface(n, n)
+    vcfg = VolPathConfig(spp=PATHS_REF_SPP, max_depth=5, null_bounces=2)
+    t0 = time.perf_counter()
+    want = float(volpath.render(scene, vcfg, seed=1).mean())
+    phase("paths", f"box-surface {n}^2 volpath reference ({PATHS_REF_SPP} "
+                   f"spp, max_depth 5): mean {want:.5g} in "
+                   f"{time.perf_counter() - t0:.2f} s")
+    pcfg = PhotonConfig(**PM_KW)
+    mcfg = VolPathConfig(**MLT_KW)
+    path_cfg = VolPathConfig(spp=16, max_depth=5, null_bounces=2)
+    runs = (
+        ("direct", None, lambda: simple.render_direct(scene, spp=16)),
+        ("ao", None, lambda: simple.render_ao(scene, spp=16)),
+        ("path", None, lambda: simple.render_path(scene, path_cfg, seed=2)),
+        ("ptracer", (0.8, 1.2), lambda: lighttrace.render(
+            scene, PhotonConfig(max_depth=5, null_bounces=3,
+                                surface_photons=1 << 16,
+                                volume_photons=1 << 16), seed=22,
+            passes=4)),
+        ("photonmapper", (0.7, 1.35), lambda: photonmapper.render(
+            scene, pcfg, seed=0, passes=4)["image"]),
+        ("ppm", (0.7, 1.35), lambda: photonmapper.render_ppm(
+            scene, pcfg, seed=0, passes=4)["image"]),
+        ("vpl", (0.6, 1.2), lambda: vpl.render(
+            scene, PhotonConfig(max_depth=4, null_bounces=2,
+                                max_cam_depth=4), seed=0, passes=3,
+            vpls_per_pass=64, clamp_dist=0.05)["image"]),
+        ("pssmlt", (0.7, 1.35), lambda: pssmlt.render(
+            scene, mcfg, seed=0, **MLT_CHAINS)),
+        ("mlt", (0.7, 1.35), lambda: mlt.render(
+            scene, mcfg, seed=0, **MLT_CHAINS)),
+        ("erpt", (0.7, 1.35), lambda: erpt.render(
+            scene, mcfg, seed=0, n_chains=MLT_CHAINS["n_chains"],
+            n_mutations=MLT_CHAINS["n_mutations"] // 2)))
+    for name, bar, run in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        m = float(img.mean())
+        if not (img.shape == (n, n, 3) and bool(torch.isfinite(img).all())
+                and m > 0):
+            raise AssertionError(f"{name}: image not finite or dark")
+        if name == "path":
+            same = torch.equal(img, volpath.render(scene, path_cfg, seed=2))
+            extra = f"equal to volpath.render at its config and seed: {same}"
+            if not same:
+                raise AssertionError("path differs from volpath.render")
+        elif bar is None:
+            extra = "finite, mean above 0"
+        else:
+            ratio = m / want
+            extra = f"mean / volpath {ratio:.4f} (bar {bar[0]}-{bar[1]})"
+            if not bar[0] < ratio < bar[1]:
+                raise AssertionError(f"{name}: ratio {ratio} outside {bar}")
+        phase("paths", f"{name} box-surface {n}^2: {secs:.3f} s, mean "
+                       f"{m:.5g}, {extra} ({smi})")
+
+
 def capture_sweeps(scene, cfg, passes_kw):
     """One SPPM pass of each beam estimator on `scene`; returns {kind:
     the (q, rows, params) of its first sweep call}."""
@@ -2404,6 +2592,9 @@ def main():
     scene_kernels(smi, base_ms)
     scene_goldens()
     feature_renders(smi)
+
+    # ---- 8. the path-space integrators ----
+    path_integrators(smi, seen[(128, "ME off")])
 
     src = "gvpm_tpu_torch/csrc/fused_gather.cu"
     print(json.dumps({"kernels": [

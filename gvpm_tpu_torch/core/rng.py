@@ -20,6 +20,7 @@ import torch
 STREAM_CAMERA = 0
 STREAM_LIGHT = 1
 STREAM_GATHER = 2
+STREAM_NEE = 5
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -110,6 +111,42 @@ def counter_uniform(k1, k2, ctr):
     threefry2x32(key, (0, ctr)). k1, k2, ctr: broadcastable int64."""
     b0, b1 = threefry2x32(k1, k2, torch.zeros_like(ctr), ctr)
     return _to_unit(b0 ^ b1)
+
+
+def randint(k, shape, minval, maxval):
+    """jax.random.randint(k, shape, minval, maxval) for int32 bounds
+    (0 <= maxval - minval < 2^31): two words a draw, from the two halves
+    of split(k), reduced as the JAX package's _randint does."""
+    k1, k2 = split(k, 2)
+    hi, lo = _bits(k1, shape), _bits(k2, shape)
+    span = max(int(maxval) - int(minval), 1)
+    mult = ((2 ** 16 % span) ** 2) % span
+    off = (((hi % span) * mult) & M32) + (lo % span)
+    return minval + (off & M32) % span
+
+
+# chunk of the [n, L] Gumbel draw of `categorical`
+_CAT_CHUNK = 1 << 22
+
+
+def categorical(k, logits, n):
+    """jax.random.categorical(k, logits, shape=(n,)) for float32 logits
+    [L]: argmax over L of logits + Gumbel noise, the noise drawn as
+    jax.random.gumbel(k, (n, L)) (its "low" mode: uniform in [tiny, 1)).
+    Rows are drawn in chunks; each word is the one at its flat position
+    of the [n, L] draw."""
+    L = logits.shape[0]
+    tiny = torch.finfo(torch.float32).tiny
+    out = []
+    rows = max(1, _CAT_CHUNK // max(L, 1))
+    col = torch.arange(L, dtype=torch.int64, device=logits.device)
+    for r0 in range(0, n, rows):
+        r = torch.arange(r0, min(n, r0 + rows), dtype=torch.int64,
+                         device=logits.device)
+        u = counter_uniform(k[0], k[1], r[:, None] * L + col[None, :])
+        g = -torch.log(-torch.log(torch.clamp(u + tiny, min=tiny)))
+        out.append(torch.argmax(g + logits[None, :], dim=-1))
+    return torch.cat(out)
 
 
 def pass_key(seed, it, stream, device="cpu"):

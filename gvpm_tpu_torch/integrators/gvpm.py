@@ -27,6 +27,7 @@ from ..core import rng
 from ..core.config import GradientConfig
 from ..core.logging import PhaseClock, StatsCounter, log
 from ..ops import cellgrid, hashgrid, poisson
+from ..scene.camera import pixel_grid
 from ..scene.types import Scene
 from ..utils import checkpoint as ckpt
 from . import estimators, gatherpoint, gradient_gather, ptracer, sppm
@@ -274,10 +275,7 @@ def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
     k_cam = rng.pass_key(seed, it, rng.STREAM_CAMERA, dev)
     k_light = rng.pass_key(seed, it, rng.STREAM_LIGHT, dev)
     k_gather = rng.pass_key(seed, it, rng.STREAM_GATHER, dev)
-    py, px = torch.meshgrid(torch.arange(H, device=dev),
-                            torch.arange(W, device=dev), indexing="ij")
-    px = px.reshape(-1).to(torch.float32)
-    py = py.reshape(-1).to(torch.float32)
+    px, py = pixel_grid(scene)
     xi, yi = px.to(torch.int64), py.to(torch.int64)
     border = torch.stack([xi == W - 1, xi == 0, yi == H - 1, yi == 0])
 

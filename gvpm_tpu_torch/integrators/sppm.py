@@ -23,6 +23,7 @@ from ..core import rng
 from ..core.config import PhotonConfig
 from ..core.logging import PhaseClock, log
 from ..ops import hashgrid
+from ..scene.camera import pixel_grid
 from ..scene.types import Scene
 from ..utils import checkpoint as ckpt
 from . import estimators, gatherpoint, ptracer
@@ -169,12 +170,10 @@ def render_pass(scene: Scene, cfg: PhotonConfig, volume, n_photons, seed,
     photons, beams = shoot_photons(scene, cfg, n_photons, k_light,
                                    with_beams=volume in BEAM_VOLUMES)
     clock.lap("light_trace")
-    py, px = torch.meshgrid(torch.arange(H, device=dev),
-                            torch.arange(W, device=dev), indexing="ij")
+    px, py = pixel_grid(scene)
     img = gather_images(scene, cfg, volume, photons, beams, n_photons, k_cam,
-                        k_gather, px.reshape(-1).to(torch.float32),
-                        py.reshape(-1).to(torch.float32), surf_scale,
-                        vol_scale, r_vol_base, timings=timings)
+                        k_gather, px, py, surf_scale, vol_scale, r_vol_base,
+                        timings=timings)
     return img.reshape(H, W, 3)
 
 

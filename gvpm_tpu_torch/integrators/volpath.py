@@ -24,7 +24,7 @@ from ..render.bsdf import eval_bsdf, sample_bsdf
 from ..render.emitter import (env_le, eval_radiance, pdf_direct_area,
                               pdf_env_sa, sample_direct)
 from ..render.visibility import medium_transition, segment_transmittance
-from ..scene.camera import generate_rays
+from ..scene.camera import generate_rays, pixel_grid
 from ..scene.intersect import intersect
 from ..scene.types import BSDF_NULL, Scene
 
@@ -63,15 +63,37 @@ def _nee(scene, u3, p, med_idx, throughput, f_of_dir):
     return torch.where(ds.valid[..., None], contrib, 0.0)
 
 
+# uniforms consumed per path step in explicit primary-sample-space mode:
+# medium 2 + NEE 3 + phase 2 + bsdf 3 + RR 1
+PSS_DIMS_PER_STEP = 11
+
+
+def _step_uniforms(step_key, n_rng, tile_rngs):
+    """One step's uniforms from its key: (u_med [n,2], u_nee3 [n,3],
+    u_ph2 [n,2], u_bs3 [n,3], u_rr [n]). Each block is drawn for n_rng
+    lanes and tiled tile_rngs times, so lane i and lane i + j * n_rng
+    consume the same numbers."""
+    k_med, k_nee, k_scat, k_rr = rng.split(step_key, 4)
+
+    def U(k, *tail):
+        u = rng.uniform(k, (n_rng,) + tail)
+        return u if tile_rngs == 1 else u.repeat(
+            (tile_rngs,) + (1,) * len(tail))
+
+    return U(k_med, 2), U(k_nee, 3), U(k_scat, 2), U(k_scat, 3), U(k_rr)
+
+
 def trace_radiance(scene: Scene, cfg: VolPathConfig, o, d, med_idx, key,
                    tile_rngs=1, u_explicit=None):
     """Estimate incident radiance along rays (o, d). Returns [N,3].
-    tile_rngs > 1 and u_explicit (the G-PT and PSSMLT callers) come with
-    ROADMAP queue 1 item 16."""
-    if tile_rngs != 1 or u_explicit is not None:
-        raise NotImplementedError(
-            "volpath tile_rngs / u_explicit (gpt, pssmlt): ROADMAP queue 1 "
-            "item 16")
+
+    tile_rngs=k makes the per-lane random sequence repeat every n/k
+    lanes (lane i and lane i + j*n/k consume identical uniforms): the
+    primary-sample-space replay of the G-PT shift (gpt.py).
+
+    u_explicit ([n, n_steps, PSS_DIMS_PER_STEP] or None) drives the walk
+    from an explicit primary-sample-space vector instead of the key: the
+    deterministic map f(u) that PSSMLT mutates (pssmlt.py)."""
     n = o.shape[0]
     dev = o.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -84,13 +106,17 @@ def trace_radiance(scene: Scene, cfg: VolPathConfig, o, d, med_idx, key,
     scatter_p = o                                 # last real scatter vertex
     depth = torch.zeros((n,), dtype=torch.int64, device=dev)
 
-    for step_key in rng.split(key, cfg.max_depth + cfg.null_bounces):
-        k_med, k_nee, k_scat, k_rr = rng.split(step_key, 4)
-        u_med = rng.uniform(k_med, (n, 2))
-        u_nee3 = rng.uniform(k_nee, (n, 3))
-        u_ph2 = rng.uniform(k_scat, (n, 2))
-        u_bs3 = rng.uniform(k_scat, (n, 3))
-        u_rr = rng.uniform(k_rr, (n,))
+    n_steps = cfg.max_depth + cfg.null_bounces
+    steps = rng.split(key, n_steps) if u_explicit is None \
+        else u_explicit.unbind(1)
+    for step_in in steps:
+        if u_explicit is None:
+            u_med, u_nee3, u_ph2, u_bs3, u_rr = _step_uniforms(
+                step_in, n // tile_rngs, tile_rngs)
+        else:
+            u_med, u_nee3, u_ph2, u_bs3, u_rr = (
+                step_in[:, 0:2], step_in[:, 2:5], step_in[:, 5:7],
+                step_in[:, 7:10], step_in[:, 10])
 
         hit = intersect(scene, o, d)
         t_far = torch.where(hit.valid, hit.t, torch.inf)
@@ -206,8 +232,7 @@ def render(scene: Scene, cfg: VolPathConfig = VolPathConfig(), seed=0,
     dev = scene.device
     H, W = scene.height, scene.width
     spp_per_pass = max(1, min(cfg.spp, max_lanes // (H * W)))
-    py0, px0 = torch.meshgrid(torch.arange(H, device=dev),
-                              torch.arange(W, device=dev), indexing="ij")
+    px0, py0 = pixel_grid(scene)
     img = torch.zeros((H, W, 3), dtype=torch.float32, device=dev)
     wsum = torch.zeros((H, W), dtype=torch.float32, device=dev)
     done = it = 0
@@ -220,8 +245,7 @@ def render(scene: Scene, cfg: VolPathConfig = VolPathConfig(), seed=0,
             it * nspp + torch.arange(nspp, device=dev), H * W)
         u = qmc.pixel_samples(cfg.sampler, k_pix, pix, si, cfg.spp)
         _, k_lens, k_path = rng.split(key, 3)
-        px = px0.reshape(-1).repeat(nspp).to(torch.float32)
-        py = py0.reshape(-1).repeat(nspp).to(torch.float32)
+        px, py = px0.repeat(nspp), py0.repeat(nspp)
         u_lens = rng.uniform(k_lens, tuple(u.shape)) \
             if scene.cam_aperture > 0 else None
         o, d, _ = generate_rays(scene, px, py, u, u_lens=u_lens)

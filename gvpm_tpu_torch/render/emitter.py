@@ -215,6 +215,10 @@ class DirectSample:
     li_over_pdf: torch.Tensor  # [N,3] radiance / pdf, all factors folded
     pdf_sa: torch.Tensor       # [N] solid-angle pdf (0: delta strategy)
     valid: torch.Tensor        # [N] bool
+    n_light: torch.Tensor      # [N,3] light normal (area group; else 0)
+    grp: torch.Tensor          # [N] emitter group: 0 area, 1 delta, 2 env
+    falloff2: torch.Tensor     # [N] bool: li carries a 1/d^2 falloff
+                               #     (point / spot yes, directional / env no)
 
 
 def _spot_falloff(scene: Scene, k, d_emit):
@@ -228,7 +232,7 @@ def _spot_falloff(scene: Scene, k, d_emit):
 
 def _sample_direct_delta(scene: Scene, p_from, u):
     """NEE sample of the delta-light group (point / spot / directional)
-    -> (wl, p_light, li_over_pdf, valid)."""
+    -> (wl, p_light, li_over_pdf, valid, falloff2)."""
     k, pmf = _pick(scene.de_cdf, u)
     _, wr = world_center_radius(scene)
     is_dir = scene.de_type[k] == DE_DIRECTIONAL
@@ -246,7 +250,7 @@ def _sample_direct_delta(scene: Scene, p_from, u):
     li = torch.where(is_dir[..., None], li, li / d2[..., None])
     pick_p = scene.light_group_p[1] * pmf
     li_over_pdf = li / torch.clamp(pick_p, min=1e-20)[..., None]
-    return wl, p_light, li_over_pdf, pmf > 0
+    return wl, p_light, li_over_pdf, pmf > 0, ~is_dir
 
 
 def sample_direct(scene: Scene, p_from, u3) -> DirectSample:
@@ -278,10 +282,11 @@ def sample_direct(scene: Scene, p_from, u3) -> DirectSample:
 
     # --- delta branch ---
     if scene.de_type.shape[0] > 0:
-        wl_d, pl_d, li_d, ok_d = _sample_direct_delta(scene, p_from, u_delta)
+        wl_d, pl_d, li_d, ok_d, f2_d = _sample_direct_delta(scene, p_from,
+                                                            u_delta)
     else:
         wl_d = pl_d = li_d = torch.zeros_like(wl_a)
-        ok_d = torch.zeros_like(ok_a)
+        ok_d = f2_d = torch.zeros_like(ok_a)
 
     # --- env branch (constant: uniform sphere; map: luminance CDF) ---
     _, wr = world_center_radius(scene)
@@ -301,7 +306,9 @@ def sample_direct(scene: Scene, p_from, u3) -> DirectSample:
         pdf_sa=torch.where(grp == 0, pdf_a_sa,
                            torch.where(grp == 1, 0.0, pdf_e_sa)),
         valid=torch.where(grp == 0, ok_a,
-                          torch.where(grp == 1, ok_d, gp[2] > 0)))
+                          torch.where(grp == 1, ok_d, gp[2] > 0)),
+        n_light=torch.where(is_a, es.n, 0.0), grp=grp,
+        falloff2=torch.where(grp == 1, f2_d, grp == 0))
 
 
 # --------------------------------------------------------------------------

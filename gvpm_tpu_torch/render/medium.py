@@ -310,3 +310,18 @@ def pdf_distance_always_valid(scene: Scene, mi, t, t_max):
                      * torch.exp(-sigma_g * t), 0.0)
     w = torch.where(in_med, 1.0, sampling_weight(scene, mi))
     return torch.where(in_med, ps * w, 0.0)
+
+
+def pdf_distance(scene: Scene, mi, t, t_max, hit_surface):
+    """pdf of an already-known distance outcome under the NORMAL strategy
+    (Medium::eval analog) -> (pdf_success(t), pdf_failure(t_max)); where
+    `hit_surface` (a bool or a bool tensor) holds, both are evaluated at
+    t_max. pdf_distance_always_valid covers ALWAYS_VALID."""
+    _, _, st = _tables(scene, mi)
+    in_med = (mi != NO_MEDIUM) & (st.amax(-1) > 0.0)
+    w = sampling_weight(scene, mi)
+    tq = torch.where(torch.as_tensor(hit_surface, device=t.device), t_max, t)
+    tr_c = torch.exp(-st * tq[..., None])
+    ps = _mean3(st * tr_c) * w
+    pf = w * _mean3(tr_c) + (1.0 - w)
+    return torch.where(in_med, ps, 0.0), torch.where(in_med, pf, 1.0)

@@ -16,6 +16,8 @@ pair budget forces the compaction.
 
 import dataclasses
 import functools
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +39,18 @@ from gvpm_tpu.ops import pallas_gather as jpg
 from gvpm_tpu.scene import SceneBuilder as JaxSceneBuilder
 from gvpm_tpu_torch import interop, scenes
 from gvpm_tpu_torch.core.config import GradientConfig
+
+# A JAX program that more than one test process compiles (the stage
+# inputs of test_torch_stages / _gather / _bre; the JAX package's passes
+# that the port's tests run at the static arguments of the package's own
+# tests) compiles once a run: the test processes share JAX's persistent
+# compilation cache in the run's temporary directory (xdist workers import
+# this module while they collect). A size limit turns on the cache's file
+# lock, so that no process reads an entry another is writing.
+jax.config.update("jax_compilation_cache_dir",
+                  os.path.join(tempfile.gettempdir(), "gvpm_tests_jax_cache"))
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+jax.config.update("jax_compilation_cache_max_size", 16 << 30)
 
 SIDE = 16
 N_PHOTONS = 1 << 10

@@ -2,7 +2,8 @@
 interpreter with jax, flax and gvpm_tpu made unimportable imports every
 module of the port, renders with the default manifold shifts, renders
 SPPM (every volume estimator, and a pass of every built-in and feature
-scene), gvpm `bre` and volpath, round-trips a
+scene), gvpm `bre`, volpath and a 4x4 path-space-shift G-PT render,
+round-trips a
 PFM, and saves and resumes a checkpoint of both progressive loops; and no source file of the port, nor
 chip_smoke.py, holds an import of them."""
 
@@ -68,6 +69,11 @@ for v in ("bre", "beam1d", "beam3d", "plane0d"):
         sppm.base_volume_radius(scene, pcfg))).all(), v
 assert torch.isfinite(gvpm.render(scene, cfg, volume="bre",
                                   passes=1)["image"]).all()
+# the path-space-shift G-PT (reconnection, replay, L1 solve) at 4x4
+from gvpm_tpu_torch.integrators import gpt_shift
+g = gpt_shift.render(scenes.box_medium(4, 4, device="cpu"),
+                     VolPathConfig(spp=1, max_depth=4))
+assert all(torch.isfinite(v).all() for v in g.values())
 # every registry scene and feature scene (dielectrics, every lobe,
 # delta / env lights, heterogeneous fog, triangle-free) through SPPM
 for sc in ([scenes.get(n, width=8, height=8, device="cpu")

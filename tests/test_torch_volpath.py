@@ -117,18 +117,27 @@ def test_render_box_medium_matches_jax(rfilter, max_lanes):
 
 
 def test_unported_branches_raise():
-    """What volpath still leaves to ROADMAP queue 1 item 16: tile_rngs
-    and u_explicit (the G-PT and PSSMLT callers) and the QMC pixel
-    samplers. Delta lights and environment maps, which raised here
-    before, are parity cases of tests/test_torch_lights.py and
+    """What volpath left to ROADMAP queue 1 item 16 now runs: tile_rngs
+    and u_explicit (the G-PT and Metropolis callers; held against the
+    JAX package in tests/test_torch_gpt.py and tests/test_torch_mcmc.py)
+    and every QMC pixel sampler (tests/test_torch_qmc_numerics.py); an
+    unknown sampler raises the JAX package's ValueError. Delta lights
+    and environment maps, which raised here before, are parity
+    cases of tests/test_torch_lights.py and
     tests/test_torch_scene_passes.py."""
     scene = port_scene_from_jax(jax_scene())
-    o = torch.zeros((4, 3))
+    cfg = VolPathConfig(max_depth=3, null_bounces=1)
+    o = torch.full((4, 3), 0.5)
     d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(4, 1)
     key = torch.tensor([0, 7])
-    for kw in (dict(tile_rngs=2), dict(u_explicit=torch.zeros(4, 18, 11))):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            volpath.trace_radiance(scene, VolPathConfig(), o, d, -1, key,
-                                   **kw)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        volpath.render(scene, VolPathConfig(spp=1, sampler="sobol"))
+    L = volpath.trace_radiance(scene, cfg, o, d, 0, key, tile_rngs=2)
+    torch.testing.assert_close(L[:2], L[2:], rtol=0, atol=0)
+    u = torch.full((4, 4, volpath.PSS_DIMS_PER_STEP), 0.5)
+    L = volpath.trace_radiance(scene, cfg, o, d, 0, None, u_explicit=u)
+    assert L.shape == (4, 3) and bool(torch.isfinite(L).all())
+    torch.testing.assert_close(L, L[:1].expand(4, 3), rtol=0, atol=0)
+    img = volpath.render(scene, VolPathConfig(spp=1, max_depth=3,
+                                              sampler="sobol"))
+    assert bool(torch.isfinite(img).all())
+    with pytest.raises(ValueError, match="unknown sampler"):
+        volpath.render(scene, VolPathConfig(spp=1, sampler="none"))
