@@ -1,5 +1,6 @@
-"""Logger, statistics counters and the per-phase clock of the passes
-(mirrors gvpm_tpu/core/logging.py).
+"""Logger, statistics counters, the phase timer of the command-line
+renderer and the per-phase clock of the passes (mirrors
+gvpm_tpu/core/logging.py).
 
 Counters are host-side: the pass returns metric tensors that `render`
 feeds into counters between passes (shift success percentages, the
@@ -51,6 +52,44 @@ class StatsCounter:
         if self.kind == "percentage":
             return 100.0 * self.num / self.den
         return self.num / self.den
+
+    @classmethod
+    def print_stats(cls, logger=log):
+        """Statistics::printStats analog."""
+        suffix = {"percentage": "%", "average": " avg", "value": ""}
+        for name, c in sorted(cls.REGISTRY.items()):
+            logger.info("  %-40s %12.4g%s", name, c.value(), suffix[c.kind])
+
+    @classmethod
+    def reset_all(cls):
+        for c in cls.REGISTRY.values():
+            c.num = c.den = 0.0
+
+
+class Timer:
+    """Phase timer (timer.h:37); also records per-pass rows for the
+    `<dest>_time.csv` equal-time protocol."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.rows = []
+
+    def reset(self):
+        self.t0 = time.perf_counter()
+
+    def elapsed(self):
+        return time.perf_counter() - self.t0
+
+    def lap(self, label=""):
+        dt = self.elapsed()
+        self.rows.append((label, dt))
+        self.reset()
+        return dt
+
+    def write_csv(self, path):
+        with open(path, "w") as f:
+            for label, dt in self.rows:
+                f.write(f"{label},{dt:.6f}\n")
 
 
 class PhaseClock:

@@ -4,8 +4,10 @@ module of the port, renders with the default manifold shifts, renders
 SPPM (every volume estimator, and a pass of every built-in and feature
 scene), gvpm `bre`, volpath and a 4x4 path-space-shift G-PT render,
 round-trips a
-PFM, and saves and resumes a checkpoint of both progressive loops; and no source file of the port, nor
-chip_smoke.py, holds an import of them."""
+PFM, and saves and resumes a checkpoint of both progressive loops, and
+imports the command-line renderer, the Mitsuba loader, BDPT and G-BDPT
+and renders a 4x4 G-BDPT image through `cli.main(... --device cpu)`; and
+no source file of the port, nor chip_smoke.py, holds an import of them."""
 
 import os
 import re
@@ -84,6 +86,17 @@ for sc in ([scenes.get(n, width=8, height=8, device="cpu")
         sc, pcfg, "distance", 1 << 8, 0, 0, 1.0, 1.0,
         sppm.base_volume_radius(sc, pcfg))).all()
 assert callable(entry.entry)
+# the command-line renderer (G-BDPT: BDPT's wavefront, the shifts and the
+# L1 solve) and the Mitsuba loader
+from gvpm_tpu_torch import cli
+from gvpm_tpu_torch.integrators import bdpt, gbdpt
+from gvpm_tpu_torch.scene import mitsuba
+assert callable(mitsuba.load) and callable(bdpt.render)
+with tempfile.TemporaryDirectory() as d:
+    assert cli.main(["box-medium", "-i", "gbdpt", "--spp", "1",
+                     "--max-depth", "3", "--width", "4", "--height", "4",
+                     "--device", "cpu", "-o", os.path.join(d, "g")]) == 0
+    assert image.read_pfm(os.path.join(d, "g_gx.pfm")).shape == (4, 4, 3)
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "gvpm_tpu")
           and sys.modules[m] is not None]
