@@ -98,7 +98,7 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 the launch counts; images finite, reconstruction mean
                 within 25% of the primal mean, and shift_ok with ME above
                 shift_ok without at the same seed and pass. Last, the
-                device kernel launches of one pass of each kind.
+                device kernels of one pass of each kind (device trace).
   4b. sppm    — the SPPM primal pass (sppm.render_pass, `distance`) at
                 the same size (SPPM_KW: bench.py's base_kw without its TPU
                 knobs): a warm-up pass, then 3 timed passes with their
@@ -143,7 +143,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 mean within 2% of the primal's, and the correlation of gx
                 with the golden's finite differences above 0.5 as
                 tools/goldens.py:237-255 holds gvpm:distance), and the
-                same three with ME on at half the passes (5 / 5 / 15;
+                same three with ME on at a third of the passes (3 / 3 /
+                10;
                 their relMSE beside ME off's, the same bars); the 32^2
                 ME-off gvpm render once more with the gathers' plain
                 version, to show how far a different order of the sums
@@ -168,8 +169,8 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 gvpm:distance (ME off, tools/goldens.py's check configs,
                 10 passes, plane0d 30, seed 5), at 32^2 sppm:distance /
                 sppm:beam1d / gvpm:distance, gvpm:distance on
-                caustic-glass at 32^2 with ME on (no bar: finite, beside
-                ME off), volpath at the 32^2 generation config within
+                caustic-glass at 32^2 with ME on (SCENE_ME_PASSES passes;
+                no bar: finite, beside ME off), volpath at the 32^2 generation config within
                 agree_relmse, and gx against the 128^2 golden's finite
                 differences above 0.5; each relMSE beside its bar, with
                 seconds.
@@ -227,6 +228,25 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 subprocess (32^2 volpath), and
                 gvpm_tpu_torch/tools/goldens.py's check of goldens/ci's
                 box-medium bars (every bar met).
+ 11. dist    — the multi-rank render (gvpm_tpu_torch/parallel/), each
+                job's ranks started by parallel.launch: one nccl rank
+                (the comparison passes below, the first of them cold;
+                dist.gvpm_render with ME off and on and dist.render at
+                the headline, DIST_PASSES passes each, finite), two gloo
+                ranks sharing the card (the
+                gradient pass at DIST_CMP_KW against the one-rank pass:
+                ME off visits and shift_ok equal, images at rtol 1e-3 /
+                atol 1e-6; ME on visits equal, primal at that bar, gx /
+                gy correlation above 0.99; the ring pass against the
+                all-gather pass, visits equal, rtol 2e-3 / atol 2e-5),
+                and on a machine with two cards or more the same on two
+                nccl ranks, a card each; each run's seconds a pass, all-gather and ring seconds,
+                fused-gather launches from 0 (the path's variants each
+                launched), every rank's peak memory, the fused-gather
+                kernels of rank 0's device trace of the ME pass (both
+                ME instantiations); then entry.dryrun_multichip(1) and
+                `python -m gvpm_tpu_torch.cli box-medium -i sppm --mesh
+                1` at the CLI's defaults, exit 0.
 
 The line before the last is a JSON object describing each kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -395,10 +415,10 @@ GBEAM_ME_REPLACES = {
 # valid queries
 PLAIN_EVERY = 4
 GBEAM_GOLD_PASSES = {"beam1d": 10, "beam3d": 10, "plane0d": 30}
-# the same renders with ME on run half the passes (the script's time:
-# their relMSE is printed beside ME off's, the reconstruction and gx
+# the same renders with ME on run a third of the passes (the script's
+# time: their relMSE is printed beside ME off's, the reconstruction and gx
 # checks are the same)
-GBEAM_GOLD_ME_DIVISOR = 2
+GBEAM_GOLD_ME_DIVISOR = 3
 # operations counted from csrc/beam_eval.cuh's gradient functors, one
 # per add, multiply, divide, compare, select, clamp, sqrtf and expf, on
 # box_medium's path (diffuse and medium parents; parent_lobe 112 as in
@@ -1415,6 +1435,9 @@ def gather_against_plain(name, ev, args):
 # bars for, and the feature scenes of [het] / [lights]
 GOLD_SCENES = ("laser", "caustic-glass")
 FEATURE_SPP = 4           # volpath spp of the [het] / [lights] renders
+# passes of caustic-glass's 32^2 gvpm render with ME on in [scenes] (no
+# bar: finite, beside ME off's 10; depth cut for the script's time)
+SCENE_ME_PASSES = 5
 
 
 def _gold_meta(sub):
@@ -1560,11 +1583,13 @@ def scene_goldens():
                 out = gvpm.render(scenes.get(name, width=size, height=size),
                                   GradientConfig(**dict(
                                       ci_kw, use_manifold=True)),
-                                  volume="distance", seed=5, passes=10)
+                                  volume="distance", seed=5,
+                                  passes=SCENE_ME_PASSES)
                 img = out["image"].cpu().numpy()
                 if not np.isfinite(img).all():
                     raise AssertionError(f"{name} ME on {size}: non-finite")
-                phase("scenes", f"{name} gvpm:distance {size}^2 10 passes, "
+                phase("scenes", f"{name} gvpm:distance {size}^2 "
+                                f"{SCENE_ME_PASSES} passes, "
                                 f"ME on: relMSE {imglib.relmse(img, ref):.5f}"
                                 f" (ME off {seen['gvpm:distance']:.5f}; no "
                                 f"bar) in {time.perf_counter() - t0:.2f} s")
@@ -1654,7 +1679,9 @@ def feature_renders(smi):
                                      "heterogeneous medium")
 
 
-GPT_SPP = 16                # spp of each G-PT render in [paths]
+# spp of each G-PT render in [paths]; depth, not width, is what the
+# script's time limit cuts
+GPT_SPP = 8
 PATHS_SIZE = 64             # film of the primal integrators in [paths]
 PATHS_REF_SPP = 256         # spp of their volpath reference
 # each primal integrator of [paths]: (render call, ratio bar of its mean
@@ -2186,6 +2213,255 @@ def cli_phase(smi):
         raise AssertionError("goldens.py check: a bar failed")
 
 
+# [dist]: the comparison passes' config, the headline's with a segment
+# budget that holds every camera segment slot (the shard-local compaction
+# would drop other segments at another rank count,
+# tests/test_parallel.py:120-123) and no row cap on the cell grids (the
+# ring's cap would apply to a partition, the all-gather's to the map)
+DIST_CMP_KW = dict(HEADLINE_KW,
+                   vol_segments_per_pixel=HEADLINE_KW["max_cam_depth"],
+                   grid_surface_rows=0, grid_volume_rows=0)
+DIST_CMP_ME_KW = dict(DIST_CMP_KW, use_manifold=True, me_pair_budget=4096)
+DIST_SIZE = 512             # the film's side in [dist] (the headline's)
+DIST_PASSES = 2             # passes of each progressive [dist] render
+DIST_TIMEOUT = 900          # seconds a [dist] launch may take
+
+
+def _dist_run(mesh, label, run, passes=1, profile=False):
+    """One [dist] run of `passes` passes on this rank: seconds, phase
+    split, the wrapper's launches counted from 0, every rank's peak device
+    memory and, with `profile`, the device kernels of the run's trace."""
+    import torch.distributed as tdist
+    from gvpm_tpu_torch.ops import fused_gather as fg
+    for k in fg.LAUNCHES:
+        fg.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t0 = time.perf_counter()
+    if profile:
+        out, names = _device_kernels(lambda: run(timings))
+    else:
+        out, names = run(timings), set()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peaks = [None] * mesh.size
+    tdist.all_gather_object(peaks, (str(mesh.device),
+                                    torch.cuda.max_memory_allocated()))
+    return dict(label=label, out=out, secs=secs, passes=passes,
+                timings=timings, launches=dict(fg.LAUNCHES), peaks=peaks,
+                kernels=sorted(n[:70] for n in names
+                               if "fused_gather_kernel" in n))
+
+
+def dist_one_rank(mesh):
+    """[dist] on one nccl rank: the comparison passes (ME off, ME on)
+    that the two-rank run repeats, then dist.gvpm_render (ME off, ME on)
+    and dist.render (SPPM) at the headline, DIST_PASSES passes each."""
+    from gvpm_tpu_torch import scenes
+    from gvpm_tpu_torch.core.config import GradientConfig, PhotonConfig
+    from gvpm_tpu_torch.parallel import dist
+    scene = scenes.box_medium(DIST_SIZE, DIST_SIZE, device=mesh.device)
+    runs = dist_compared(mesh, scene)
+    for label, kw in (("gvpm_render ME off", HEADLINE_KW),
+                      ("gvpm_render ME on", HEADLINE_ME_KW)):
+        runs.append(_dist_run(mesh, label, lambda t, kw=kw: dist.gvpm_render(
+            mesh, scene, GradientConfig(**kw), passes=DIST_PASSES,
+            timings=t), DIST_PASSES))
+    runs.append(_dist_run(mesh, "render (SPPM)", lambda t: dist.render(
+        mesh, scene, PhotonConfig(**SPPM_KW), passes=DIST_PASSES,
+        timings=t), DIST_PASSES))
+    return runs
+
+
+def dist_compared(mesh, scene):
+    """The passes [dist] holds across rank counts: the all-gather gradient
+    pass at DIST_CMP_KW with ME off (the first of a fresh rank: its time
+    includes the process group's first collectives and the kernels' first
+    loads) and ME on, and, at more than one rank, the ring pass with ME
+    off; at more than one rank the ME pass runs under the device trace."""
+    from gvpm_tpu_torch.core.config import GradientConfig
+    from gvpm_tpu_torch.integrators import sppm
+    from gvpm_tpu_torch.parallel import dist
+    n_photons = DIST_CMP_KW["surface_photons"]
+    r_vol = sppm.base_volume_radius(scene, GradientConfig(**DIST_CMP_KW))
+    plan = [("ME off", dist.gvpm_render_pass_sharded, DIST_CMP_KW, False),
+            ("ME on", dist.gvpm_render_pass_sharded, DIST_CMP_ME_KW,
+             mesh.size > 1)]
+    if mesh.size > 1:
+        plan.append(("ring ME off", dist.gvpm_render_pass_sharded_ring,
+                     DIST_CMP_KW, False))
+    return [_dist_run(mesh, label, lambda t, fn=fn, kw=kw: fn(
+        mesh, scene, GradientConfig(**kw), "distance", n_photons, 5, 0, 1.0,
+        1.0, r_vol, timings=t), profile=prof)
+        for label, fn, kw, prof in plan]
+
+
+def dist_phase(smi):
+    """[dist]: the multi-rank render (gvpm_tpu_torch/parallel/) on the
+    card. One nccl rank: dist.gvpm_render with ME off and on and
+    dist.render (SPPM) at the headline, DIST_PASSES passes each, finite.
+    Two gloo ranks sharing the card (collectives through host memory):
+    the gradient pass at DIST_CMP_KW against the one-rank pass, ME off
+    (visits and shift_ok equal, images at rtol 1e-3 / atol 1e-6, the JAX
+    package's cross-layout bar, tests/test_parallel.py:138) and ME on
+    (visits equal, primal at that bar, gx / gy correlation above 0.99:
+    the lowest ME-eligible row of a query depends on the table's order),
+    and the ring pass against the all-gather pass (visits equal, images
+    at rtol 2e-3 / atol 2e-5, tests/test_parallel.py:168). Where the
+    machine has two cards or more, two nccl ranks, a card each, run the
+    same passes against the one-rank run at the same bars. Each run's
+    seconds, all-gather seconds, fused-gather launches (each of the
+    path's variants at least once) and every rank's peak memory; the
+    fused-gather kernels of rank 0's trace of the ME pass (its ME
+    instantiations must appear). Then entry.dryrun_multichip(1) and
+    `python -m gvpm_tpu_torch.cli box-medium -i sppm --mesh 1` at the
+    CLI's defaults."""
+    import tempfile
+    from gvpm_tpu_torch import entry
+    from gvpm_tpu_torch.parallel.launch import launch
+    from gvpm_tpu_torch.utils import image as imglib
+
+    def report(ranks, r):
+        t, n = r["timings"], r["passes"]
+        solve = t.get("solve", 0.0)
+        phase("dist", f"{ranks}, {r['label']}: {r['secs']:.3f} s"
+                      f"{' (profiled)' if r['kernels'] else ''}, a pass "
+                      f"{(r['secs'] - solve) / n:.4f} s, of it all-gather "
+                      f"{t.get('allgather', 0.0) / n:.4f} s, ring hops "
+                      f"{t.get('ring', 0.0) / n:.4f} s, film "
+                      f"{t.get('film', 0.0) / n:.4f} s; solve {solve:.3f} s; "
+                      f"fused_gather launches "
+                      f"{ {k: v for k, v in r['launches'].items() if v} }; "
+                      f"peak memory GiB a rank "
+                      f"{[(d, round(b / 2 ** 30, 3)) for d, b in r['peaks']]} "
+                      f"({smi})")
+        need = (("surface_me", "volume_me") if r["label"].endswith("ME on")
+                else ("surface", "volume") if r["label"].endswith("ME off")
+                else ())
+        if not all(r["launches"][k] for k in need):
+            raise AssertionError(f"[dist] {ranks} {r['label']}: fused gather "
+                                 f"{need} not launched: {r['launches']}")
+
+    def finite(r, keys):
+        for k in keys:
+            a = r["out"][k]
+            if a.shape != (DIST_SIZE, DIST_SIZE, 3) or not bool(
+                    torch.isfinite(a).all()):
+                raise AssertionError(f"[dist] {r['label']}: {k} "
+                                     f"{tuple(a.shape)} not finite")
+
+    t0 = time.perf_counter()
+    one = launch(1, dist_one_rank, backend="nccl", timeout=DIST_TIMEOUT)
+    phase("dist", f"one nccl rank: launch and runs in "
+                  f"{time.perf_counter() - t0:.1f} s")
+    for r in one:
+        report("1 nccl rank", r)
+    for r in one[2:4]:
+        finite(r, ("image", "primal", "gx", "gy"))
+        phase("dist", f"1 nccl rank, {r['label']}: finite, primal mean "
+                      f"{float(r['out']['primal'].mean()):.5g}, recon mean "
+                      f"{float(r['out']['image'].mean()):.5g}")
+    finite(one[4], ("image",))
+    phase("dist", f"1 nccl rank, {one[4]['label']}: finite, mean "
+                  f"{float(one[4]['out']['image'].mean()):.5g}")
+    one_cmp = {r["label"]: r for r in one[:2]}
+
+    def hold(ranks, two):
+        """The two-rank runs against the one-rank run, at the bars above."""
+        for r in two:
+            report(ranks, r)
+        two_cmp = {r["label"]: r for r in two}
+        for label, against, ref in (
+                ("ME off", "1 nccl rank", one_cmp["ME off"]),
+                ("ME on", "1 nccl rank", one_cmp["ME on"]),
+                ("ring ME off", "the 2-rank all-gather pass",
+                 two_cmp["ME off"])):
+            r = two_cmp[label]
+            a, b = r["out"], ref["out"]
+            st = {k: int(v) for k, v in a[3].items()}
+            stb = {k: int(v) for k, v in b[3].items()}
+            err = [float((x - y).abs().max()) for x, y in zip(a[:3], b[:3])]
+            corr = [_corr(x.numpy(), y.numpy())
+                    for x, y in zip(a[1:3], b[1:3])]
+            phase("dist", f"{ranks} {label} against {against}: visits "
+                          f"{st['visits']} / {stb['visits']}, shift_ok "
+                          f"{st['shift_ok']} / {stb['shift_ok']}, "
+                          f"win_dropped {st['win_dropped']} / "
+                          f"{stb['win_dropped']}, ME pairs "
+                          f"{st['me_pairs']} / {stb['me_pairs']}, "
+                          f"me_dropped {st['me_dropped']} / "
+                          f"{stb['me_dropped']}; max|diff| primal / gx / gy "
+                          f"{err}, gx / gy correlation {corr}"
+                          + (f"; rank 0's device trace {r['kernels']}"
+                             if r["kernels"] else ""))
+            if not all(bool(torch.isfinite(x).all()) for x in a[:3]):
+                raise AssertionError(f"[dist] {ranks} {label}: not finite")
+            if st["visits"] != stb["visits"]:
+                raise AssertionError(f"[dist] {ranks} {label}: visits "
+                                     f"differ")
+            tol = (dict(rtol=2e-3, atol=2e-5) if label.startswith("ring")
+                   else dict(rtol=1e-3, atol=1e-6))
+            for x, y in zip(a[:1] if label == "ME on" else a[:3], b):
+                torch.testing.assert_close(x, y, **tol)
+            if label != "ME on":
+                if st["shift_ok"] != stb["shift_ok"]:
+                    raise AssertionError(f"[dist] {ranks} {label}: shift_ok "
+                                         f"differs")
+                continue
+            if min(corr) <= 0.99:
+                raise AssertionError(f"[dist] {ranks} ME on: gx / gy "
+                                     f"correlation {corr}")
+            for ev in ("VolumeEval, true", "SurfaceEval, true"):
+                if not any(ev in k for k in r["kernels"]):
+                    raise AssertionError(
+                        f"[dist] {ranks} ME on: fused_gather_kernel<{ev}> "
+                        f"not in rank 0's device trace: {r['kernels']}")
+
+    # two gloo ranks share the card; on a machine with two cards or more,
+    # two nccl ranks also run, each on a card of its own
+    pairs = [("gloo", "cuda:0", "two gloo ranks on one card")]
+    if torch.cuda.device_count() >= 2:
+        pairs.append(("nccl", None, "two nccl ranks on cards of their own"))
+    for backend, device, what in pairs:
+        t0 = time.perf_counter()
+        two = launch(2, dist_compared_two, device=device, backend=backend,
+                     timeout=DIST_TIMEOUT)
+        phase("dist", f"{what}: launch and runs in "
+                      f"{time.perf_counter() - t0:.1f} s")
+        hold(f"2 {backend} ranks", two)
+    t0 = time.perf_counter()
+    dry = entry.dryrun_multichip(1)
+    phase("dist", f"entry.dryrun_multichip(1) on the card: "
+                  f"{time.perf_counter() - t0:.1f} s, primal mean "
+                  f"{float(dry['primal'].mean()):.5g}, visits "
+                  f"{int(dry['stats']['visits'])}")
+    with tempfile.TemporaryDirectory() as d:
+        dest = os.path.join(d, "mesh")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "gvpm_tpu_torch.cli", "box-medium", "-i",
+             "sppm", "--mesh", "1", "-o", dest], cwd=ROOT,
+            capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=ROOT), timeout=DIST_TIMEOUT)
+        if res.returncode != 0:
+            raise AssertionError(f"cli --mesh 1: {res.stderr[-2000:]}")
+        img = imglib.read_pfm(dest + ".pfm")
+        if not (np.isfinite(img).all() and img.mean() > 0):
+            raise AssertionError("cli --mesh 1: image not finite / dark")
+        phase("dist", f"python -m gvpm_tpu_torch.cli box-medium -i sppm "
+                      f"--mesh 1 (256^2, 65536 paths, 16 passes): exit 0 in "
+                      f"{time.perf_counter() - t0:.2f} s, image "
+                      f"{img.shape[1]}x{img.shape[0]} mean {img.mean():.5g}")
+
+
+def dist_compared_two(mesh):
+    """[dist]'s two-rank job: dist_compared on box_medium."""
+    from gvpm_tpu_torch import scenes
+    return dist_compared(mesh, scenes.box_medium(DIST_SIZE, DIST_SIZE,
+                                                 device=mesh.device))
+
+
 def capture_sweeps(scene, cfg, passes_kw):
     """One SPPM pass of each beam estimator on `scene`; returns {kind:
     the (q, rows, params) of its first sweep call}."""
@@ -2596,18 +2872,20 @@ def main():
                   f"{[(a['shift_ok'], b['shift_ok']) for a, b in zip(stats_me, stats)]}")
     launches = {k: launches[k] + launches_me[k] for k in launches}
 
-    # device kernel launches of one pass, with and without ME (the host
-    # launches them one by one; printed, not asserted)
+    # device kernels of one pass, with and without ME (the host launches
+    # them one by one; printed, not asserted), read from the device trace
+    # alone (the profiler's host events of ~70k launches take it tens of
+    # seconds to process)
     def count_launches(c):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             gvpm.render_pass(scene, c, "distance", n_photons, 5, 0, 1.0, 1.0,
                              r_vol_base)
             torch.cuda.synchronize()
-        return sum(e.count for e in prof.key_averages()
-                   if e.key == "cudaLaunchKernel")
-    phase("main", f"device kernel launches in one pass (torch.profiler): "
+        return sum(1 for e in device_events(prof)
+                   if not e[0].startswith(("Memcpy", "Memset")))
+    phase("main", f"device kernels in one pass (torch.profiler's device "
+                  f"trace): "
                   f"{count_launches(cfg_me)} with ME, "
                   f"{count_launches(cfg)} without")
 
@@ -3027,6 +3305,9 @@ def main():
     # ---- 9. BDPT and G-BDPT; 10. the command-line renderer ----
     bidir(smi, surface_ref)
     cli_phase(smi)
+
+    # ---- 11. the multi-rank render ----
+    dist_phase(smi)
 
     src = "gvpm_tpu_torch/csrc/fused_gather.cu"
     print(json.dumps({"kernels": [

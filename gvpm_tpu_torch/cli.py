@@ -62,7 +62,9 @@ def build_argparser():
     p.add_argument("--time-max", type=float, default=None,
                    help="wall-clock budget in seconds (equal-time runs)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard over the first N devices (0 = single)")
+                   help="-i sppm on N ranks (0 = one process): gloo ranks "
+                        "with --device cpu, else nccl ranks, one card "
+                        "each; under torchrun the ranks it started")
     p.add_argument("--device", default=None,
                    help="torch device to render on (default: the CUDA "
                         "card; 'cpu' for the CPU)")
@@ -82,6 +84,28 @@ def load_scene(args):
 def _numpy(a):
     return a.detach().cpu().numpy() if hasattr(a, "detach") \
         else np.asarray(a)
+
+
+def _sharded_sppm(args, scene, cfg):
+    """parallel.dist.render on --mesh N ranks: under torchrun in the group
+    it describes (the result on rank 0, None on the others), else on N
+    ranks this process starts (gloo on the CPU, nccl one card a rank)."""
+    from .parallel import dist
+    from .parallel import mesh as meshmod
+    from .parallel.launch import launch
+    import torch.distributed as tdist
+    kw = dict(volume=args.volume, seed=args.seed, passes=args.passes)
+    joined = not tdist.is_initialized()
+    if meshmod.maybe_init_distributed(args.device):
+        mesh = meshmod.make_mesh(args.mesh, args.device)
+        try:
+            out = dist.render(mesh, scene.to(mesh.device), cfg, **kw)
+        finally:
+            if joined:                  # leave a caller's group alone
+                tdist.destroy_process_group()
+        return out if mesh.rank == 0 else None
+    return launch(args.mesh, dist.render, scene, cfg, device=args.device,
+                  **kw)
 
 
 def main(argv=None):
@@ -167,19 +191,20 @@ def main(argv=None):
                              recon_alpha=args.recon_alpha,
                              recon_l1=not args.l2)
         elif args.integrator == "sppm":
-            if args.mesh:
-                raise NotImplementedError(
-                    "--mesh: the multi-GPU SPPM render (parallel/dist.py, "
-                    "parallel/mesh.py) is ROADMAP queue 1 item 18, not "
-                    "ported yet; run without --mesh")
             cfg = PhotonConfig(max_depth=args.max_depth,
                                surface_photons=args.photons,
                                volume_photons=args.photons,
                                alpha=args.alpha, max_passes=args.passes)
-            out = sppm.render(scene, cfg, volume=args.volume, seed=args.seed,
-                              passes=args.passes, callback=per_pass,
-                              checkpoint_path=args.checkpoint,
-                              checkpoint_every=args.checkpoint_every)
+            if args.mesh:
+                out = _sharded_sppm(args, scene, cfg)
+                if out is None:
+                    return 0            # not rank 0: it writes the outputs
+            else:
+                out = sppm.render(scene, cfg, volume=args.volume,
+                                  seed=args.seed, passes=args.passes,
+                                  callback=per_pass,
+                                  checkpoint_path=args.checkpoint,
+                                  checkpoint_every=args.checkpoint_every)
         elif args.integrator == "gvpm":
             cfg = GradientConfig(max_depth=args.max_depth,
                                  surface_photons=args.photons,

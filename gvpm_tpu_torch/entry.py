@@ -1,12 +1,16 @@
-"""The single-device entry point: one SPPM photon-mapping pass on a tiny
-scene (mirrors `entry()` of the repo's __graft_entry__.py, which drives
-the JAX package). The multi-device dry run comes with ROADMAP queue 1
-item 18."""
+"""The entry points of the repo's __graft_entry__.py, which drives the
+JAX package: `entry()`, one SPPM photon-mapping pass on a tiny scene,
+and `dryrun_multichip(n)`, the sharded SPPM and gradient passes on n
+ranks."""
 
 from __future__ import annotations
 
-from .core.config import PhotonConfig
+import torch
+
+from .core.config import GradientConfig, PhotonConfig
 from .integrators import sppm
+from .parallel import dist
+from .parallel.launch import launch
 from .scene.builder import SceneBuilder
 
 CFG = PhotonConfig(max_depth=4, null_bounces=3, max_cam_depth=4,
@@ -45,3 +49,50 @@ def entry(device=None):
                                 surf_scale, vol_scale, r_vol_base)
 
     return fn, (scene, 0, 0, 1.0, 1.0, sppm.base_volume_radius(scene, CFG))
+
+
+# seconds the dry run's ranks may take, start-up included
+DRYRUN_TIMEOUT = 600
+# the dry run's configs (__graft_entry__.py:95-113)
+DRYRUN_CFG = PhotonConfig(max_depth=4, null_bounces=3, max_cam_depth=4,
+                          surface_photons=1024, volume_photons=1024,
+                          grid_hash_size=1 << 10, volume_samples=1)
+DRYRUN_GRADIENT_CFG = GradientConfig(
+    max_depth=4, null_bounces=3, max_cam_depth=4, surface_photons=1024,
+    volume_photons=1024, grid_hash_size=1 << 10, volume_samples=1,
+    use_manifold=True, me_pair_budget=256)
+
+
+def _dryrun_rank(mesh):
+    n = mesh.size
+    # a film height the rank count divides
+    h = 16 if 16 % n == 0 else 2 * n
+    scene = tiny_scene(width=16, height=h, device=mesh.device)
+    n_photons = 1024 * n
+    img = dist.render_pass_sharded(
+        mesh, scene, DRYRUN_CFG, "distance", n_photons, 0, 0, 1.0, 1.0,
+        sppm.base_volume_radius(scene, DRYRUN_CFG))
+    # the gradient pass with manifold shifts: primal and the S / W shift
+    # buffers row-sharded, the photon partitions all-gathered, the stats
+    # summed
+    p, gx, gy, stats = dist.gvpm_render_pass_sharded(
+        mesh, scene, DRYRUN_GRADIENT_CFG, "distance", n_photons, 0, 0, 1.0,
+        1.0, sppm.base_volume_radius(scene, DRYRUN_GRADIENT_CFG))
+    for name, a in (("sppm", img), ("primal", p), ("gx", gx), ("gy", gy)):
+        if a.shape != (h, 16, 3) or not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"dryrun_multichip({n}): {name} of shape "
+                               f"{tuple(a.shape)} is not a finite "
+                               f"({h}, 16, 3) image")
+    return dict(image=img, primal=p, gx=gx, gy=gy, stats=stats)
+
+
+def dryrun_multichip(n_devices: int, device=None):
+    """The sharded photon-mapping step on `n_devices` ranks
+    (parallel.launch): light paths sharded for shooting, the photon
+    partitions all-gathered, pixel rows sharded for gathering; the SPPM
+    pass and the gradient pass with manifold shifts on a 16-wide tiny
+    scene, each checked for shape and finite values. `device` None runs
+    nccl ranks, one card each; "cpu" runs gloo ranks on the CPU. Returns
+    rank 0's images and the gradient pass's summed stats."""
+    return launch(n_devices, _dryrun_rank, device=device,
+                  timeout=DRYRUN_TIMEOUT)

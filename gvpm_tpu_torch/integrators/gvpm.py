@@ -67,7 +67,7 @@ def _flat_segments(cbeams, scene: Scene, pix_id):
 
 def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
                  photons, beams, k_cam, k_gather, px, py, border, surf_scale,
-                 vol_scale, r_vol_base, timings=None):
+                 vol_scale, r_vol_base, timings=None, emission_scale=1.0):
     """The per-pixel gradient pass core: camera traces (base + 4
     offsets), surface + volume gathers with shifts. Returns flat
     (primal [n,3], S [4,n,3], W [4,n,3], stats) for the given pixels.
@@ -80,7 +80,10 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     keys (compact, chains, newton, ratios, occlusion), which the two
     phases include (a beam or plane volume runs its volume_me phase once
     per segment chunk). The volume estimator is `distance`, `bre`, or one
-    of the beams and planes (sppm.BEAM_VOLUMES)."""
+    of the beams and planes (sppm.BEAM_VOLUMES). emission_scale weighs
+    the directly seen emission, the one term that reads no photon: a ring
+    pass (parallel.dist) adds the photon terms once for each partition
+    and passes 1 / partitions."""
     if volume not in ("distance", "bre") + sppm.BEAM_VOLUMES:
         raise ValueError(volume)
     dev = scene.device
@@ -231,9 +234,9 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     W_s = W_s + torch.stack([to_px(W_v[i]) for i in range(4)])
 
     # ---- directly-seen emission (directTracing, gvpm.cpp:1231-1240) ----
-    p_s = p_s + base.emission
+    p_s = p_s + emission_scale * base.emission
     for i in range(4):
-        w = torch.where(border[i], 1.0, 0.5)[..., None]
+        w = torch.where(border[i], 1.0, 0.5)[..., None] * emission_scale
         S_s[i] += w * sgps[i].emission
         W_s[i] += w * base.emission
     clock.lap("splat")
@@ -257,6 +260,31 @@ def reject_heterogeneous(scene: Scene):
             "the primal integrators (volpath/sppm) instead.")
 
 
+def prepare_pass(scene: Scene):
+    """What every gradient pass does first: refuse a heterogeneous medium,
+    and keep the card's float32 matmuls out of TF32, as the JAX package
+    computes them."""
+    reject_heterogeneous(scene)
+    if scene.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def reads_beams(cfg: GradientConfig, volume):
+    """Whether a pass reads the light beams: the beam and plane volumes,
+    and the distance and bre passes only to cull them at the camera
+    sphere."""
+    return volume in sppm.BEAM_VOLUMES or cfg.camera_sphere > 0.0
+
+
+def pixel_border(scene: Scene, px, py):
+    """[4, n] bool: whether offset i (+x, -x, +y, -y) of each pixel leaves
+    the film."""
+    xi, yi = px.to(torch.int64), py.to(torch.int64)
+    return torch.stack([xi == scene.width - 1, xi == 0,
+                        yi == scene.height - 1, yi == 0])
+
+
 def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
                 seed, it, surf_scale, vol_scale, r_vol_base, timings=None):
     """One gradient pass. Returns (primal, gx, gy, stats): images
@@ -265,31 +293,22 @@ def render_pass(scene: Scene, cfg: GradientConfig, volume, n_photons,
     successful shifts (reconnection + ME), and the ME pairs dropped by /
     taken within the per-gather budget.
     `timings` (optional dict) collects per-phase seconds."""
-    reject_heterogeneous(scene)
+    prepare_pass(scene)
     dev = scene.device
-    if dev.type == "cuda":
-        # float32 throughout, as the JAX package: no TF32 rounding
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     H, W = scene.height, scene.width
     k_cam = rng.pass_key(seed, it, rng.STREAM_CAMERA, dev)
     k_light = rng.pass_key(seed, it, rng.STREAM_LIGHT, dev)
     k_gather = rng.pass_key(seed, it, rng.STREAM_GATHER, dev)
     px, py = pixel_grid(scene)
-    xi, yi = px.to(torch.int64), py.to(torch.int64)
-    border = torch.stack([xi == W - 1, xi == 0, yi == H - 1, yi == 0])
 
     clock = PhaseClock(dev, timings)
-    # the gradient distance and bre passes read the beams only to cull
-    # them at the camera sphere
     photons, beams = sppm.shoot_photons(
-        scene, cfg, n_photons, k_light,
-        with_beams=volume in sppm.BEAM_VOLUMES or cfg.camera_sphere > 0.0)
+        scene, cfg, n_photons, k_light, with_beams=reads_beams(cfg, volume))
     clock.lap("light_trace")
     p_s, S_s, W_s, stats = pass_buffers(
         scene, cfg, volume, n_photons, photons, beams, k_cam, k_gather, px,
-        py,
-        border, surf_scale, vol_scale, r_vol_base, timings=timings)
+        py, pixel_border(scene, px, py), surf_scale, vol_scale, r_vol_base,
+        timings=timings)
     primal, gx, gy = assemble_gradients(p_s, S_s, W_s, H, W)
     return primal, gx, gy, stats
 
@@ -342,10 +361,8 @@ def render(scene: Scene, cfg: GradientConfig = GradientConfig(),
         c_shift.add(int(stats["shift_ok"]), max(4 * v, 1))
         c_drop.add(int(stats["win_dropped"]))
         c_medrop.add(int(stats["me_dropped"]))
-        ratio = sppm.radius_ratio(it, cfg.alpha)
-        surf_scale *= ratio ** 0.5
-        if dim > 0:
-            vol_scale *= ratio ** (1.0 / dim)
+        surf_scale, vol_scale = sppm.next_scales(it, cfg, dim, surf_scale,
+                                                 vol_scale)
         if checkpoint_path and ((it + 1) % checkpoint_every == 0
                                 or it == n_passes - 1):
             ckpt.save(checkpoint_path, it,

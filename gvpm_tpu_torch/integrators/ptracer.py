@@ -94,18 +94,31 @@ class LightBeams(TensorStruct):
 
 
 def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key,
-          with_beams=True):
+          with_beams=True, path_offset=None):
     """Trace n_paths light paths; returns (LightVertices, LightBeams),
     both [S, P], or (LightVertices, None) when with_beams is false: a
     pass that reads no beam skips recording them. Estimators divide by
-    n_paths (per-emitted-path scaling)."""
+    n_paths (per-emitted-path scaling).
+
+    path_offset (optional int): every random becomes a function of (key,
+    path_offset + lane) instead of the lane's position, so shards that
+    pass the same key and their global path offsets shoot, together, the
+    photons of one shoot of every path at offset 0 (rng.lane_uniform).
+    `path` and `parent_idx` stay shard-local either way. None keeps the
+    positional draws."""
     n = n_paths
     dev = scene.device
     n_steps = cfg.max_depth + cfg.null_bounces
     k_emit, k_walk = rng.split(key, 2)
     lane = torch.arange(n, device=dev)
+    lanes = None if path_offset is None else path_offset + lane
 
-    em = sample_photon(scene, k_emit, n)
+    def draw(k, shape):
+        if lanes is None:
+            return rng.uniform(k, shape)
+        return rng.lane_uniform(k, lanes, shape[1:])
+
+    em = sample_photon(scene, k_emit, n, lanes=lanes)
     alpha0 = torch.where(em["valid"][..., None], em["alpha"], 0.0)
     st = dict(
         o=em["p"], d=em["d"], med=em["med"], alpha=alpha0,
@@ -127,7 +140,7 @@ def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key,
 
         hit = intersect(scene, o, d)
         t_far = torch.where(hit.valid, hit.t, torch.inf)
-        u_med = rng.uniform(k_med, (n, 2))
+        u_med = draw(k_med, (n, 2))
         ms = med.sample_distance(scene, cur_med, o, d, t_far, u_med[:, 0],
                                  u_channel=u_med[:, 1])
         mevt = active & ms.success
@@ -184,14 +197,14 @@ def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key,
 
         # --- continue the walk: phase in media, BSDF (importance) on
         # surfaces ---
-        u2 = rng.uniform(k_scat, (n, 2))
+        u2 = draw(k_scat, (n, 2))
         wo_med, pdf_phase = ph.sample_phase(scene, cur_med, -d, u2)
         alpha_med_out = alpha_in_med * ms.sigma_s
 
         ns = hit.ns
         s_ax, t_ax = coordinate_system(ns)
         wi_loc = to_local(ns, s_ax, t_ax, -d)
-        u3 = rng.uniform(k_scat, (n, 3))
+        u3 = draw(k_scat, (n, 3))
         bs = sample_bsdf(scene, bi, wi_loc, u3, transport="importance")
         wo_surf = to_world(ns, s_ax, t_ax, bs.wo)
         alpha_surf_out = alpha_in_surf * bs.weight
@@ -215,7 +228,7 @@ def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key,
         q = torch.clamp(new_alpha.amax(-1) / torch.clamp(
             alpha.amax(-1), min=1e-20), max=cfg.rr_clamp)
         do_rr = (new_depth >= cfg.rr_depth_photon) & active & advances
-        u_rr = rng.uniform(k_rr, (n,))
+        u_rr = draw(k_rr, (n,))
         rr_kill = do_rr & (u_rr >= q)
         new_alpha = torch.where(
             (do_rr & ~rr_kill)[..., None],

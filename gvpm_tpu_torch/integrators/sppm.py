@@ -52,6 +52,17 @@ def radius_ratio(it, alpha):
     return (k + alpha) / (k + 1.0)
 
 
+def next_scales(it, cfg: PhotonConfig, dim, surf_scale, vol_scale):
+    """The APA radius scales after pass `it` (gvpm.cpp:875,983,1078): the
+    surface radius shrinks by ratio^(1/2), a volume of kernel dimension
+    dim > 0 by ratio^(1/dim)."""
+    ratio = radius_ratio(it, cfg.alpha)
+    surf_scale *= ratio ** 0.5
+    if dim > 0:
+        vol_scale *= ratio ** (1.0 / dim)
+    return surf_scale, vol_scale
+
+
 def base_volume_radius(scene: Scene, cfg: PhotonConfig):
     ext = scene.medium_hi - scene.medium_lo
     diag = float(torch.sqrt((ext * ext).sum()))
@@ -59,11 +70,13 @@ def base_volume_radius(scene: Scene, cfg: PhotonConfig):
 
 
 def shoot_photons(scene: Scene, cfg: PhotonConfig, n_photons, key,
-                  with_beams=True):
+                  with_beams=True, path_offset=None):
     """Light pass -> (photon dict, beam dict), both flattened [S*P]. The
     beam dict carries the shift caches of the beam reconnection; it is
-    None when with_beams is false (the pass reads no beam)."""
-    lv, lb = ptracer.shoot(scene, cfg, n_photons, key, with_beams=with_beams)
+    None when with_beams is false (the pass reads no beam).
+    path_offset: see ptracer.shoot (sharded shooting)."""
+    lv, lb = ptracer.shoot(scene, cfg, n_photons, key, with_beams=with_beams,
+                           path_offset=path_offset)
     pv, _ = ptracer.flatten_vertices(lv)
     if lb is None:
         return pv.asdict(), None
@@ -73,13 +86,16 @@ def shoot_photons(scene: Scene, cfg: PhotonConfig, n_photons, key,
 
 def gather_images(scene: Scene, cfg: PhotonConfig, volume, photons, beams,
                   n_emitted, key_cam, key_gather, px, py, surf_scale,
-                  vol_scale, r_vol_base, timings=None):
+                  vol_scale, r_vol_base, timings=None, emission_scale=1.0):
     """Camera pass over a pixel slice. Returns the flat image [n,3]
     indexed by lane (one lane per pixel in px/py order). photons, beams:
     the dicts of shoot_photons (beams may be None unless volume is one
     of BEAM_VOLUMES). surf_scale, vol_scale, r_vol_base:
     floats, taken as float32 scalars (the JAX package's traced
-    arguments). `timings` as in render_pass."""
+    arguments). `timings` as in render_pass. emission_scale weighs the
+    directly seen emission: a ring pass (parallel.dist) gathers the same
+    camera paths against each photon partition in turn and passes
+    1 / partitions, so that the emission adds up to once."""
     if volume not in VOLUME_ESTIMATORS:
         raise ValueError(volume)
     dev = scene.device
@@ -101,7 +117,7 @@ def gather_images(scene: Scene, cfg: PhotonConfig, volume, photons, beams,
     L_surf = estimators.surface_gather(
         scene, gps.replace(radius=r_surf), grid_s, pp, photons, n_emitted,
         1.0, max_per_cell=cfg.grid_max_photons_per_cell, stencil=8)
-    out = L_surf + gps.emission
+    out = L_surf + emission_scale * gps.emission
     clock.lap("surface_gather")
     if volume == "none":
         return out
@@ -207,11 +223,9 @@ def render(scene: Scene, cfg: PhotonConfig = PhotonConfig(),
         accum = accum + render_pass(scene, cfg, volume, n_photons, seed, it,
                                     surf_scale, vol_scale, r_vol_base,
                                     timings=timings)
-        # APA radius reduction AFTER the pass (gvpm.cpp:875,983,1078)
-        ratio = radius_ratio(it, cfg.alpha)
-        surf_scale *= ratio ** 0.5
-        if dim > 0:
-            vol_scale *= ratio ** (1.0 / dim)
+        # APA radius reduction AFTER the pass
+        surf_scale, vol_scale = next_scales(it, cfg, dim, surf_scale,
+                                            vol_scale)
         if checkpoint_path and ((it + 1) % checkpoint_every == 0
                                 or it == n_passes - 1):
             ckpt.save(checkpoint_path, it, dict(accum=accum.cpu().numpy()),

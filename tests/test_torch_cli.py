@@ -16,7 +16,8 @@ the JAX package's, all without a large JAX compile.
   most of this file's time); -i bdpt equals bdpt.render; the checkpoint
   round trip of tests/test_cli.py; --time-max writes the passes so far;
   without a card and without --device (device=) the CLI and
-  mitsuba.load raise; --mesh 2 raises naming ROADMAP item 18.
+  mitsuba.load raise; --mesh 2 on the CPU (two gloo ranks) renders the
+  JAX CLI's --mesh 2 image, and --mesh 3 on 16 rows fails.
 - Tools: compare.py runs at 8x8 on a pass budget; goldens.py plans its
   checks from each meta.json's recorded thresholds (its renders run on
   the card in chip_smoke.py's [cli]).
@@ -31,15 +32,18 @@ import numpy as np
 import pytest
 import torch
 
+from gvpm_tpu import cli as jcli
 from gvpm_tpu.native import bind as jbind
 from gvpm_tpu.scene import mitsuba as jmitsuba
 from gvpm_tpu.utils import exr as jexr
 from gvpm_tpu.utils import meshio as jmeshio
 from gvpm_tpu.utils import volume as jvolume
 from gvpm_tpu_torch import cli, scenes
-from gvpm_tpu_torch.core.config import VolPathConfig
+from gvpm_tpu_torch.core.config import PhotonConfig, VolPathConfig
 from gvpm_tpu_torch.integrators import bdpt
 from gvpm_tpu_torch.native import bind
+from gvpm_tpu_torch.parallel import dist
+from gvpm_tpu_torch.parallel.launch import RankError, launch
 from gvpm_tpu_torch.scene import mitsuba
 from gvpm_tpu_torch.tools import compare, goldens
 from gvpm_tpu_torch.utils import exr, meshio, volume
@@ -349,8 +353,6 @@ def test_cli_time_max_writes_the_passes_so_far(tmp_path):
 def test_cli_and_loader_refusals(tmp_path):
     path = tmp_path / "scene.xml"
     path.write_text(XML)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        _run(tmp_path, "m", "--mesh", "2")
     if torch.cuda.is_available():
         return
     for call in (lambda: cli.main(["box-medium", *SMALL,
@@ -358,6 +360,41 @@ def test_cli_and_loader_refusals(tmp_path):
                  lambda: mitsuba.load(str(path))):
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             call()
+
+
+# 256 paths: no query's stencil exceeds the CLI's per-cell budget (2 x 32
+# rows), so no overflow subsample turns last-bit radius differences into
+# other photons (ROADMAP.md section 3); at 1024 paths it does
+MESH_ARGS = ["box-medium", "-i", "sppm", "--photons", "256", "--passes",
+             "2", "--max-depth", "3", "--width", "16", "--height", "16"]
+
+
+def test_cli_mesh_renders_as_the_jax_cli(tmp_path):
+    """--mesh 2 on the CPU: two gloo ranks run parallel.dist.render, and
+    rank 0 writes the outputs; the image equals the JAX CLI's --mesh 2 at
+    the pass bar and the port's dist.render launched directly bit for
+    bit. --mesh 3 does not split the 16 rows and fails its ranks."""
+    dest = str(tmp_path / "port")
+    assert cli.main(MESH_ARGS + ["--mesh", "2", "--device", "cpu", "-o",
+                                 dest]) == 0
+    for ext in OUTPUTS:
+        assert os.path.exists(dest + ext), ext
+    got = imglib.read_pfm(dest + ".pfm")
+    assert got.shape == (16, 16, 3) and np.isfinite(got).all()
+    assert got.mean() > 0
+    jdest = str(tmp_path / "jax")
+    assert jcli.main(MESH_ARGS + ["--mesh", "2", "-o", jdest]) == 0
+    np.testing.assert_allclose(got, imglib.read_pfm(jdest + ".pfm"),
+                               rtol=2e-4, atol=5e-6)
+    cfg = PhotonConfig(max_depth=3, surface_photons=256,
+                       volume_photons=256, max_passes=2)
+    direct = launch(2, dist.render, scenes.box_medium(16, 16, device="cpu"),
+                    cfg, volume="distance", seed=0, passes=2, device="cpu",
+                    timeout=300)
+    np.testing.assert_array_equal(got, direct["image"].numpy())
+    with pytest.raises(RankError, match="H % n"):
+        cli.main(MESH_ARGS + ["--mesh", "3", "--device", "cpu", "-o",
+                              str(tmp_path / "three")])
 
 
 def test_compare_runs_on_a_pass_budget(tmp_path):

@@ -6,8 +6,10 @@ scene), gvpm `bre`, volpath and a 4x4 path-space-shift G-PT render,
 round-trips a
 PFM, and saves and resumes a checkpoint of both progressive loops, and
 imports the command-line renderer, the Mitsuba loader, BDPT and G-BDPT
-and renders a 4x4 G-BDPT image through `cli.main(... --device cpu)`; and
-no source file of the port, nor chip_smoke.py, holds an import of them."""
+and renders a 4x4 G-BDPT image through `cli.main(... --device cpu)`, and
+runs `entry.dryrun_multichip(2, device="cpu")` on two gloo ranks; and no
+source file of the port (parallel/ among them), nor chip_smoke.py, holds
+an import of them."""
 
 import os
 import re
@@ -97,6 +99,11 @@ with tempfile.TemporaryDirectory() as d:
                      "--max-depth", "3", "--width", "4", "--height", "4",
                      "--device", "cpu", "-o", os.path.join(d, "g")]) == 0
     assert image.read_pfm(os.path.join(d, "g_gx.pfm")).shape == (4, 4, 3)
+# the multi-rank render: the dry run's sharded SPPM and ME gradient passes
+# on two gloo ranks that this process starts
+import gvpm_tpu_torch.parallel
+dry = entry.dryrun_multichip(2, device="cpu")
+assert dry["primal"].shape == (16, 16, 3) and int(dry["stats"]["visits"]) > 0
 loaded = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "gvpm_tpu")
           and sys.modules[m] is not None]
@@ -123,6 +130,7 @@ def test_port_sources_import_no_jax_package():
     for d, _, names in os.walk(os.path.join(ROOT, "gvpm_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    assert os.path.join(ROOT, "gvpm_tpu_torch", "parallel", "dist.py") in files
     bad = [(os.path.relpath(f, ROOT), m.group(0).strip())
            for f in files for m in pat.finditer(open(f).read())]
     assert not bad, bad
