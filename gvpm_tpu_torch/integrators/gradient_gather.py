@@ -35,6 +35,7 @@ import math
 import torch
 
 from ..core import rng
+from ..core.logging import span as _span
 from ..core.math import coordinate_system, cross, dot, normalize, to_local
 from ..ops import beam_sweep as bs
 from ..ops import fused_gather as fg
@@ -421,7 +422,7 @@ def _add_me(S, W, shift_ok, me_q, ok4, w4, c_sh4, c_base_pair):
 
 def surface_gather(scene: Scene, base, sgps, grid, packed, n_emitted,
                    border, min_depth=0, use_manifold=False, pv_chain=None,
-                   me_budget=4096, me_iters=5, lap=None):
+                   me_budget=4096, me_iters=5, span=_span):
     """Surface photon gather with 4-direction shifts.
 
     base: GatherPoints (radius already scaled); sgps: the 4 shifted
@@ -429,100 +430,104 @@ def surface_gather(scene: Scene, base, sgps, grid, packed, n_emitted,
     [4,N]. With use_manifold, pv_chain is the ORIGINAL-order photon dict
     for the ME chain walks (grid.sorted_idx maps table rows back) and at
     most me_budget ME pairs are shifted, with me_iters Newton steps.
-    `lap(name, part=False)`, when given, is called at the end of the
-    kernel stage ("surface_gather") and of the ME stage ("surface_me"),
-    and with part=True after the ME stage's parts ("me:compact",
-    "me:chains" and, inside the shift, "me:newton", "me:ratios",
-    "me:occlusion").
+    `span(name)` opens the kernel stage's span ("surface_gather") and
+    the ME stage's ("surface_me"), whose parts are "me:compact",
+    "me:chains" and, inside the shift, "me:newton", "me:ratios" and
+    "me:occlusion" (core.logging.span; a pass gives its PhaseClock's,
+    which times them).
     Returns (primal [N,3], S [4,N,3], W [4,N,3], visits [N],
     shift_ok [N], dropped rows (0: the runs are exact), me_dropped
     pairs, me_pairs taken)."""
-    r_all = base.radius
-    s_ax_all, t_ax_all = coordinate_system(base.ns)
-    wo_loc_all = to_local(base.ns, s_ax_all, t_ax_all, base.wo)
-    comp = [_gp_compatible(base, sgps[i]) for i in range(4)]
-    sens = [torch.clamp(sgps[i].pdf_prod
-                        / torch.clamp(base.pdf_prod, min=1e-20), 1e-4, 1e4)
-            for i in range(4)]
-    sgp_frames = []
-    for i in range(4):
-        ss, tt = coordinate_system(sgps[i].ns)
-        sgp_frames.append((ss, tt, to_local(sgps[i].ns, ss, tt, sgps[i].wo)))
-    plan = fg.plan_runs(grid, base.p, base.valid)
-    nb = scene.bsdf_type.shape[0]
-    bic = torch.clamp(base.bsdf, 0, nb - 1)
-    cols3 = [base.p, base.ns, s_ax_all, t_ax_all, wo_loc_all,
-             scene.bsdf_albedo[bic], scene.bsdf_k[bic], scene.bsdf_eta3[bic]]
-    for i in range(4):
-        cols3 += [sgps[i].p, sgps[i].ns, *sgp_frames[i]]
-    cols1 = [scene.bsdf_type[bic], scene.bsdf_alpha[bic],
-             scene.bsdf_eta[bic], r_all * r_all, base.valid,
-             base.depth] + comp + sens + [border[i] for i in range(4)]
-    qrows = _qrows(cols3, cols1, SUR_QROW_F, plan.order)
-    out, me_sorted = fg.fused_gather(
-        SURFACE_ME_EVAL if use_manifold else SURFACE_EVAL, plan,
-        packed, qrows, 0.0, 0.0, min_depth)
-    primal, S, W, visits, shift_ok, dropped = _unpack(plan, out)
-    inv = 1.0 / n_emitted
-    primal = base.thr * primal * inv
-    S = torch.stack([sgps[i].thr * S[i] * inv for i in range(4)])
-    W = W * (base.thr * inv)[None]
-    me_drop = me_pairs = torch.zeros((), dtype=torch.int64,
-                                     device=primal.device)
-    if not use_manifold:
-        return primal, S, W, visits, shift_ok, dropped, me_drop, me_pairs
+    with span("surface_gather"):
+        r_all = base.radius
+        s_ax_all, t_ax_all = coordinate_system(base.ns)
+        wo_loc_all = to_local(base.ns, s_ax_all, t_ax_all, base.wo)
+        comp = [_gp_compatible(base, sgps[i]) for i in range(4)]
+        sens = [torch.clamp(sgps[i].pdf_prod
+                            / torch.clamp(base.pdf_prod, min=1e-20),
+                            1e-4, 1e4)
+                for i in range(4)]
+        sgp_frames = []
+        for i in range(4):
+            ss, tt = coordinate_system(sgps[i].ns)
+            sgp_frames.append((ss, tt,
+                               to_local(sgps[i].ns, ss, tt, sgps[i].wo)))
+        plan = fg.plan_runs(grid, base.p, base.valid)
+        nb = scene.bsdf_type.shape[0]
+        bic = torch.clamp(base.bsdf, 0, nb - 1)
+        cols3 = [base.p, base.ns, s_ax_all, t_ax_all, wo_loc_all,
+                 scene.bsdf_albedo[bic], scene.bsdf_k[bic],
+                 scene.bsdf_eta3[bic]]
+        for i in range(4):
+            cols3 += [sgps[i].p, sgps[i].ns, *sgp_frames[i]]
+        cols1 = [scene.bsdf_type[bic], scene.bsdf_alpha[bic],
+                 scene.bsdf_eta[bic], r_all * r_all, base.valid,
+                 base.depth] + comp + sens + [border[i] for i in range(4)]
+        qrows = _qrows(cols3, cols1, SUR_QROW_F, plan.order)
+        out, me_sorted = fg.fused_gather(
+            SURFACE_ME_EVAL if use_manifold else SURFACE_EVAL, plan,
+            packed, qrows, 0.0, 0.0, min_depth)
+        primal, S, W, visits, shift_ok, dropped = _unpack(plan, out)
+        inv = 1.0 / n_emitted
+        primal = base.thr * primal * inv
+        S = torch.stack([sgps[i].thr * S[i] * inv for i in range(4)])
+        W = W * (base.thr * inv)[None]
+        me_drop = me_pairs = torch.zeros((), dtype=torch.int64,
+                                         device=primal.device)
+        if not use_manifold:
+            return primal, S, W, visits, shift_ok, dropped, me_drop, \
+                me_pairs
 
-    if lap is not None:
-        lap("surface_gather")
-    me_q, me_i, me_drop = _compact_me(fg.unsort(plan, me_sorted), me_budget)
-    if lap is not None:
-        lap("me:compact", part=True)
-    B = me_q.shape[0]
-    if B:
-        me_pairs = me_pairs + B
-        wscale = torch.linalg.norm(scene.world_hi - scene.world_lo)
-        # chain walks follow parent links in the ORIGINAL photon order
-        me_io = grid.sorted_idx[me_i]
-        ch4 = manifold.tile_chains(
-            manifold.pull_chains(scene, pv_chain, me_io), 4)
-        if lap is not None:
-            lap("me:chains", part=True)
-        a_i = pv_chain["alpha"][me_io]
-        ph_p = pv_chain["p"][me_io]
-        ph_wi = pv_chain["wi"][me_io]
-        ph_ns = pv_chain["ns"][me_io]
-        k2 = INV_PI / torch.clamp(r_all[me_q] ** 2, min=1e-12)
-        # base pair contribution (for the W weight correction)
-        wi_lb = to_local(base.ns[me_q], s_ax_all[me_q], t_ax_all[me_q],
-                         -ph_wi)
-        f_b, _ = eval_bsdf(scene, bic[me_q], wo_loc_all[me_q], wi_lb)
-        c_base_pair = base.thr[me_q] * a_i * f_b * (k2 * inv)[..., None]
-        # sphere-root selector at the photon: the base segment arrived
-        # from outside iff wi points against the outward normal
-        ph_enter = dot(ph_wi, ph_ns) < 0.0
-        # the 4 offset targets of every pair in one solve, offset-major
-        c_t = torch.cat([sgps[i].p[me_q] + (ph_p - base.p[me_q])
-                         for i in range(4)])
-        ar, pr, okm, wi_new = manifold.me_shift_surface(
-            scene, ch4, pv_chain["prim"][me_io].repeat(4),
-            ph_ns.repeat(4, 1), ph_enter.repeat(4), c_t, n_iters=me_iters,
-            scene_scale=wscale, lap=lap)
+    with span("surface_me"):
+        with span("me:compact"):
+            me_q, me_i, me_drop = _compact_me(fg.unsort(plan, me_sorted),
+                                              me_budget)
+        B = me_q.shape[0]
+        if B:
+            with span("me:chains"):
+                me_pairs = me_pairs + B
+                wscale = torch.linalg.norm(scene.world_hi - scene.world_lo)
+                # chain walks follow parent links in the ORIGINAL photon
+                # order
+                me_io = grid.sorted_idx[me_i]
+                ch4 = manifold.tile_chains(
+                    manifold.pull_chains(scene, pv_chain, me_io), 4)
+            a_i = pv_chain["alpha"][me_io]
+            ph_p = pv_chain["p"][me_io]
+            ph_wi = pv_chain["wi"][me_io]
+            ph_ns = pv_chain["ns"][me_io]
+            k2 = INV_PI / torch.clamp(r_all[me_q] ** 2, min=1e-12)
+            # base pair contribution (for the W weight correction)
+            wi_lb = to_local(base.ns[me_q], s_ax_all[me_q], t_ax_all[me_q],
+                             -ph_wi)
+            f_b, _ = eval_bsdf(scene, bic[me_q], wo_loc_all[me_q], wi_lb)
+            c_base_pair = base.thr[me_q] * a_i * f_b * (k2 * inv)[..., None]
+            # sphere-root selector at the photon: the base segment arrived
+            # from outside iff wi points against the outward normal
+            ph_enter = dot(ph_wi, ph_ns) < 0.0
+            # the 4 offset targets of every pair in one solve, offset-major
+            c_t = torch.cat([sgps[i].p[me_q] + (ph_p - base.p[me_q])
+                             for i in range(4)])
+            ar, pr, okm, wi_new = manifold.me_shift_surface(
+                scene, ch4, pv_chain["prim"][me_io].repeat(4),
+                ph_ns.repeat(4, 1), ph_enter.repeat(4), c_t,
+                n_iters=me_iters, scene_scale=wscale, span=span)
 
-        wi_ls = to_local(_per_offset(lambda i: sgps[i].ns[me_q]),
-                         _per_offset(lambda i: sgp_frames[i][0][me_q]),
-                         _per_offset(lambda i: sgp_frames[i][1][me_q]),
-                         -normalize(wi_new))
-        f_s, _ = eval_bsdf(
-            scene, _per_offset(lambda i: torch.clamp(sgps[i].bsdf[me_q], 0,
-                                                    nb - 1)),
-            _per_offset(lambda i: sgp_frames[i][2][me_q]), wi_ls)
-        ok4 = okm & _per_offset(lambda i: comp[i][me_q] & ~border[i][me_q])
-        w4 = torch.where(ok4, 1.0 / (1.0 + pr), 1.0)
-        c_sh4 = _per_offset(lambda i: sgps[i].thr[me_q]) \
-            * (a_i.repeat(4, 1) * ar) * f_s * (k2 * inv).repeat(4)[..., None]
-        _add_me(S, W, shift_ok, me_q, ok4, w4, c_sh4, c_base_pair)
-    if lap is not None:
-        lap("surface_me")
+            wi_ls = to_local(_per_offset(lambda i: sgps[i].ns[me_q]),
+                             _per_offset(lambda i: sgp_frames[i][0][me_q]),
+                             _per_offset(lambda i: sgp_frames[i][1][me_q]),
+                             -normalize(wi_new))
+            f_s, _ = eval_bsdf(
+                scene, _per_offset(lambda i: torch.clamp(sgps[i].bsdf[me_q],
+                                                        0, nb - 1)),
+                _per_offset(lambda i: sgp_frames[i][2][me_q]), wi_ls)
+            ok4 = okm & _per_offset(lambda i: comp[i][me_q]
+                                    & ~border[i][me_q])
+            w4 = torch.where(ok4, 1.0 / (1.0 + pr), 1.0)
+            c_sh4 = _per_offset(lambda i: sgps[i].thr[me_q]) \
+                * (a_i.repeat(4, 1) * ar) * f_s \
+                * (k2 * inv).repeat(4)[..., None]
+            _add_me(S, W, shift_ok, me_q, ok4, w4, c_sh4, c_base_pair)
     return primal, S, W, visits, shift_ok, dropped, me_drop, me_pairs
 
 
@@ -533,109 +538,112 @@ def surface_gather(scene: Scene, base, sgps, grid, packed, n_emitted,
 def volume_gather(scene: Scene, cb, scb_list, grid, packed, n_emitted,
                   r_vol, key, border_lane, n_samples=2, min_depth=0,
                   use_manifold=False, pv_chain=None, me_budget=4096,
-                  me_iters=5, lap=None):
+                  me_iters=5, span=_span):
     """VPM/distance gather with 4-direction shifts.
 
     cb: base camera-segment dict (flattened [M], with the lane ids `gid`
     that key the distance randoms); scb_list: the 4 shifted segment
     dicts; r_vol: float32 scalar tensor; use_manifold / pv_chain /
-    me_budget / me_iters / lap as in surface_gather (phases
-    "volume_gather" and "volume_me", once per distance sample; the
-    budget is per sample). Returns (primal [M,3], S [4,M,3], W [4,M,3],
-    visits [M], shift_ok [M], dropped rows, me_dropped pairs, me_pairs
-    taken)."""
-    o, d, length, mi = cb["o"], cb["d"], cb["length"], cb["med"]
-    r2 = float(r_vol * r_vol)
-    k3 = float(pl.rdiv(3.0, 4.0 * math.pi * torch.clamp(
-        r_vol * r_vol * r_vol, min=1e-18)))
-    svalid = [scb_list[i]["valid"] & (scb_list[i]["med"] == mi)
-              for i in range(4)]
-    sens = [torch.clamp(scb_list[i]["pdf_prod"]
-                        / torch.clamp(cb["pdf_prod"], min=1e-20), 1e-4, 1e4)
-            for i in range(4)]
-    mic = torch.clamp(mi, 0, scene.med_g.shape[0] - 1)
-    ev = VOLUME_ME_EVAL if use_manifold else VOLUME_EVAL
+    me_budget / me_iters / span as in surface_gather (spans
+    "volume_gather" and "volume_me", a distance sample's kernel stage
+    and ME stage in turn; the budget is per sample). Returns (primal
+    [M,3], S [4,M,3], W [4,M,3], visits [M], shift_ok [M], dropped rows,
+    me_dropped pairs, me_pairs taken)."""
+    with span("volume_gather"):
+        o, d, length, mi = cb["o"], cb["d"], cb["length"], cb["med"]
+        r2 = float(r_vol * r_vol)
+        k3 = float(pl.rdiv(3.0, 4.0 * math.pi * torch.clamp(
+            r_vol * r_vol * r_vol, min=1e-18)))
+        svalid = [scb_list[i]["valid"] & (scb_list[i]["med"] == mi)
+                  for i in range(4)]
+        sens = [torch.clamp(scb_list[i]["pdf_prod"]
+                            / torch.clamp(cb["pdf_prod"], min=1e-20),
+                            1e-4, 1e4)
+                for i in range(4)]
+        mic = torch.clamp(mi, 0, scene.med_g.shape[0] - 1)
+        ev = VOLUME_ME_EVAL if use_manifold else VOLUME_EVAL
 
-    tot = None
+    parts = []
     for k in rng.split(key, n_samples):
-        u = rng.lane_uniform(k, cb["gid"])
-        ms = med.sample_distance(scene, mi, o, d, length, u,
-                                 strategy=med.ALWAYS_VALID)
-        x, t = ms.p, ms.t
-        sok = cb["valid"] & ms.success
-        pdf_base_ray = torch.clamp(ms.pdf_success, min=1e-20)
-        w_cam = cb["thr"] * ms.transmittance * ms.sigma_s \
-            / pdf_base_ray[..., None]
-        xs, cam_ok, prc, thr_s = [], [], [], []
-        for i in range(4):
-            s = scb_list[i]
-            cam_ok.append(sok & svalid[i] & (s["length"] >= t))
-            xs.append(s["o"] + s["d"] * t[..., None])
-            ps_i = med.pdf_distance_always_valid(scene, mi, t, s["length"])
-            prc.append(ps_i / pdf_base_ray * sens[i])
-            thr_s.append(s["thr"] * ms.transmittance * ms.sigma_s
-                         / pdf_base_ray[..., None])
-        plan = fg.plan_runs(grid, x, sok)
-        cols3 = [x, d] + xs + [scb_list[i]["d"] for i in range(4)]
-        cols1 = [scene.med_g[mic], scene.med_phase[mic], sok,
-                 cb["depth"]] + cam_ok + prc \
-            + [border_lane[i] for i in range(4)]
-        qrows = _qrows(cols3, cols1, VOL_QROW_F, plan.order)
-        out, me_sorted = fg.fused_gather(ev, plan, packed, qrows, r2, k3,
-                                         min_depth)
-        p_, S_, W_, v_, so_, dr_ = _unpack(plan, out)
-        p_ = w_cam * p_
-        S_ = torch.stack([thr_s[i] * S_[i] for i in range(4)])
-        W_ = W_ * w_cam[None]
-        me_drop = me_pairs = torch.zeros((), dtype=torch.int64,
-                                         device=p_.device)
+        with span("volume_gather"):
+            u = rng.lane_uniform(k, cb["gid"])
+            ms = med.sample_distance(scene, mi, o, d, length, u,
+                                     strategy=med.ALWAYS_VALID)
+            x, t = ms.p, ms.t
+            sok = cb["valid"] & ms.success
+            pdf_base_ray = torch.clamp(ms.pdf_success, min=1e-20)
+            w_cam = cb["thr"] * ms.transmittance * ms.sigma_s \
+                / pdf_base_ray[..., None]
+            xs, cam_ok, prc, thr_s = [], [], [], []
+            for i in range(4):
+                s = scb_list[i]
+                cam_ok.append(sok & svalid[i] & (s["length"] >= t))
+                xs.append(s["o"] + s["d"] * t[..., None])
+                ps_i = med.pdf_distance_always_valid(scene, mi, t,
+                                                     s["length"])
+                prc.append(ps_i / pdf_base_ray * sens[i])
+                thr_s.append(s["thr"] * ms.transmittance * ms.sigma_s
+                             / pdf_base_ray[..., None])
+            plan = fg.plan_runs(grid, x, sok)
+            cols3 = [x, d] + xs + [scb_list[i]["d"] for i in range(4)]
+            cols1 = [scene.med_g[mic], scene.med_phase[mic], sok,
+                     cb["depth"]] + cam_ok + prc \
+                + [border_lane[i] for i in range(4)]
+            qrows = _qrows(cols3, cols1, VOL_QROW_F, plan.order)
+            out, me_sorted = fg.fused_gather(ev, plan, packed, qrows, r2, k3,
+                                             min_depth)
+            p_, S_, W_, v_, so_, dr_ = _unpack(plan, out)
+            p_ = w_cam * p_
+            S_ = torch.stack([thr_s[i] * S_[i] for i in range(4)])
+            W_ = W_ * w_cam[None]
+            me_drop = me_pairs = torch.zeros((), dtype=torch.int64,
+                                             device=p_.device)
         if use_manifold:
-            if lap is not None:
-                lap("volume_gather")
-            me_q, me_i, me_drop = _compact_me(fg.unsort(plan, me_sorted),
-                                              me_budget)
-            if lap is not None:
-                lap("me:compact", part=True)
-            B = me_q.shape[0]
-            if B:
-                me_pairs = me_pairs + B
-                wscale = torch.linalg.norm(scene.world_hi - scene.world_lo)
-                me_io = grid.sorted_idx[me_i]
-                ch4 = manifold.tile_chains(
-                    manifold.pull_chains(scene, pv_chain, me_io), 4)
-                if lap is not None:
-                    lap("me:chains", part=True)
-                a_i = pv_chain["alpha"][me_io]
-                ph_p = pv_chain["p"][me_io]
-                ph_wi = pv_chain["wi"][me_io]
-                mi_q = mi[me_q]
-                pf_b = ph.eval_phase(scene, mi_q, -ph_wi, -d[me_q])
-                c_base_pair = w_cam[me_q] * a_i * (pf_b * k3)[..., None]
-                c_t = torch.cat([xs[i][me_q] + (ph_p - x[me_q])
-                                 for i in range(4)])
-                ar, pr, okm, wi_new = manifold.me_shift_volume(
-                    scene, ch4, c_t, n_iters=me_iters, scene_scale=wscale,
-                    lap=lap)
+            with span("volume_me"):
+                with span("me:compact"):
+                    me_q, me_i, me_drop = _compact_me(
+                        fg.unsort(plan, me_sorted), me_budget)
+                B = me_q.shape[0]
+                if B:
+                    with span("me:chains"):
+                        me_pairs = me_pairs + B
+                        wscale = torch.linalg.norm(scene.world_hi
+                                                   - scene.world_lo)
+                        me_io = grid.sorted_idx[me_i]
+                        ch4 = manifold.tile_chains(
+                            manifold.pull_chains(scene, pv_chain, me_io), 4)
+                    a_i = pv_chain["alpha"][me_io]
+                    ph_p = pv_chain["p"][me_io]
+                    ph_wi = pv_chain["wi"][me_io]
+                    mi_q = mi[me_q]
+                    pf_b = ph.eval_phase(scene, mi_q, -ph_wi, -d[me_q])
+                    c_base_pair = w_cam[me_q] * a_i * (pf_b * k3)[..., None]
+                    c_t = torch.cat([xs[i][me_q] + (ph_p - x[me_q])
+                                     for i in range(4)])
+                    ar, pr, okm, wi_new = manifold.me_shift_volume(
+                        scene, ch4, c_t, n_iters=me_iters,
+                        scene_scale=wscale, span=span)
 
-                pf_s = ph.eval_phase(
-                    scene, mi_q.repeat(4), -wi_new,
-                    _per_offset(lambda i: -scb_list[i]["d"][me_q]))
-                ok4 = okm & _per_offset(
-                    lambda i: cam_ok[i][me_q] & ~border_lane[i][me_q])
-                w4 = torch.where(
-                    ok4, 1.0 / (1.0 + pr * _per_offset(
-                        lambda i: prc[i][me_q])), 1.0)
-                c_sh4 = _per_offset(lambda i: thr_s[i][me_q]) \
-                    * (a_i.repeat(4, 1) * ar) * (pf_s * k3)[..., None]
-                _add_me(S_, W_, so_, me_q, ok4, w4, c_sh4, c_base_pair)
-            if lap is not None:
-                lap("volume_me")
-        res = [p_, S_, W_, v_, so_, dr_, me_drop, me_pairs]
-        tot = res if tot is None else [a + b for a, b in zip(tot, res)]
-    primal, S, W, visits, shift_ok, dropped, me_drop, me_pairs = tot
-    inv = 1.0 / (n_samples * n_emitted)
-    return (primal * inv, S * inv, W * inv, visits, shift_ok, dropped,
-            me_drop, me_pairs)
+                    pf_s = ph.eval_phase(
+                        scene, mi_q.repeat(4), -wi_new,
+                        _per_offset(lambda i: -scb_list[i]["d"][me_q]))
+                    ok4 = okm & _per_offset(
+                        lambda i: cam_ok[i][me_q] & ~border_lane[i][me_q])
+                    w4 = torch.where(
+                        ok4, 1.0 / (1.0 + pr * _per_offset(
+                            lambda i: prc[i][me_q])), 1.0)
+                    c_sh4 = _per_offset(lambda i: thr_s[i][me_q]) \
+                        * (a_i.repeat(4, 1) * ar) * (pf_s * k3)[..., None]
+                    _add_me(S_, W_, so_, me_q, ok4, w4, c_sh4, c_base_pair)
+        parts.append([p_, S_, W_, v_, so_, dr_, me_drop, me_pairs])
+    with span("volume_gather"):
+        tot = parts[0]
+        for res in parts[1:]:
+            tot = [a + b for a, b in zip(tot, res)]
+        primal, S, W, visits, shift_ok, dropped, me_drop, me_pairs = tot
+        inv = 1.0 / (n_samples * n_emitted)
+        return (primal * inv, S * inv, W * inv, visits, shift_ok, dropped,
+                me_drop, me_pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -879,7 +887,7 @@ def _rep4(*ts):
 
 
 def _beam_me_stage(scene, cb, scb_list, lb, pv_chain, me_q, me_b, r2, k1,
-                   border_lane, S, W, shift_ok, me_iters, lap):
+                   border_lane, S, W, shift_ok, me_iters, span):
     """beam1d's ME stage (gvpm_tpu's _beam_me_stage; shiftBeamME,
     shift_volume_beams.cpp:748): the base closest approach of each
     (segment me_q, beam me_b) pair again, the beam's delta chain
@@ -918,14 +926,13 @@ def _beam_me_stage(scene, cb, scb_list, lb, pv_chain, me_q, me_b, r2, k1,
     c_base_pair = torch.where(okp[..., None], ba * wgt_b, 0.0) \
         * cb["thr"][me_q]
     # the virtual photon is the base beam point pb
-    ch4 = _virtual_chains(scene, pv_chain, lb, me_b, pb)
-    if lap is not None:
-        lap("me:chains", part=True)
+    with span("me:chains"):
+        ch4 = _virtual_chains(scene, pv_chain, lb, me_b, pb)
     y_t = _per_offset(lambda i: scb_list[i]["o"][me_q]
                       + scb_list[i]["d"][me_q] * tc[..., None] - delta)
     wscale = torch.linalg.norm(scene.world_hi - scene.world_lo)
     _, dir_n, t_n, ar, pr_ch, okm = manifold.me_shift_beam(
-        scene, ch4, y_t, n_iters=me_iters, scene_scale=wscale, lap=lap)
+        scene, ch4, y_t, n_iters=me_iters, scene_scale=wscale, span=span)
 
     sd4 = _per_offset(lambda i: scb_list[i]["d"][me_q])
     miq4, g4, pt4, tb4, bL4, sin_t4, surv_b4 = _rep4(
@@ -952,7 +959,7 @@ def _beam_me_stage(scene, cb, scb_list, lb, pv_chain, me_q, me_b, r2, k1,
 
 
 def _plane_me_stage(scene, cb, scb_list, planes, pv_chain, me_q, me_p,
-                    border_lane, S, W, shift_ok, me_iters, lap):
+                    border_lane, S, W, shift_ok, me_iters, span):
     """plane0d's ME stage (gvpm_tpu's _plane_me_stage; the delta-origin
     branch of PlaneGradRadianceQuery, shift_volume_planes.h:57): the
     plane's generating beam origin ends a pure-delta chain, which is
@@ -1002,9 +1009,8 @@ def _plane_me_stage(scene, cb, scb_list, planes, pv_chain, me_q, me_p,
         * cb["thr"][me_q]
     # the virtual photon is the base axis point A + t0 w0
     q_axis = po + pw0 * t0[..., None]
-    ch4 = _virtual_chains(scene, pv_chain, planes, me_p, q_axis)
-    if lap is not None:
-        lap("me:chains", part=True)
+    with span("me:chains"):
+        ch4 = _virtual_chains(scene, pv_chain, planes, me_p, q_axis)
     y_base = oq + dq * tcam[..., None]
     so4 = _per_offset(lambda i: scb_list[i]["o"][me_q])
     sd4 = _per_offset(lambda i: scb_list[i]["d"][me_q])
@@ -1013,7 +1019,7 @@ def _plane_me_stage(scene, cb, scb_list, planes, pv_chain, me_q, me_p,
     q_t = so4 + sd4 * tcam4[..., None] - (y_base4 - q_axis4)
     wscale = torch.linalg.norm(scene.world_hi - scene.world_lo)
     org_n, w0n, _, ar, pr_ch, okm = manifold.me_shift_beam(
-        scene, ch4, q_t, n_iters=me_iters, scene_scale=wscale, lap=lap)
+        scene, ch4, q_t, n_iters=me_iters, scene_scale=wscale, span=span)
 
     pw0_4, pw1_4, pl0_4, pl1_4, psig4, pal4 = _rep4(pw0, pw1, pl0, pl1, psig,
                                                     pal)
@@ -1072,48 +1078,51 @@ def _plane_me_stage(scene, cb, scb_list, planes, pv_chain, me_q, me_p,
 
 
 def _segment_gather_me(kind, stage, scene, cb, scb_list, lb, border_lane,
-                       params, pv_chain, me_budget, seg_tile, lap, **kw):
+                       params, pv_chain, me_budget, seg_tile, span, **kw):
     """gbeam1d / gplane0d with use_manifold: the camera segments in
-    chunks of seg_tile, one ME sweep each, then its ME stage on at most
-    me_budget pairs (the first queries with an eligible pair, as the
-    JAX package's hosted dispatch budgets each chunk). Returns (primal,
-    S, W, visits, shift_ok, me_dropped, me_pairs), before 1/n_emitted."""
-    rows, tails, keep = _sweep_beams(scene, lb, planes=kind == "gplane0d_me",
-                                     me=True)
+    chunks of seg_tile, one ME sweep each (span "volume_gather"), then
+    its ME stage (span "volume_me") on at most me_budget pairs (the
+    first queries with an eligible pair, as the JAX package's hosted
+    dispatch budgets each chunk). Returns (primal, S, W, visits,
+    shift_ok, me_dropped, me_pairs), before 1/n_emitted."""
+    with span("volume_gather"):
+        rows, tails, keep = _sweep_beams(scene, lb,
+                                         planes=kind == "gplane0d_me",
+                                         me=True)
     parts, me_drop, me_pairs = [], 0, 0
     for sl in _chunks(cb["o"].shape[0], seg_tile):
-        cbc = {k: v[sl] for k, v in cb.items()}
-        scbc = [{k: v[sl] for k, v in s.items()} for s in scb_list]
-        blc = border_lane[:, sl]
-        pr, S, W, visits, shift_ok, me_key, me_cnt, _ = _segment_sweep(
-            kind, scene, cbc, scbc, rows, tails, blc, params)
-        if lap is not None:
-            lap("volume_gather")
-        me_q, me_b, total = _me_pairs(me_key, me_cnt, keep, me_budget)
-        if lap is not None:
-            lap("me:compact", part=True)
-        att = 0
-        if me_q.shape[0]:
-            att = stage(scene, cbc, scbc, lb, pv_chain, me_q, me_b,
-                        border_lane=blc, S=S, W=W, shift_ok=shift_ok,
-                        lap=lap, **kw)
-        me_drop = me_drop + total - att
-        me_pairs += me_q.shape[0]
-        if lap is not None:
-            lap("volume_me")
+        with span("volume_gather"):
+            cbc = {k: v[sl] for k, v in cb.items()}
+            scbc = [{k: v[sl] for k, v in s.items()} for s in scb_list]
+            blc = border_lane[:, sl]
+            pr, S, W, visits, shift_ok, me_key, me_cnt, _ = _segment_sweep(
+                kind, scene, cbc, scbc, rows, tails, blc, params)
+        with span("volume_me"):
+            with span("me:compact"):
+                me_q, me_b, total = _me_pairs(me_key, me_cnt, keep,
+                                              me_budget)
+            att = 0
+            if me_q.shape[0]:
+                att = stage(scene, cbc, scbc, lb, pv_chain, me_q, me_b,
+                            border_lane=blc, S=S, W=W, shift_ok=shift_ok,
+                            span=span, **kw)
+            me_drop = me_drop + total - att
+            me_pairs += me_q.shape[0]
         parts.append((pr, S, W, visits, shift_ok))
-    pr, S, W, visits, shift_ok = (torch.cat([p[k] for p in parts],
-                                            dim=1 if k in (1, 2) else 0)
-                                  for k in range(5))
-    dev = pr.device
-    return (pr, S, W, visits, shift_ok,
-            torch.as_tensor(me_drop, dtype=torch.int64, device=dev),
-            torch.tensor(me_pairs, dtype=torch.int64, device=dev))
+    with span("volume_gather"):
+        pr, S, W, visits, shift_ok = (torch.cat([p[k] for p in parts],
+                                                dim=1 if k in (1, 2) else 0)
+                                      for k in range(5))
+        dev = pr.device
+        return (pr, S, W, visits, shift_ok,
+                torch.as_tensor(me_drop, dtype=torch.int64, device=dev),
+                torch.tensor(me_pairs, dtype=torch.int64, device=dev))
 
 
 def beam_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted, r_beam,
                          border_lane, use_manifold=False, pv_chain=None,
-                         me_budget=4096, me_iters=5, seg_tile=0, lap=None):
+                         me_budget=4096, me_iters=5, seg_tile=0,
+                         span=_span):
     """1D beam x beam gradient gather (gvpm_tpu's beam_gradient_gather):
     each (camera segment, beam) closest approach within r_beam is the
     base pair; its shift to an offset keeps the beam's origin A, maps
@@ -1130,34 +1139,35 @@ def beam_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted, r_beam,
     segment keeps its first such pair, at most me_budget of them per
     chunk of seg_tile segments are chain-solved with me_iters Newton
     steps (`_beam_me_stage`; pv_chain: the light pass's photon dict), the
-    others stay unilateral and are counted in me_dropped. `lap(name,
-    part=False)`, when given, is called at the end of each chunk's sweep
-    ("volume_gather") and ME stage ("volume_me"), and with part=True
-    after its parts ("me:compact", "me:chains" and the shift's
-    "me:newton", "me:ratios", "me:occlusion"). Without ME the segments
-    sweep in one launch.
+    others stay unilateral and are counted in me_dropped. `span` as in
+    surface_gather: each chunk's sweep is a "volume_gather" span and its
+    ME stage a "volume_me" span, with the parts "me:compact",
+    "me:chains" and the shift's "me:newton", "me:ratios",
+    "me:occlusion". Without ME the segments sweep in one launch.
 
     cb / scb_list: the compacted base and 4 offset camera-segment dicts
     [M]; lb: the flattened beam dict; r_beam: float32 scalar tensor;
     border_lane: [4, M] bool. Returns (primal [M,3], S [4,M,3],
     W [4,M,3], visits [M], shift_ok [M], me_dropped, me_pairs)."""
-    r2, k1 = torch.stack([r_beam * r_beam,
-                          pl.rdiv(1.0, 2.0 * r_beam)]).tolist()
-    params = bs.Params(r2=r2, k=k1)
-    if use_manifold:
-        return _scaled(_segment_gather_me(
-            "gbeam1d_me", _beam_me_stage, scene, cb, scb_list, lb,
-            border_lane, params, pv_chain, me_budget, seg_tile, lap, r2=r2,
-            k1=k1, me_iters=me_iters), 1.0 / n_emitted)
-    rows, tails, _ = _sweep_beams(scene, lb)
-    return _scaled(_segment_sweep("gbeam1d", scene, cb, scb_list, rows,
-                                  tails, border_lane, params),
-                   1.0 / n_emitted)
+    with span("volume_gather"):
+        r2, k1 = torch.stack([r_beam * r_beam,
+                              pl.rdiv(1.0, 2.0 * r_beam)]).tolist()
+        params = bs.Params(r2=r2, k=k1)
+        if not use_manifold:
+            rows, tails, _ = _sweep_beams(scene, lb)
+            return _scaled(_segment_sweep("gbeam1d", scene, cb, scb_list,
+                                          rows, tails, border_lane, params),
+                           1.0 / n_emitted)
+    return _scaled(_segment_gather_me(
+        "gbeam1d_me", _beam_me_stage, scene, cb, scb_list, lb,
+        border_lane, params, pv_chain, me_budget, seg_tile, span, r2=r2,
+        k1=k1, me_iters=me_iters), 1.0 / n_emitted)
 
 
 def plane_gradient_gather(scene: Scene, cb, scb_list, planes, n_emitted,
                           border_lane, use_manifold=False, pv_chain=None,
-                          me_budget=4096, me_iters=5, seg_tile=0, lap=None):
+                          me_budget=4096, me_iters=5, seg_tile=0,
+                          span=_span):
     """0D photon-plane gradient gather (gvpm_tpu's plane_gradient_gather):
     camera segment x plane by Moller-Trumbore; the shift rotates the
     plane about its origin by the minimal rotation that takes the base
@@ -1172,17 +1182,18 @@ def plane_gradient_gather(scene: Scene, cb, scb_list, planes, n_emitted,
     if use_manifold:
         return _scaled(_segment_gather_me(
             "gplane0d_me", _plane_me_stage, scene, cb, scb_list, planes,
-            border_lane, bs.Params(), pv_chain, me_budget, seg_tile, lap,
+            border_lane, bs.Params(), pv_chain, me_budget, seg_tile, span,
             me_iters=me_iters), 1.0 / n_emitted)
-    rows, tails, _ = _sweep_beams(scene, planes, planes=True)
-    return _scaled(_segment_sweep("gplane0d", scene, cb, scb_list, rows,
-                                  tails, border_lane, bs.Params()),
-                   1.0 / n_emitted)
+    with span("volume_gather"):
+        rows, tails, _ = _sweep_beams(scene, planes, planes=True)
+        return _scaled(_segment_sweep("gplane0d", scene, cb, scb_list,
+                                      rows, tails, border_lane, bs.Params()),
+                       1.0 / n_emitted)
 
 
 def _beam3d_me_stage(scene, lb, pv_chain, me_q, me_b, yq, x, xs, sd, dc,
                      mi, cam_ok, pr_cam, thr_c, w_cam, border_lane, r2, k3,
-                     S, W, shift_ok, me_iters, lap):
+                     S, W, shift_ok, me_iters, span):
     """beam3d's ME stage for one chunk and distance sample (gvpm_tpu's
     _beam3d_me_stage): the stored base chord point yq (the kernel's)
     maps to each offset frame (xs_i + (y - x)) and the delta-origin beam
@@ -1207,14 +1218,14 @@ def _beam3d_me_stage(scene, lb, pv_chain, me_q, me_b, yq, x, xs, sd, dc,
     okp = (chord > 0.0) & (miq == bmed) \
         & (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2] < r2)
     surv_b = est.survival_prob(scene, miq, s_b)
-    ch4 = _virtual_chains(scene, pv_chain, lb, me_b, yq)
-    if lap is not None:
-        lap("me:chains", part=True)
+    with span("me:chains"):
+        ch4 = _virtual_chains(scene, pv_chain, lb, me_b, yq)
     xs4 = _per_offset(lambda i: xs[i][me_q])
     yx4, = _rep4(yq - xq)
     wscale = torch.linalg.norm(scene.world_hi - scene.world_lo)
     org_n, dir_n, t_n, ar, pr_ch, okm = manifold.me_shift_beam(
-        scene, ch4, xs4 + yx4, n_iters=me_iters, scene_scale=wscale, lap=lap)
+        scene, ch4, xs4 + yx4, n_iters=me_iters, scene_scale=wscale,
+        span=span)
 
     miq4, g4, pt4, st4, bL4, ba4 = _rep4(miq, g_q, pt_q, st_q, bL, ba)
     s_b4, surv_b4, chord4 = _rep4(s_b, surv_b, chord)
@@ -1253,7 +1264,7 @@ def _beam3d_me_stage(scene, lb, pv_chain, me_q, me_b, yq, x, xs, sd, dc,
 def beam3d_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted,
                            r_beam, key, border_lane, n_samples=2, tile=256,
                            seg_tile=0, use_manifold=False, pv_chain=None,
-                           me_budget=4096, me_iters=5, lap=None):
+                           me_budget=4096, me_iters=5, span=_span):
     """3D beam x point gradient gather (gvpm_tpu's beam3d_gradient_gather):
     a camera distance sample x per segment and sample; the base pair is
     one stratified chord sample y on the beam's chord through the kernel
@@ -1275,81 +1286,83 @@ def beam3d_gradient_gather(scene: Scene, cb, scb_list, lb, n_emitted,
     m * tile + j % tile of uniform(fold_in(k_s, j // tile), [chunk,
     tile]) (ops/beam_sweep.beam_keys). One sweep launch per chunk and
     sample. Returns beam_gradient_gather's tuple."""
-    mi, o, d, length = cb["med"], cb["o"], cb["d"], cb["length"]
-    m = o.shape[0]
-    dev = o.device
-    r2, k3 = torch.stack([r_beam * r_beam, pl.rdiv(
-        3.0, 4.0 * math.pi * torch.clamp(r_beam * r_beam * r_beam,
-                                         min=1e-18))]).tolist()
-    rows, tails, keep = _sweep_beams(scene, lb, me=use_manifold)
-    kind = "gbeam3d_me" if use_manifold else "gbeam3d"
-    tiles = torch.arange(-(-lb["o"].shape[0] // tile), device=dev)
-    svalid, sens = _offset_terms(cb, scb_list)
-    f32 = dict(dtype=torch.float32, device=dev)
-    primal = torch.zeros((m, 3), **f32)
-    S = torch.zeros((4, m, 3), **f32)
-    W = torch.zeros((4, m, 3), **f32)
-    visits = torch.zeros((m,), dtype=torch.int64, device=dev)
-    shift_ok = torch.zeros((m,), dtype=torch.int64, device=dev)
-    me_drop = me_pairs = 0
+    with span("volume_gather"):
+        mi, o, d, length = cb["med"], cb["o"], cb["d"], cb["length"]
+        m = o.shape[0]
+        dev = o.device
+        r2, k3 = torch.stack([r_beam * r_beam, pl.rdiv(
+            3.0, 4.0 * math.pi * torch.clamp(r_beam * r_beam * r_beam,
+                                             min=1e-18))]).tolist()
+        rows, tails, keep = _sweep_beams(scene, lb, me=use_manifold)
+        kind = "gbeam3d_me" if use_manifold else "gbeam3d"
+        tiles = torch.arange(-(-lb["o"].shape[0] // tile), device=dev)
+        svalid, sens = _offset_terms(cb, scb_list)
+        f32 = dict(dtype=torch.float32, device=dev)
+        primal = torch.zeros((m, 3), **f32)
+        S = torch.zeros((4, m, 3), **f32)
+        W = torch.zeros((4, m, 3), **f32)
+        visits = torch.zeros((m,), dtype=torch.int64, device=dev)
+        shift_ok = torch.zeros((m,), dtype=torch.int64, device=dev)
+        me_drop = me_pairs = 0
     for ci, sl in enumerate(_chunks(m, seg_tile)):
-        mic = mi[sl]
-        scs = [{k: v[sl] for k, v in s.items()} for s in scb_list]
-        for k in rng.split(rng.fold_in(key, ci), n_samples):
-            k_t, k_s = rng.split(k)
-            ms = med.sample_distance(
-                scene, mic, o[sl], d[sl], length[sl],
-                rng.lane_uniform(k_t, cb["gid"][sl]),
-                strategy=med.ALWAYS_VALID)
-            t_cam = ms.t
-            sok = cb["valid"][sl] & ms.success
-            pdf_ray = torch.clamp(ms.pdf_success, min=1e-20)
-            cam_ok = [sok & svalid[i][sl] & (scs[i]["length"] >= t_cam)
-                      for i in range(4)]
-            pr_cam = [med.pdf_distance_always_valid(
-                scene, mic, t_cam, scs[i]["length"]) / pdf_ray * sens[i][sl]
-                for i in range(4)]
-            xs = [s["o"] + s["d"] * t_cam[..., None] for s in scs]
-            q = est._camera_queries(scene, mic, ms.p, d[sl], length[sl],
-                                    sok)
-            qx = bs.pack_offsets(xs, [s["d"] for s in scs],
-                                 [s["length"] for s in scs], cam_ok,
-                                 pr_cam, list(border_lane[:, sl]))
-            keys = bs.beam_keys(rng.fold_in(k_s, tiles), keep, tile)
-            pr, S_, W_, v_, so_, *me = bs.gsweep(
-                kind, q, qx, rows, tails,
-                bs.Params(r2=r2, k=k3, keys=keys, tile=tile))
-            w_cam = cb["thr"][sl] * ms.transmittance * ms.sigma_s \
-                / pdf_ray[..., None]
-            thr_c = [scs[i]["thr"] * ms.transmittance * ms.sigma_s
-                     / pdf_ray[..., None] for i in range(4)]
-            S_ = torch.stack([thr_c[i] * S_[i] for i in range(4)])
-            W_ = W_ * w_cam
-            so_ = so_.to(torch.int64)
+        with span("volume_gather"):
+            mic = mi[sl]
+            scs = [{k: v[sl] for k, v in s.items()} for s in scb_list]
+            sample_keys = rng.split(rng.fold_in(key, ci), n_samples)
+        for k in sample_keys:
+            with span("volume_gather"):
+                k_t, k_s = rng.split(k)
+                ms = med.sample_distance(
+                    scene, mic, o[sl], d[sl], length[sl],
+                    rng.lane_uniform(k_t, cb["gid"][sl]),
+                    strategy=med.ALWAYS_VALID)
+                t_cam = ms.t
+                sok = cb["valid"][sl] & ms.success
+                pdf_ray = torch.clamp(ms.pdf_success, min=1e-20)
+                cam_ok = [sok & svalid[i][sl] & (scs[i]["length"] >= t_cam)
+                          for i in range(4)]
+                pr_cam = [med.pdf_distance_always_valid(
+                    scene, mic, t_cam, scs[i]["length"]) / pdf_ray
+                    * sens[i][sl] for i in range(4)]
+                xs = [s["o"] + s["d"] * t_cam[..., None] for s in scs]
+                q = est._camera_queries(scene, mic, ms.p, d[sl], length[sl],
+                                        sok)
+                qx = bs.pack_offsets(xs, [s["d"] for s in scs],
+                                     [s["length"] for s in scs], cam_ok,
+                                     pr_cam, list(border_lane[:, sl]))
+                keys = bs.beam_keys(rng.fold_in(k_s, tiles), keep, tile)
+                pr, S_, W_, v_, so_, *me = bs.gsweep(
+                    kind, q, qx, rows, tails,
+                    bs.Params(r2=r2, k=k3, keys=keys, tile=tile))
+                w_cam = cb["thr"][sl] * ms.transmittance * ms.sigma_s \
+                    / pdf_ray[..., None]
+                thr_c = [scs[i]["thr"] * ms.transmittance * ms.sigma_s
+                         / pdf_ray[..., None] for i in range(4)]
+                S_ = torch.stack([thr_c[i] * S_[i] for i in range(4)])
+                W_ = W_ * w_cam
+                so_ = so_.to(torch.int64)
             if use_manifold:
-                if lap is not None:
-                    lap("volume_gather")
-                me_key, me_cnt, me_y = me
-                me_q, me_b, total = _me_pairs(me_key, me_cnt, keep,
-                                              me_budget)
-                if lap is not None:
-                    lap("me:compact", part=True)
-                att = 0
-                if me_q.shape[0]:
-                    att = _beam3d_me_stage(
-                        scene, lb, pv_chain, me_q, me_b, me_y[me_q], ms.p,
-                        xs, [s["d"] for s in scs], d[sl], mic, cam_ok,
-                        pr_cam, thr_c, w_cam, border_lane[:, sl], r2, k3,
-                        S_, W_, so_, me_iters, lap)
-                me_drop = me_drop + total - att
-                me_pairs += me_q.shape[0]
-                if lap is not None:
-                    lap("volume_me")
-            primal[sl] += w_cam * pr
-            S[:, sl] += S_
-            W[:, sl] += W_
-            visits[sl] += v_
-            shift_ok[sl] += so_
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    return _scaled((primal, S, W, visits, shift_ok, zero + me_drop,
-                    zero + me_pairs), 1.0 / (n_samples * n_emitted))
+                with span("volume_me"):
+                    me_key, me_cnt, me_y = me
+                    with span("me:compact"):
+                        me_q, me_b, total = _me_pairs(me_key, me_cnt, keep,
+                                                      me_budget)
+                    att = 0
+                    if me_q.shape[0]:
+                        att = _beam3d_me_stage(
+                            scene, lb, pv_chain, me_q, me_b, me_y[me_q],
+                            ms.p, xs, [s["d"] for s in scs], d[sl], mic,
+                            cam_ok, pr_cam, thr_c, w_cam, border_lane[:, sl],
+                            r2, k3, S_, W_, so_, me_iters, span)
+                    me_drop = me_drop + total - att
+                    me_pairs += me_q.shape[0]
+            with span("volume_gather"):
+                primal[sl] += w_cam * pr
+                S[:, sl] += S_
+                W[:, sl] += W_
+                visits[sl] += v_
+                shift_ok[sl] += so_
+    with span("volume_gather"):
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return _scaled((primal, S, W, visits, shift_ok, zero + me_drop,
+                        zero + me_pairs), 1.0 / (n_samples * n_emitted))

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.logging import span as _span
 from ..core.math import (coordinate_system, cross, dot, fresnel_dielectric,
                          normalize)
 from ..scene.intersect import intersect
@@ -445,15 +446,29 @@ def _trust_step(du, n_dir):
 
 
 def _chain_ratios(scene, ch, w1_new, F_off, len_off, t_off, rho_off,
-                  rho_base, conv, target, end_p, lap=None):
+                  rho_base, conv, target, end_p, span=_span):
     """Everything after the Newton solve, common to the three targets
     ("volume", "surface", "beam"): base chain retrace, anchor scatter,
     Fresnel / transmittance / distance-pdf / measure ratios, the validity
     mask and the occlusion sweep of the shifted chain up to end_p. A
     beam's final segment (its origin to the target) is the beam itself,
     which the beam estimator re-evaluates: it takes no final-segment
-    transmittance or distance-pdf ratio here. `lap` as in
+    transmittance or distance-pdf ratio here. `span` as in
     me_shift_volume."""
+    with span("me:ratios"):
+        alpha_ratio, pdf_ratio, ok = _ratios(
+            scene, ch, w1_new, F_off, len_off, t_off, rho_off, rho_base,
+            conv, target)
+    with span("me:occlusion"):
+        ok = ok & ~chain_occluded(scene, ch, w1_new, end_p)
+    return (torch.where(ok[..., None], alpha_ratio, 0.0),
+            torch.where(ok, pdf_ratio, 0.0), ok)
+
+
+def _ratios(scene, ch, w1_new, F_off, len_off, t_off, rho_off, rho_base,
+            conv, target):
+    """_chain_ratios' ratios before the occlusion sweep: (alpha_ratio,
+    pdf_ratio, ok)."""
     chl = _lanes(ch)
     _, _, ok_b, F_base, _, len_base = _retrace(scene, chl, chl["w1_base"])
 
@@ -510,44 +525,37 @@ def _chain_ratios(scene, ch, w1_new, F_off, len_off, t_off, rho_off,
           & (rho_off > FOLD_EPS * t2) & (rho_base > FOLD_EPS * t2b))
     if target == "beam":
         ok = ok & (t_off > 1e-5)
-    if lap is not None:
-        lap("me:ratios", part=True)
-    ok = ok & ~chain_occluded(scene, ch, w1_new, end_p)
-    if lap is not None:
-        lap("me:occlusion", part=True)
-    return (torch.where(ok[..., None], alpha_ratio, 0.0),
-            torch.where(ok, pdf_ratio, 0.0), ok)
+    return alpha_ratio, pdf_ratio, ok
 
 
 def me_shift_volume(scene: Scene, ch, c_target, n_iters=5,
-                    scene_scale=1.0, lap=None):
+                    scene_scale=1.0, span=_span):
     """Shift photons with delta parent chains to c_target (volume photon).
 
     ch: chain dict from pull_chains (lane dim L); c_target: [L,3].
     Returns (alpha_ratio [L,3], pdf_ratio [L], ok [L], wi_new [L,3]):
     multiply the photon's stored alpha by alpha_ratio; pdf_ratio feeds
     the pairwise MIS; wi_new is the incident direction at the shifted
-    photon. `lap(name, part=True)`, when given, is called after the
-    Newton solve ("me:newton": its n_iters + 1 Jacobian evaluations),
-    the ratios ("me:ratios") and the occlusion sweep ("me:occlusion"):
-    the part timers of gvpm's phase clock."""
-    s_ax, t_ax = coordinate_system(ch["w1_base"])
-    chl3 = _rep(_lanes(ch), 3)
-    sa3, ta3 = s_ax.repeat(3, 1), t_ax.repeat(3, 1)
-
+    photon. `span(name)` opens the spans of the Newton solve
+    ("me:newton": its n_iters + 1 Jacobian evaluations), the ratios
+    ("me:ratios") and the occlusion sweep ("me:occlusion")
+    (core.logging.span; a pass gives its PhaseClock's, which times
+    them)."""
     def c_of(u):
         w1 = _w1_of(chl3, sa3, ta3, u)
         ep, ed, ok, F, _ci, ln = _retrace(scene, chl3, w1)
         return ep + ed * u[:, 2:3], (ok, F.t(), ln.t(), w1, ed)
 
-    u, conv, rho_off, rho_base, aux = _newton3(c_of, ch, c_target, n_iters,
-                                               scene_scale)
+    with span("me:newton"):
+        s_ax, t_ax = coordinate_system(ch["w1_base"])
+        chl3 = _rep(_lanes(ch), 3)
+        sa3, ta3 = s_ax.repeat(3, 1), t_ax.repeat(3, 1)
+        u, conv, rho_off, rho_base, aux = _newton3(c_of, ch, c_target,
+                                                   n_iters, scene_scale)
     ok_tr, F_off, len_off, w1_new, wi_new = aux
-    if lap is not None:
-        lap("me:newton", part=True)
     return _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(), u[:, 2],
                          rho_off, rho_base, conv & ok_tr, "volume",
-                         c_target, lap) + (wi_new,)
+                         c_target, span) + (wi_new,)
 
 
 def _newton3(c_of, ch, c_target, n_iters, scene_scale):
@@ -579,21 +587,14 @@ def _newton3(c_of, ch, c_target, n_iters, scene_scale):
 
 def me_shift_surface(scene: Scene, ch, photon_prim, photon_ns,
                      photon_enter, c_target, n_iters=5, scene_scale=1.0,
-                     lap=None):
+                     span=_span):
     """ME shift of SURFACE photons: the chain exit ray is intersected
     with the photon's own primitive, so the unknowns are just the anchor
     direction (2 dof) and the measure is area. photon_enter: sphere-root
     selector for the final hit (True when the base segment arrived from
-    outside). `lap` as in me_shift_volume.
+    outside). `span` as in me_shift_volume.
 
     Returns (alpha_ratio [L,3], pdf_ratio [L], ok [L], wi_new [L,3])."""
-    s_ax, t_ax = coordinate_system(ch["w1_base"])
-    # tangent frame at the target surface for the 2D residual
-    ts_ax, tt_ax = coordinate_system(photon_ns)
-    chl2 = _rep(_lanes(ch), 2)
-    sa2, ta2 = s_ax.repeat(2, 1), t_ax.repeat(2, 1)
-    prim2, ent2 = photon_prim.repeat(2), photon_enter.repeat(2)
-
     def p_of(u):
         w1 = _w1_of(chl2, sa2, ta2, u)
         ep, ed, ok, F, _ci, ln = _retrace(scene, chl2, w1)
@@ -616,34 +617,39 @@ def me_shift_surface(scene: Scene, ch, photon_prim, photon_ns,
     def det2(J):
         return J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
 
-    u = torch.zeros((c_target.shape[0], 2), dtype=c_target.dtype,
-                    device=c_target.device)
-    r, J, aux = jac(u)
-    J_base = J
-    for _ in range(n_iters):
-        det = det2(J)
-        inv_ok = torch.abs(det) > 1e-18
-        dsafe = torch.where(inv_ok, det, 1.0)
-        du = torch.stack(
-            [(J[:, 1, 1] * r[:, 0] - J[:, 0, 1] * r[:, 1]) / dsafe,
-             (-J[:, 1, 0] * r[:, 0] + J[:, 0, 0] * r[:, 1]) / dsafe],
-            dim=-1)
-        u = torch.where(inv_ok[:, None], u - _trust_step(du, 2), u)
+    with span("me:newton"):
+        s_ax, t_ax = coordinate_system(ch["w1_base"])
+        # tangent frame at the target surface for the 2D residual
+        ts_ax, tt_ax = coordinate_system(photon_ns)
+        chl2 = _rep(_lanes(ch), 2)
+        sa2, ta2 = s_ax.repeat(2, 1), t_ax.repeat(2, 1)
+        prim2, ent2 = photon_prim.repeat(2), photon_enter.repeat(2)
+        u = torch.zeros((c_target.shape[0], 2), dtype=c_target.dtype,
+                        device=c_target.device)
         r, J, aux = jac(u)
+        J_base = J
+        for _ in range(n_iters):
+            det = det2(J)
+            inv_ok = torch.abs(det) > 1e-18
+            dsafe = torch.where(inv_ok, det, 1.0)
+            du = torch.stack(
+                [(J[:, 1, 1] * r[:, 0] - J[:, 0, 1] * r[:, 1]) / dsafe,
+                 (-J[:, 1, 0] * r[:, 0] + J[:, 0, 0] * r[:, 1]) / dsafe],
+                dim=-1)
+            u = torch.where(inv_ok[:, None], u - _trust_step(du, 2), u)
+            r, J, aux = jac(u)
     ok_tr, F_off, len_off, w1_new, t_end, wi_new = aux
-    if lap is not None:
-        lap("me:newton", part=True)
     conv = (_norm(r) < NEWTON_EPS * scene_scale) & (_norm(u) < MAX_DEV)
     s_off = (1.0 + u[:, 0] ** 2 + u[:, 1] ** 2) ** -1.5
     rho_off = torch.abs(det2(J)) / torch.clamp(s_off, min=1e-12)
     rho_base = torch.abs(det2(J_base))
     return _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(), t_end,
                          rho_off, rho_base, conv & ok_tr, "surface",
-                         c_target, lap) + (wi_new,)
+                         c_target, span) + (wi_new,)
 
 
 def me_shift_beam(scene: Scene, ch, y_target, n_iters=5, scene_scale=1.0,
-                  lap=None):
+                  span=_span):
     """ME shift of a BEAM pair (shiftBeamME, shift_volume_beams.h:440 /
     shift_volume_beams.cpp:748).
 
@@ -654,26 +660,25 @@ def me_shift_beam(scene: Scene, ch, y_target, n_iters=5, scene_scale=1.0,
     anchor direction's two tangent offsets and the beam parameter t).
     The ratios cover the anchor scatter, the chain's Fresnel terms and
     transmittances and the manifold measure; the beam segment A' -> y'
-    is the beam estimator's to re-evaluate. `lap` as in me_shift_volume.
+    is the beam estimator's to re-evaluate. `span` as in
+    me_shift_volume.
 
     Returns (origin_new [L,3], dir_new [L,3], t_new [L], alpha_ratio
     [L,3], pdf_ratio [L], ok [L])."""
-    s_ax, t_ax = coordinate_system(ch["w1_base"])
-    chl3 = _rep(_lanes(ch), 3)
-    sa3, ta3 = s_ax.repeat(3, 1), t_ax.repeat(3, 1)
-
     def c_of(u):
         w1 = _w1_of(chl3, sa3, ta3, u)
         ep, ed, ok, F, _ci, ln = _retrace(scene, chl3, w1)
         return ep + ed * u[:, 2:3], (ok, F.t(), ln.t(), w1, ep, ed)
 
-    u, conv, rho_off, rho_base, aux = _newton3(c_of, ch, y_target, n_iters,
-                                               scene_scale)
+    with span("me:newton"):
+        s_ax, t_ax = coordinate_system(ch["w1_base"])
+        chl3 = _rep(_lanes(ch), 3)
+        sa3, ta3 = s_ax.repeat(3, 1), t_ax.repeat(3, 1)
+        u, conv, rho_off, rho_base, aux = _newton3(c_of, ch, y_target,
+                                                   n_iters, scene_scale)
     ok_tr, F_off, len_off, w1_new, org_new, dir_new = aux
-    if lap is not None:
-        lap("me:newton", part=True)
     t_new = u[:, 2]
     ar, pr, ok = _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(),
                                t_new, rho_off, rho_base, conv & ok_tr,
-                               "beam", org_new, lap)
+                               "beam", org_new, span)
     return org_new, dir_new, t_new, ar, pr, ok

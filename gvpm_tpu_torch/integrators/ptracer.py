@@ -17,6 +17,7 @@ import torch
 
 from ..core import rng
 from ..core.config import PhotonConfig
+from ..core.logging import span
 from ..core.math import coordinate_system, dot, to_local, to_world
 from ..core.struct import TensorStruct
 from ..render import medium as med
@@ -105,7 +106,8 @@ def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key,
     pass the same key and their global path offsets shoot, together, the
     photons of one shoot of every path at offset 0 (rng.lane_uniform).
     `path` and `parent_idx` stay shard-local either way. None keeps the
-    positional draws."""
+    positional draws. Each of the max_depth + null_bounces steps is the
+    span `light_step`."""
     n = n_paths
     dev = scene.device
     n_steps = cfg.max_depth + cfg.null_bounces
@@ -134,142 +136,145 @@ def shoot(scene: Scene, cfg: PhotonConfig, n_paths: int, key,
     step_keys = rng.split(k_walk, n_steps)
     verts, beams = [], []
     for step_i in range(n_steps):
-        k_med, k_scat, k_rr = rng.split(step_keys[step_i], 3)
-        o, d, cur_med = st["o"], st["d"], st["med"]
-        alpha, active = st["alpha"], st["active"]
+        with span("light_step"):
+            k_med, k_scat, k_rr = rng.split(step_keys[step_i], 3)
+            o, d, cur_med = st["o"], st["d"], st["med"]
+            alpha, active = st["alpha"], st["active"]
 
-        hit = intersect(scene, o, d)
-        t_far = torch.where(hit.valid, hit.t, torch.inf)
-        u_med = draw(k_med, (n, 2))
-        ms = med.sample_distance(scene, cur_med, o, d, t_far, u_med[:, 0],
-                                 u_channel=u_med[:, 1])
-        mevt = active & ms.success
-        sevt = active & ~ms.success & hit.valid
+            hit = intersect(scene, o, d)
+            t_far = torch.where(hit.valid, hit.t, torch.inf)
+            u_med = draw(k_med, (n, 2))
+            ms = med.sample_distance(scene, cur_med, o, d, t_far, u_med[:, 0],
+                                     u_channel=u_med[:, 1])
+            mevt = active & ms.success
+            sevt = active & ~ms.success & hit.valid
 
-        # beam record: the medium segment traversed this step
-        if with_beams:
-            seg_len = torch.where(ms.success, ms.t, t_far)
-            finite = torch.isfinite(seg_len)
-            beams.append(dict(
-                valid=active & (cur_med >= 0) & finite & (seg_len > 1e-6),
-                o=o, d=d, length=torch.where(finite, seg_len, 0.0),
-                alpha=alpha, med=cur_med, path=lane, depth=st["depth"],
+            # beam record: the medium segment traversed this step
+            if with_beams:
+                seg_len = torch.where(ms.success, ms.t, t_far)
+                finite = torch.isfinite(seg_len)
+                beams.append(dict(
+                    valid=active & (cur_med >= 0) & finite & (seg_len > 1e-6),
+                    o=o, d=d, length=torch.where(finite, seg_len, 0.0),
+                    alpha=alpha, med=cur_med, path=lane, depth=st["depth"],
+                    parent_p=st["pp_p"], parent_type=st["pp_type"],
+                    parent_wi=st["pp_wi"], parent_ns=st["pp_ns"],
+                    parent_bsdf=st["pp_bsdf"], parent_med=st["pp_med"],
+                    scatter_base=st["pp_scatter"],
+                    pdf_dir_base=st["pp_pdf_dir"],
+                    reconnectable=st["pp_reconn"] & st["pp_at_origin"],
+                    parent_idx=st["pp_idx"], at_origin=st["pp_at_origin"]))
+
+            alpha_in_med = alpha * ms.transmittance / torch.clamp(
+                ms.pdf_success, min=1e-20)[..., None]
+            alpha_in_surf = alpha * ms.transmittance / torch.clamp(
+                ms.pdf_failure, min=1e-20)[..., None]
+            bi = torch.clamp(scene.prim_bsdf(hit.prim), 0,
+                             scene.bsdf_type.shape[0] - 1)
+            is_null = scene.bsdf_type[bi] == BSDF_NULL
+            store_surf = sevt & ~is_null
+            vtype = torch.where(mevt, VERT_MEDIUM, torch.where(
+                store_surf, VERT_SURFACE, VERT_NONE))
+            seg_tr_full = st["seg_tr"] * ms.transmittance
+            vert = dict(
+                vtype=vtype,
+                p=torch.where(mevt[..., None], ms.p, hit.p),
+                wi=d,
+                alpha=torch.where(mevt[..., None], alpha_in_med,
+                                  alpha_in_surf),
+                med=torch.where(mevt, cur_med, -1),
+                seg_med=cur_med,
+                bsdf=torch.where(store_surf, bi, -1),
+                ns=hit.ns,
+                prim=torch.where(store_surf, hit.prim, -1),
+                path=lane,
+                depth=st["depth"] + 1,
                 parent_p=st["pp_p"], parent_type=st["pp_type"],
                 parent_wi=st["pp_wi"], parent_ns=st["pp_ns"],
                 parent_bsdf=st["pp_bsdf"], parent_med=st["pp_med"],
-                scatter_base=st["pp_scatter"], pdf_dir_base=st["pp_pdf_dir"],
-                reconnectable=st["pp_reconn"] & st["pp_at_origin"],
-                parent_idx=st["pp_idx"], at_origin=st["pp_at_origin"]))
+                scatter_base=st["pp_scatter"], seg_tr=seg_tr_full,
+                pdf_dir_base=st["pp_pdf_dir"],
+                pdf_dist_base=st["seg_pdffail"] * torch.where(
+                    mevt, ms.pdf_success, ms.pdf_failure),
+                reconnectable=st["pp_reconn"],
+                parent_idx=st["pp_idx"])
+            verts.append(vert)
 
-        alpha_in_med = alpha * ms.transmittance / torch.clamp(
-            ms.pdf_success, min=1e-20)[..., None]
-        alpha_in_surf = alpha * ms.transmittance / torch.clamp(
-            ms.pdf_failure, min=1e-20)[..., None]
-        bi = torch.clamp(scene.prim_bsdf(hit.prim), 0,
-                         scene.bsdf_type.shape[0] - 1)
-        is_null = scene.bsdf_type[bi] == BSDF_NULL
-        store_surf = sevt & ~is_null
-        vtype = torch.where(mevt, VERT_MEDIUM,
-                            torch.where(store_surf, VERT_SURFACE, VERT_NONE))
-        seg_tr_full = st["seg_tr"] * ms.transmittance
-        vert = dict(
-            vtype=vtype,
-            p=torch.where(mevt[..., None], ms.p, hit.p),
-            wi=d,
-            alpha=torch.where(mevt[..., None], alpha_in_med, alpha_in_surf),
-            med=torch.where(mevt, cur_med, -1),
-            seg_med=cur_med,
-            bsdf=torch.where(store_surf, bi, -1),
-            ns=hit.ns,
-            prim=torch.where(store_surf, hit.prim, -1),
-            path=lane,
-            depth=st["depth"] + 1,
-            parent_p=st["pp_p"], parent_type=st["pp_type"],
-            parent_wi=st["pp_wi"], parent_ns=st["pp_ns"],
-            parent_bsdf=st["pp_bsdf"], parent_med=st["pp_med"],
-            scatter_base=st["pp_scatter"], seg_tr=seg_tr_full,
-            pdf_dir_base=st["pp_pdf_dir"],
-            pdf_dist_base=st["seg_pdffail"] * torch.where(
-                mevt, ms.pdf_success, ms.pdf_failure),
-            reconnectable=st["pp_reconn"],
-            parent_idx=st["pp_idx"])
-        verts.append(vert)
+            # --- continue the walk: phase in media, BSDF (importance) on
+            # surfaces ---
+            u2 = draw(k_scat, (n, 2))
+            wo_med, pdf_phase = ph.sample_phase(scene, cur_med, -d, u2)
+            alpha_med_out = alpha_in_med * ms.sigma_s
 
-        # --- continue the walk: phase in media, BSDF (importance) on
-        # surfaces ---
-        u2 = draw(k_scat, (n, 2))
-        wo_med, pdf_phase = ph.sample_phase(scene, cur_med, -d, u2)
-        alpha_med_out = alpha_in_med * ms.sigma_s
+            ns = hit.ns
+            s_ax, t_ax = coordinate_system(ns)
+            wi_loc = to_local(ns, s_ax, t_ax, -d)
+            u3 = draw(k_scat, (n, 3))
+            bs = sample_bsdf(scene, bi, wi_loc, u3, transport="importance")
+            wo_surf = to_world(ns, s_ax, t_ax, bs.wo)
+            alpha_surf_out = alpha_in_surf * bs.weight
 
-        ns = hit.ns
-        s_ax, t_ax = coordinate_system(ns)
-        wi_loc = to_local(ns, s_ax, t_ax, -d)
-        u3 = draw(k_scat, (n, 3))
-        bs = sample_bsdf(scene, bi, wi_loc, u3, transport="importance")
-        wo_surf = to_world(ns, s_ax, t_ax, bs.wo)
-        alpha_surf_out = alpha_in_surf * bs.weight
+            m3, s3 = mevt[..., None], sevt[..., None]
+            new_d = torch.where(m3, wo_med, torch.where(s3, wo_surf, d))
+            new_o = torch.where(m3, ms.p, torch.where(
+                s3, hit.p + hit.ng * torch.sign(
+                    dot(hit.ng, wo_surf, keepdims=True)) * RAY_EPS, o))
+            new_alpha = torch.where(m3, alpha_med_out,
+                                    torch.where(s3, alpha_surf_out, alpha))
+            crossed = sevt & (dot(wo_surf, hit.ng) * dot(-d, hit.ng) < 0.0)
+            new_med = torch.where(mevt, cur_med, torch.where(
+                crossed, medium_transition(scene, hit.prim, hit.ng, wo_surf),
+                cur_med))
+            advances = mevt | store_surf
+            new_depth = st["depth"] + advances.to(torch.int64)
 
-        m3, s3 = mevt[..., None], sevt[..., None]
-        new_d = torch.where(m3, wo_med, torch.where(s3, wo_surf, d))
-        new_o = torch.where(m3, ms.p, torch.where(
-            s3, hit.p + hit.ng * torch.sign(
-                dot(hit.ng, wo_surf, keepdims=True)) * RAY_EPS, o))
-        new_alpha = torch.where(m3, alpha_med_out,
-                                torch.where(s3, alpha_surf_out, alpha))
-        crossed = sevt & (dot(wo_surf, hit.ng) * dot(-d, hit.ng) < 0.0)
-        new_med = torch.where(mevt, cur_med, torch.where(
-            crossed, medium_transition(scene, hit.prim, hit.ng, wo_surf),
-            cur_med))
-        advances = mevt | store_surf
-        new_depth = st["depth"] + advances.to(torch.int64)
+            dead = (~hit.valid & ~ms.success) | (new_depth >= cfg.max_depth) \
+                | (new_alpha.amax(-1) <= 0.0) | (sevt & ~bs.valid)
+            q = torch.clamp(new_alpha.amax(-1) / torch.clamp(
+                alpha.amax(-1), min=1e-20), max=cfg.rr_clamp)
+            do_rr = (new_depth >= cfg.rr_depth_photon) & active & advances
+            u_rr = draw(k_rr, (n,))
+            rr_kill = do_rr & (u_rr >= q)
+            new_alpha = torch.where(
+                (do_rr & ~rr_kill)[..., None],
+                new_alpha / torch.clamp(q, min=1e-6)[..., None], new_alpha)
+            new_active = active & ~dead & ~rr_kill
 
-        dead = (~hit.valid & ~ms.success) | (new_depth >= cfg.max_depth) \
-            | (new_alpha.amax(-1) <= 0.0) | (sevt & ~bs.valid)
-        q = torch.clamp(new_alpha.amax(-1) / torch.clamp(
-            alpha.amax(-1), min=1e-20), max=cfg.rr_clamp)
-        do_rr = (new_depth >= cfg.rr_depth_photon) & active & advances
-        u_rr = draw(k_rr, (n,))
-        rr_kill = do_rr & (u_rr >= q)
-        new_alpha = torch.where(
-            (do_rr & ~rr_kill)[..., None],
-            new_alpha / torch.clamp(q, min=1e-6)[..., None], new_alpha)
-        new_active = active & ~dead & ~rr_kill
+            # --- parent-cache carries for the NEXT segment ---
+            stored = mevt | store_surf
+            scatter_med_new = ms.sigma_s * pdf_phase[..., None]
+            scatter_surf_new = bs.weight * bs.pdf[..., None]
+            reconn_surf = is_diffuse_like(scene, bi, cfg.bounce_roughness) \
+                & ~bs.is_delta
 
-        # --- parent-cache carries for the NEXT segment ---
-        stored = mevt | store_surf
-        scatter_med_new = ms.sigma_s * pdf_phase[..., None]
-        scatter_surf_new = bs.weight * bs.pdf[..., None]
-        reconn_surf = is_diffuse_like(scene, bi, cfg.bounce_roughness) \
-            & ~bs.is_delta
+            def upd(old, new):
+                m = stored[..., None] if new.dim() > stored.dim() else stored
+                return torch.where(m, new, old)
 
-        def upd(old, new):
-            m = stored[..., None] if new.dim() > stored.dim() else stored
-            return torch.where(m, new, old)
-
-        null_cross = sevt & is_null
-        st = dict(
-            o=new_o, d=new_d, med=new_med, alpha=new_alpha,
-            active=new_active, depth=new_depth,
-            pp_p=upd(st["pp_p"], vert["p"]),
-            pp_type=upd(st["pp_type"], vtype),
-            pp_wi=upd(st["pp_wi"], d),
-            pp_ns=upd(st["pp_ns"], hit.ns),
-            pp_bsdf=upd(st["pp_bsdf"], vert["bsdf"]),
-            pp_med=upd(st["pp_med"], torch.where(mevt, cur_med, -1)),
-            pp_scatter=upd(st["pp_scatter"], torch.where(
-                m3, scatter_med_new, scatter_surf_new)),
-            pp_pdf_dir=upd(st["pp_pdf_dir"],
-                           torch.where(mevt, pdf_phase, bs.pdf)),
-            pp_reconn=upd(st["pp_reconn"],
-                          torch.where(mevt, True, reconn_surf)),
-            pp_idx=upd(st["pp_idx"], step_i * n + lane),
-            pp_at_origin=torch.where(stored, True, torch.where(
-                null_cross, False, st["pp_at_origin"])),
-            seg_tr=torch.where(stored[..., None], 1.0, torch.where(
-                null_cross[..., None], seg_tr_full, st["seg_tr"])),
-            seg_pdffail=torch.where(stored, 1.0, torch.where(
-                null_cross, st["seg_pdffail"] * ms.pdf_failure,
-                st["seg_pdffail"])))
+            null_cross = sevt & is_null
+            st = dict(
+                o=new_o, d=new_d, med=new_med, alpha=new_alpha,
+                active=new_active, depth=new_depth,
+                pp_p=upd(st["pp_p"], vert["p"]),
+                pp_type=upd(st["pp_type"], vtype),
+                pp_wi=upd(st["pp_wi"], d),
+                pp_ns=upd(st["pp_ns"], hit.ns),
+                pp_bsdf=upd(st["pp_bsdf"], vert["bsdf"]),
+                pp_med=upd(st["pp_med"], torch.where(mevt, cur_med, -1)),
+                pp_scatter=upd(st["pp_scatter"], torch.where(
+                    m3, scatter_med_new, scatter_surf_new)),
+                pp_pdf_dir=upd(st["pp_pdf_dir"],
+                               torch.where(mevt, pdf_phase, bs.pdf)),
+                pp_reconn=upd(st["pp_reconn"],
+                              torch.where(mevt, True, reconn_surf)),
+                pp_idx=upd(st["pp_idx"], step_i * n + lane),
+                pp_at_origin=torch.where(stored, True, torch.where(
+                    null_cross, False, st["pp_at_origin"])),
+                seg_tr=torch.where(stored[..., None], 1.0, torch.where(
+                    null_cross[..., None], seg_tr_full, st["seg_tr"])),
+                seg_pdffail=torch.where(stored, 1.0, torch.where(
+                    null_cross, st["seg_pdffail"] * ms.pdf_failure,
+                    st["seg_pdffail"])))
     def stack(records, cls):
         return cls(**{f: torch.stack([r[f] for r in records])
                       for f in records[0]})

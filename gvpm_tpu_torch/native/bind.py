@@ -13,8 +13,11 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import time
 
 import numpy as np
+
+from ..core.logging import count_build, span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "host_ops.cpp")
@@ -54,17 +57,22 @@ def library_path():
 
 def build():
     """Compile host_ops.cpp unless its build exists; returns the path.
-    Raises RuntimeError with g++'s messages if the build fails."""
-    so = library_path()
-    if not os.path.exists(so):
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        tmp = so + f".{os.getpid()}.tmp"
-        res = subprocess.run(["g++", *FLAGS, _SRC, "-o", tmp],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError("g++ failed to build host_ops.cpp:\n"
-                               + res.stderr)
-        os.replace(tmp, so)
+    Raises RuntimeError with g++'s messages if the build fails. The span
+    `build`; counted in the build/* counters (core.logging.count_build)."""
+    with span("build"):
+        t0 = time.perf_counter()
+        so = library_path()
+        compile_it = not os.path.exists(so)
+        if compile_it:
+            os.makedirs(os.path.dirname(so), exist_ok=True)
+            tmp = so + f".{os.getpid()}.tmp"
+            res = subprocess.run(["g++", *FLAGS, _SRC, "-o", tmp],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError("g++ failed to build host_ops.cpp:\n"
+                                   + res.stderr)
+            os.replace(tmp, so)
+        count_build(compile_it, time.perf_counter() - t0)
     return so
 
 

@@ -76,6 +76,7 @@ from . import nvcc
 from .fused_gather import ME_NONE
 from ..core import rng
 from ..core import warp
+from ..core.logging import span
 from ..integrators import planar as pl
 from ..render.phase import rayleigh_pdf
 from ..scene.types import PHASE_HG, PHASE_RAYLEIGH
@@ -924,12 +925,15 @@ def gsweep(kind, q, qx, rows, tails, p: Params):
     (primal [M,3], S [4,M,3], W [4,M,3], visits [M], shift_ok [M]), the
     counts int32, without the camera throughputs; an ME kind also (ME
     key [M], ME pairs [M], both int32, and gbeam3d_me's chord point
-    [M,3], else None)."""
+    [M,3], else None). The call is the span `sweep_kernel`
+    (core.logging.span)."""
     if kind not in GKINDS + GKINDS_ME:
         raise ValueError(f"beam_sweep: no gradient pair function {kind!r}")
-    if q.device.type == "cpu":
-        return gsweep_plain(kind, q, qx, rows, tails, p)
-    return _grad_out(*launch_kernel(kind, q, rows, p, qx=qx, tails=tails))
+    with span("sweep_kernel"):
+        if q.device.type == "cpu":
+            return gsweep_plain(kind, q, qx, rows, tails, p)
+        return _grad_out(*launch_kernel(kind, q, rows, p, qx=qx,
+                                        tails=tails))
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,7 @@ import threading
 
 import torch
 
+from ..core.logging import span
 from . import nvcc
 from .cellgrid import CellGrid, anchor_ids27
 
@@ -241,11 +242,14 @@ def fused_gather(ev: GatherEval, plan: Plan, table, qrows, r2, k3,
     shift_ok, dropped; me_row is None unless `ev.me`, then int32 [Q]: the
     lowest row of `table` among the query's ME-eligible pairs, ME_NONE
     where it has none. CUDA tensors launch the kernel; CPU tensors take
-    the plain version.
+    the plain version. The call is the span `gather_kernel`
+    (core.logging.span).
     """
-    if table.device.type == "cpu":
-        return fused_gather_plain(ev, plan, table, qrows, r2, k3, min_depth)
-    return launch_kernel(ev, plan, table, qrows, r2, k3, min_depth)
+    with span("gather_kernel"):
+        if table.device.type == "cpu":
+            return fused_gather_plain(ev, plan, table, qrows, r2, k3,
+                                      min_depth)
+        return launch_kernel(ev, plan, table, qrows, r2, k3, min_depth)
 
 
 # ---------------------------------------------------------------------------

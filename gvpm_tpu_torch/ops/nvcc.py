@@ -2,7 +2,8 @@
 a shared library with a plain C interface (loaded with ctypes by its
 wrapper, ops/fused_gather.py or ops/beam_sweep.py) under
 gvpm_tpu_torch/_build/<hash of the flags and sources>/, once, and keeps
-ptxas's report (`-Xptxas -v`) beside it."""
+ptxas's report (`-Xptxas -v`) beside it. The statistics counters
+build/compiles, build/loads and build/seconds count the builds."""
 
 from __future__ import annotations
 
@@ -10,6 +11,9 @@ import hashlib
 import os
 import re
 import subprocess
+import time
+
+from ..core.logging import count_build, span
 
 
 def library_dir(csrc, sources, build_dir, flags):
@@ -23,22 +27,27 @@ def library_dir(csrc, sources, build_dir, flags):
 
 def build_library(csrc, sources, build_dir, flags, name):
     """Compile csrc/<name>.cu (which includes the other `sources`) into
-    lib<name>.so, unless that build exists; returns its path."""
-    out_dir = library_dir(csrc, sources, build_dir, flags)
-    so = os.path.join(out_dir, f"lib{name}.so")
-    if not os.path.exists(so):
-        os.makedirs(out_dir, exist_ok=True)
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                            "bin", "nvcc")
-        tmp = so + f".{os.getpid()}.tmp"
-        res = subprocess.run([nvcc, *flags, "-o", tmp,
-                              os.path.join(csrc, f"{name}.cu")],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stderr)
-        with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
-            f.write(res.stderr)
-        os.replace(tmp, so)
+    lib<name>.so, unless that build exists; returns its path. The span
+    `build`; counted in the build/* counters (core.logging.count_build)."""
+    with span("build"):
+        t0 = time.perf_counter()
+        out_dir = library_dir(csrc, sources, build_dir, flags)
+        so = os.path.join(out_dir, f"lib{name}.so")
+        compile_it = not os.path.exists(so)
+        if compile_it:
+            os.makedirs(out_dir, exist_ok=True)
+            nvcc = os.path.join(
+                os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+            tmp = so + f".{os.getpid()}.tmp"
+            res = subprocess.run([nvcc, *flags, "-o", tmp,
+                                  os.path.join(csrc, f"{name}.cu")],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError("nvcc failed:\n" + res.stderr)
+            with open(os.path.join(out_dir, "ptxas.txt"), "w") as f:
+                f.write(res.stderr)
+            os.replace(tmp, so)
+        count_build(compile_it, time.perf_counter() - t0)
     return so
 
 

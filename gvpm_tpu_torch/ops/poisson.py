@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.logging import span
+
 
 def dx(img):
     """Forward difference along x; output [H, W-1, C]."""
@@ -60,24 +62,27 @@ def solve(primal, gx, gy, alpha=0.2, iters=50, irls_iters=4, l1=True,
     """Reconstruct an image from throughput + gradients.
 
     primal: [H,W,C]; gx: x-gradients (I[x+1]-I[x], stored full-size with
-    the last column ignored); gy likewise. Returns [H,W,C]."""
-    H, W, _ = primal.shape
-    gx_in = gx[:, :W - 1]
-    gy_in = gy[:H - 1, :]
-    alpha2 = alpha * alpha
-    I = primal
-    for _ in range(irls_iters if l1 else 1):
-        if l1:
-            wx = 1.0 / (torch.abs(dx(I) - gx_in) + irls_eps)
-            wy = 1.0 / (torch.abs(dy(I) - gy_in) + irls_eps)
-            w0 = 1.0 / (torch.abs(I - primal) + irls_eps)
-        else:
-            wx, wy, w0 = (torch.ones_like(gx_in), torch.ones_like(gy_in),
-                          torch.ones_like(primal))
+    the last column ignored); gy likewise. Returns [H,W,C]. The call is
+    the span `solve` (core.logging.span)."""
+    with span("solve"):
+        H, W, _ = primal.shape
+        gx_in = gx[:, :W - 1]
+        gy_in = gy[:H - 1, :]
+        alpha2 = alpha * alpha
+        I = primal
+        for _ in range(irls_iters if l1 else 1):
+            if l1:
+                wx = 1.0 / (torch.abs(dx(I) - gx_in) + irls_eps)
+                wy = 1.0 / (torch.abs(dy(I) - gy_in) + irls_eps)
+                w0 = 1.0 / (torch.abs(I - primal) + irls_eps)
+            else:
+                wx, wy, w0 = (torch.ones_like(gx_in),
+                              torch.ones_like(gy_in),
+                              torch.ones_like(primal))
 
-        def A(v, wx=wx, wy=wy, w0=w0):
-            return alpha2 * w0 * v + dxT(wx * dx(v)) + dyT(wy * dy(v))
+            def A(v, wx=wx, wy=wy, w0=w0):
+                return alpha2 * w0 * v + dxT(wx * dx(v)) + dyT(wy * dy(v))
 
-        rhs = alpha2 * w0 * primal + dxT(wx * gx_in) + dyT(wy * gy_in)
-        I = _cg(A, rhs, I, iters)
+            rhs = alpha2 * w0 * primal + dxT(wx * gx_in) + dyT(wy * gy_in)
+            I = _cg(A, rhs, I, iters)
     return I

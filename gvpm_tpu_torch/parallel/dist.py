@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..core import rng
-from ..core.logging import PhaseClock
+from ..core.logging import PhaseClock, span
 from ..integrators import gvpm, sppm
 from ..ops import poisson
 from .mesh import Mesh, all_gather_rows, all_reduce_sum, rotate
@@ -85,28 +85,31 @@ def remap_provenance(records, per, n):
 
 
 def gather_photons(mesh: Mesh, scene, cfg, n_photons, key, with_beams,
-                   timings=None):
+                   timings=None, stats=None):
     """This rank's share of the light pass, all-gathered: (photons,
     beams) of all n_photons paths, rank-major, provenance global (see
-    the module docstring); beams None unless with_beams. `timings`
-    receives the laps light_trace and allgather."""
+    the module docstring); beams None unless with_beams. The spans
+    light_trace and allgather, which `timings` times; `stats`, when
+    given, receives the rank's own light lanes (sppm.light_lanes)."""
     clock = PhaseClock(scene.device, timings)
-    photons, beams = _shoot(mesh, scene, cfg, n_photons, key, with_beams)
-    clock.lap("light_trace")
-    per = n_photons // mesh.size
-    photons = remap_provenance(all_gather_rows(mesh, photons), per,
-                               mesh.size)
-    if beams is not None:
-        beams = remap_provenance(all_gather_rows(mesh, beams), per,
-                                 mesh.size)
-    clock.lap("allgather")
+    with clock.span("light_trace"):
+        photons, beams = _shoot(mesh, scene, cfg, n_photons, key,
+                                with_beams)
+        if stats is not None:
+            stats.update(sppm.light_lanes(photons))
+    with clock.span("allgather"):
+        per = n_photons // mesh.size
+        photons = remap_provenance(all_gather_rows(mesh, photons), per,
+                                   mesh.size)
+        if beams is not None:
+            beams = remap_provenance(all_gather_rows(mesh, beams), per,
+                                     mesh.size)
     return photons, beams
 
 
 def _film(mesh: Mesh, scene, img, timings):
-    clock = PhaseClock(scene.device, timings)
-    out = all_gather_rows(mesh, {"img": img})["img"]
-    clock.lap("film")
+    with PhaseClock(scene.device, timings).span("film"):
+        out = all_gather_rows(mesh, {"img": img})["img"]
     return out.reshape(scene.height, scene.width, 3)
 
 
@@ -114,16 +117,20 @@ def render_pass_sharded(mesh: Mesh, scene, cfg, volume, n_photons, seed,
                         it, surf_scale, vol_scale, r_vol_base, timings=None):
     """One progressive SPPM pass over the ranks; returns the pass image
     [H,W,3] on every rank. Requires H % ranks == 0 and n_photons % ranks
-    == 0. `timings` as in sppm.render_pass, plus allgather and film."""
+    == 0. The span `pass`; `timings` as in sppm.render_pass, plus
+    allgather and film."""
     _check_split(mesh, scene, n_photons)
-    k_light, k_cam, k_gather = _keys(seed, it, scene.device)
-    photons, beams = gather_photons(mesh, scene, cfg, n_photons, k_light,
-                                    volume in sppm.BEAM_VOLUMES, timings)
-    px, py = _rank_pixels(mesh, scene)
-    img = sppm.gather_images(scene, cfg, volume, photons, beams, n_photons,
-                             k_cam, k_gather, px, py, surf_scale, vol_scale,
-                             r_vol_base, timings=timings)
-    return _film(mesh, scene, img, timings)
+    with span("pass"):
+        k_light, k_cam, k_gather = _keys(seed, it, scene.device)
+        photons, beams = gather_photons(mesh, scene, cfg, n_photons,
+                                        k_light, volume in sppm.BEAM_VOLUMES,
+                                        timings)
+        px, py = _rank_pixels(mesh, scene)
+        img = sppm.gather_images(scene, cfg, volume, photons, beams,
+                                 n_photons, k_cam, k_gather, px, py,
+                                 surf_scale, vol_scale, r_vol_base,
+                                 timings=timings)
+        return _film(mesh, scene, img, timings)
 
 
 def render_pass_sharded_ring(mesh: Mesh, scene, cfg, volume, n_photons,
@@ -143,24 +150,24 @@ def render_pass_sharded_ring(mesh: Mesh, scene, cfg, volume, n_photons,
             "render_pass_sharded_ring: bre_knn radii are computed from "
             "the local photon partition and would be biased; use "
             "render_pass_sharded (all-gather) or bre_knn=0")
-    k_light, k_cam, k_gather = _keys(seed, it, scene.device)
-    clock = PhaseClock(scene.device, timings)
-    photons, beams = _shoot(mesh, scene, cfg, n_photons, k_light,
-                            volume in sppm.BEAM_VOLUMES)
-    clock.lap("light_trace")
-    px, py = _rank_pixels(mesh, scene)
-    img = 0.0
-    for step in range(mesh.size):
-        if step:
-            clock = PhaseClock(scene.device, timings)
-            photons = rotate(mesh, photons)
-            beams = beams if beams is None else rotate(mesh, beams)
-            clock.lap("ring")
-        img = img + sppm.gather_images(
-            scene, cfg, volume, photons, beams, n_photons, k_cam, k_gather,
-            px, py, surf_scale, vol_scale, r_vol_base, timings=timings,
-            emission_scale=1.0 / mesh.size)
-    return _film(mesh, scene, img, timings)
+    with span("pass"):
+        k_light, k_cam, k_gather = _keys(seed, it, scene.device)
+        clock = PhaseClock(scene.device, timings)
+        with clock.span("light_trace"):
+            photons, beams = _shoot(mesh, scene, cfg, n_photons, k_light,
+                                    volume in sppm.BEAM_VOLUMES)
+        px, py = _rank_pixels(mesh, scene)
+        img = 0.0
+        for step in range(mesh.size):
+            if step:
+                with clock.span("ring"):
+                    photons = rotate(mesh, photons)
+                    beams = beams if beams is None else rotate(mesh, beams)
+            img = img + sppm.gather_images(
+                scene, cfg, volume, photons, beams, n_photons, k_cam,
+                k_gather, px, py, surf_scale, vol_scale, r_vol_base,
+                timings=timings, emission_scale=1.0 / mesh.size)
+        return _film(mesh, scene, img, timings)
 
 
 def _rounded(cfg, mesh):
@@ -194,11 +201,10 @@ def _assemble(mesh: Mesh, scene, p, S, W, stats, timings):
     """The rows' unassembled buffers all-gathered into the film, the
     gradients assembled on it (computeGradient's cross-pixel differences
     need no halo then), the stats summed over the ranks."""
-    clock = PhaseClock(scene.device, timings)
-    film = all_gather_rows(mesh, dict(p=p, S=S.transpose(0, 1),
-                                      W=W.transpose(0, 1)))
-    stats = all_reduce_sum(mesh, stats)
-    clock.lap("film")
+    with PhaseClock(scene.device, timings).span("film"):
+        film = all_gather_rows(mesh, dict(p=p, S=S.transpose(0, 1),
+                                          W=W.transpose(0, 1)))
+        stats = all_reduce_sum(mesh, stats)
     primal, gx, gy = gvpm.assemble_gradients(
         film["p"], film["S"].transpose(0, 1), film["W"].transpose(0, 1),
         scene.height, scene.width)
@@ -218,19 +224,22 @@ def gvpm_render_pass_sharded(mesh: Mesh, scene, cfg, volume, n_photons,
     """One G-VPM gradient pass over the ranks: the photon map
     all-gathered, each rank the whole 5-way gradient gather
     (gvpm.pass_buffers) for its pixel rows. Returns (primal, gx, gy
-    [H,W,3], stats) on every rank, stats (visits, shift_ok, win_dropped,
-    me_dropped, me_pairs) summed over the ranks. `timings` as in
-    gvpm.render_pass, plus allgather and film."""
-    with_beams = _gradient_setup(mesh, scene, cfg, volume, n_photons)
-    k_light, k_cam, k_gather = _keys(seed, it, scene.device)
-    photons, beams = gather_photons(mesh, scene, cfg, n_photons, k_light,
-                                    with_beams, timings)
-    px, py = _rank_pixels(mesh, scene)
-    p, S, W, stats = gvpm.pass_buffers(
-        scene, cfg, volume, n_photons, photons, beams, k_cam, k_gather, px,
-        py, gvpm.pixel_border(scene, px, py), surf_scale, vol_scale,
-        r_vol_base, timings=timings)
-    return _assemble(mesh, scene, p, S, W, stats, timings)
+    [H,W,3], stats) on every rank, stats (gvpm.render_pass's: each rank
+    counts its own light lanes) summed over the ranks. The span `pass`;
+    `timings` as in gvpm.render_pass, plus allgather and film."""
+    with span("pass"):
+        with_beams = _gradient_setup(mesh, scene, cfg, volume, n_photons)
+        k_light, k_cam, k_gather = _keys(seed, it, scene.device)
+        lanes = {}
+        photons, beams = gather_photons(mesh, scene, cfg, n_photons,
+                                        k_light, with_beams, timings, lanes)
+        px, py = _rank_pixels(mesh, scene)
+        p, S, W, stats = gvpm.pass_buffers(
+            scene, cfg, volume, n_photons, photons, beams, k_cam, k_gather,
+            px, py, gvpm.pixel_border(scene, px, py), surf_scale, vol_scale,
+            r_vol_base, timings=timings)
+        return _assemble(mesh, scene, p, S, W, dict(stats, **lanes),
+                         timings)
 
 
 def gvpm_render_pass_sharded_ring(mesh: Mesh, scene, cfg, volume,
@@ -244,29 +253,32 @@ def gvpm_render_pass_sharded_ring(mesh: Mesh, scene, cfg, volume,
     again every step. A cell grid's row cap (grid_surface_rows,
     grid_volume_rows) applies to the resident partition: size it so that
     it drops nothing (win_dropped counts what it drops)."""
-    with_beams = _gradient_setup(mesh, scene, cfg, volume, n_photons)
-    k_light, k_cam, k_gather = _keys(seed, it, scene.device)
-    clock = PhaseClock(scene.device, timings)
-    photons, beams = _shoot(mesh, scene, cfg, n_photons, k_light,
-                            with_beams)
-    clock.lap("light_trace")
-    px, py = _rank_pixels(mesh, scene)
-    border = gvpm.pixel_border(scene, px, py)
-    acc = None
-    for step in range(mesh.size):
-        if step:
-            clock = PhaseClock(scene.device, timings)
-            photons = rotate(mesh, photons)
-            beams = beams if beams is None else rotate(mesh, beams)
-            clock.lap("ring")
-        out = gvpm.pass_buffers(
-            scene, cfg, volume, n_photons, photons, beams, k_cam, k_gather,
-            px, py, border, surf_scale, vol_scale, r_vol_base,
-            timings=timings, emission_scale=1.0 / mesh.size)
-        acc = out if acc is None else (
-            acc[0] + out[0], acc[1] + out[1], acc[2] + out[2],
-            {k: acc[3][k] + out[3][k] for k in acc[3]})
-    return _assemble(mesh, scene, *acc, timings)
+    with span("pass"):
+        with_beams = _gradient_setup(mesh, scene, cfg, volume, n_photons)
+        k_light, k_cam, k_gather = _keys(seed, it, scene.device)
+        clock = PhaseClock(scene.device, timings)
+        with clock.span("light_trace"):
+            photons, beams = _shoot(mesh, scene, cfg, n_photons, k_light,
+                                    with_beams)
+            lanes = sppm.light_lanes(photons)
+        px, py = _rank_pixels(mesh, scene)
+        border = gvpm.pixel_border(scene, px, py)
+        acc = None
+        for step in range(mesh.size):
+            if step:
+                with clock.span("ring"):
+                    photons = rotate(mesh, photons)
+                    beams = beams if beams is None else rotate(mesh, beams)
+            out = gvpm.pass_buffers(
+                scene, cfg, volume, n_photons, photons, beams, k_cam,
+                k_gather, px, py, border, surf_scale, vol_scale, r_vol_base,
+                timings=timings, emission_scale=1.0 / mesh.size)
+            acc = out if acc is None else (
+                acc[0] + out[0], acc[1] + out[1], acc[2] + out[2],
+                {k: acc[3][k] + out[3][k] for k in acc[3]})
+        p, S, W, stats = acc
+        return _assemble(mesh, scene, p, S, W, dict(stats, **lanes),
+                         timings)
 
 
 def gvpm_render(mesh: Mesh, scene, cfg, volume="distance", seed=0,
@@ -290,9 +302,9 @@ def gvpm_render(mesh: Mesh, scene, cfg, volume="distance", seed=0,
         surf_scale, vol_scale = sppm.next_scales(it, cfg, dim, surf_scale,
                                                  vol_scale)
     primal, gx, gy = [a / n_passes for a in acc]
-    clock = PhaseClock(scene.device, timings)
-    recon = poisson.solve(primal, gx, gy, alpha=cfg.recon_alpha,
-                          iters=cfg.recon_iters,
-                          irls_iters=cfg.recon_irls_iters, l1=cfg.recon_l1)
-    clock.lap("solve")
+    with PhaseClock(scene.device, timings).span("solve"):
+        recon = poisson.solve(primal, gx, gy, alpha=cfg.recon_alpha,
+                              iters=cfg.recon_iters,
+                              irls_iters=cfg.recon_irls_iters,
+                              l1=cfg.recon_l1)
     return dict(image=recon, primal=primal, gx=gx, gy=gy, passes=n_passes)
