@@ -6,10 +6,11 @@ Phases, one line each; any failure raises and the exit code is non-zero:
 
   1. device   — a CUDA card is required (never falls back to the CPU);
                 prints its name and power limit from nvidia-smi.
-  2. build    — compiles the fused-gather and the beam-sweep kernels
-                (fused_gather.cu, gsweep.cu) from the sources in
-                gvpm_tpu_torch/csrc into gvpm_tpu_torch/_build/, one nvcc
-                for each, started together.
+  2. build    — compiles the fused-gather, the beam-sweep and the ME
+                Newton kernels (fused_gather.cu, gsweep.cu, me_newton.cu)
+                from the sources in gvpm_tpu_torch/csrc into
+                gvpm_tpu_torch/_build/, one nvcc for each, started
+                together.
   3. kernels  — captures the gather inputs of one headline pass with
                 manifold (ME) shifts and runs each kernel variant
                 (surface, volume, surface_me, volume_me) through the CUDA
@@ -24,6 +25,9 @@ Phases, one line each; any failure raises and the exit code is non-zero:
                 must: the kernel's sums have a fixed order), and the lane
                 use of a lane-per-row loop and of this kernel's batches
                 on these inputs (`lane_use`).
+  3a. me-newton — the ME Newton kernel on the same pass's largest
+                volume and surface shift calls (16,384 lanes) against its
+                plain version (`me_newton_phase`).
   3b. stress  — the four variants against their plain versions on a small
                 seeded input the headline cannot give (`stress_inputs`):
                 a query with more visits than a tile's ring holds, runs
@@ -444,6 +448,22 @@ BALL_OPS = {"volume": 11, "surface": 20}
 BODY_OPS = {"volume": 46 + 4 * (112 + 86 + 49),
             "surface": 51 + 4 * (112 + 104 + 56)}
 ME_OPS = 4          # per visit: three mask terms and the integer min
+# float operations of the ME Newton kernel, counted from
+# csrc/me_newton.cuh as (a, b): a + b * n for n tangents (3 unknowns:
+# volume, beam; 2: surface). Each add, multiply, divide or square root of
+# a value counts one, and so does each on a tangent (a dual product is
+# 1 + 3n); negations, compares, clamps, the Fresnel term, the frames and
+# the last terms are left out, so the count is low. One evaluation is the
+# anchor direction (w1), then per chain slot its hit (tri or sphere), its
+# bounce (reflect, or a dielectric's refract) and the step to the hit
+# (advance), then the residual (residual3; the surface's residual2 after
+# its hit of the photon's primitive).
+ME_NEWTON_OPS = dict(w1=(22, 30), tri=(32, 13), sphere=(33, 44),
+                     reflect=(12, 24), refract=(41, 68), advance=(6, 12),
+                     residual3=(9, 12), residual2=(19, 22))
+# by unknowns: a determinant; the solve and the trust step of a step taken
+ME_NEWTON_DET_OPS = {3: 14, 2: 3}
+ME_NEWTON_STEP_OPS = {3: 45 + 12, 2: 8 + 10}
 
 
 START = time.perf_counter()
@@ -1429,6 +1449,270 @@ def gather_against_plain(name, ev, args):
         raise AssertionError(f"{name}: two launches on the same inputs "
                              "differ")
     return want, me_queries, float((got - want).abs().max())
+
+
+# the ME Newton kernel against its plain version: u, the geometric terms,
+# the chain's Fresnel terms and lengths, and the exit point and distance;
+# the unit vectors (anchor direction, exit direction) at an absolute bar
+# of ~17 float32 ulps of their length 1: the last Newton step carries the
+# two versions' rounding (PyTorch's CPU reductions against the kernel's
+# sums) through J^-1, and on a headline pass (16,384 lanes a call) one
+# exit-direction component of 49,152 read 1.25e-6 apart; the first
+# Jacobian against torch.func.jvp's
+ME_NEWTON_TOL = dict(rtol=1e-4, atol=1e-6)
+ME_NEWTON_DIR_TOL = dict(rtol=1e-4, atol=2e-6)
+ME_NEWTON_J0_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def me_newton_plain(target, scene, ch, c_t, photon, n_iters, scale):
+    """The plain Newton solve of an ME shift (manifold._newton3_plain, or
+    _newton2_plain for the surface target) on the tensors as they are,
+    with the Jacobians its determinants are taken of recorded. Returns
+    (its outputs, the first Jacobian, the steps taken as int32 bits: bit
+    i where step i's |det J| > 1e-18)."""
+    from gvpm_tpu_torch.integrators import manifold
+    name = "_det2" if target == "surface" else "_det3"
+    det = getattr(manifold, name)
+    seen = []
+    setattr(manifold, name, lambda J: (seen.append(J), det(J))[1])
+    try:
+        if target == "surface":
+            res = manifold._newton2_plain(scene, ch, *photon, c_t, n_iters,
+                                          scale)
+        else:
+            res = manifold._newton3_plain(scene, ch, c_t, n_iters, scale,
+                                          target)
+    finally:
+        setattr(manifold, name, det)
+    steps = torch.zeros(c_t.shape[0], dtype=torch.int32, device=c_t.device)
+    for i, J in enumerate(seen[:n_iters]):
+        steps |= (torch.abs(det(J)) > 1e-18).to(torch.int32) << i
+    return res, seen[0], steps
+
+
+def me_newton_cpu(scene, ch, c_t, photon, scale):
+    """CPU copies of a shift call's (scene, chain dict, targets, photon
+    args, scale): the plain version's device."""
+    return (scene.to("cpu"), {k: v.cpu() for k, v in ch.items()}, c_t.cpu(),
+            None if photon is None else tuple(t.cpu() for t in photon),
+            scale.cpu())
+
+
+def me_newton_launch(inp, out):
+    """One launch of the ME Newton kernel on its argument structs."""
+    import ctypes
+
+    from gvpm_tpu_torch.ops import me_newton
+    err = me_newton.build().gvpm_me_newton(
+        ctypes.byref(inp), ctypes.byref(out),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"me_newton launch failed: CUDA error {err}")
+
+
+def me_newton_traced(run, target, scene, ch, c_t, photon, n_iters, scale):
+    """The kernel's solve of the same inputs through `run(In, Out)` (a
+    launch on the card, `me_newton_launch`, or a host build of
+    csrc/me_newton.cuh) with its first Jacobian and steps: returns (its
+    outputs as the plain version returns them, the first Jacobian, the
+    steps taken as int32 bits)."""
+    from gvpm_tpu_torch.ops import me_newton
+    me_newton.check_inputs(target, scene, ch, c_t, photon)
+    inp, res, out, _keep = me_newton.launch_args(
+        target, scene, ch, c_t, n_iters, scale.reshape(1), photon,
+        trace=True)
+    run(inp, res)
+    return me_newton.results(target, out), out["jac0"], out["steps"]
+
+
+def me_newton_against_plain(target, got, want):
+    """Raises unless `got` and `want` (each (outputs, first Jacobian,
+    steps) of me_newton_traced / me_newton_plain) take the same
+    decisions lane for lane (each step's guard, conv, ok_tr) and agree
+    within ME_NEWTON_TOL (the unit vectors within ME_NEWTON_DIR_TOL, the
+    first Jacobian within ME_NEWTON_J0_TOL).
+    Returns {output: largest |difference|} and the converged lanes.
+    Compared on the CPU: `want` may come from the plain version where the
+    port runs it, on CPU copies of the card's inputs (`me_newton_cpu`)."""
+    def on_cpu(res):
+        (*outs, aux), j0, steps = res
+        return (tuple(t.cpu() for t in outs) + (tuple(t.cpu() for t in aux),),
+                j0.cpu(), steps.cpu())
+
+    (g, g_j0, g_steps), (w, w_j0, w_steps) = on_cpu(got), on_cpu(want)
+    if not torch.equal(g_steps, w_steps):
+        raise AssertionError(f"me_newton {target}: the steps taken differ "
+                             "from the plain version's")
+    for name, a, b in (("conv", g[1], w[1]), ("ok_tr", g[4][0], w[4][0])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"me_newton {target}: {name} differs from "
+                                 "the plain version's")
+    names = ["u", "rho_off", "rho_base", "F_off", "len_off", "w1_new"] + (
+        ["exit_p"] if target == "beam" else ["t_end"]
+        if target == "surface" else []) + ["exit_d"]
+    pairs = list(zip(names, (g[0], g[2], g[3]) + tuple(g[4][1:]),
+                     (w[0], w[2], w[3]) + tuple(w[4][1:])))
+    if len(g[4]) != len(w[4]) or len(pairs) != len(names):
+        raise AssertionError(f"me_newton {target}: outputs differ in kind")
+    err, failed = {}, []
+    for name, a, b in pairs + [("jac0", g_j0, w_j0)]:
+        tol = ME_NEWTON_J0_TOL if name == "jac0" else ME_NEWTON_DIR_TOL \
+            if name in ("w1_new", "exit_d") else ME_NEWTON_TOL
+        d = (a - b).abs().flatten()
+        d = d[~d.isnan()]
+        err[name] = float(d.max()) if d.numel() else 0.0
+        try:
+            torch.testing.assert_close(a, b, equal_nan=True, **tol)
+        except AssertionError as e:
+            failed.append(f"{name}: {e}")
+    if failed:
+        raise AssertionError(f"me_newton {target}: largest |differences| "
+                             f"{err}; " + "; ".join(failed))
+    return err, int(w[1].sum())
+
+
+def me_newton_ops(target, scene, ch, photon, n_iters, steps):
+    """Float operations the ME Newton kernel does on these lanes
+    (ME_NEWTON_OPS): n_iters + 1 evaluations of each lane's chain, the
+    determinant of each Jacobian and of the first once more, and a solve
+    and a trust step for each step taken (`steps`: me_newton_traced's
+    bits)."""
+    n = 2 if target == "surface" else 3
+    c = {k: a + b * n for k, (a, b) in ME_NEWTON_OPS.items()}
+    c_tri = c["tri"] if scene.n_tris else 0      # else the filler: no hit
+    c_sph = c["sphere"] if scene.n_spheres else 0
+
+    def hit(prim):
+        tri = prim < scene.n_tris
+        return tri * c_tri + ~tri * c_sph
+
+    K = ch["prim"].shape[0]
+    live = torch.arange(K, device=ch["k"].device)[:, None] < ch["k"][None]
+    refract = ch["is_diel"] & ~ch["branch_refl"]
+    bounce = refract * c["refract"] + ~refract * c["reflect"]
+    per_eval = c["w1"] + ((hit(ch["prim"]) + bounce + c["advance"])
+                          * live).sum(0)
+    per_eval = per_eval + (c["residual2"] + hit(photon[0])
+                           if target == "surface" else c["residual3"])
+    taken = sum((steps >> i) & 1 for i in range(n_iters))
+    return int(((n_iters + 1) * per_eval + (n_iters + 2)
+                * ME_NEWTON_DET_OPS[n] + taken
+                * ME_NEWTON_STEP_OPS[n]).sum())
+
+
+def me_newton_same_bits(a, b):
+    """Two solves' outputs (u, conv, rho_off, rho_base, aux) equal bit for
+    bit, NaNs included."""
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    return all(torch.equal(bits(x), bits(y))
+               for x, y in zip(a[:4] + a[4], b[:4] + b[4]))
+
+
+def capture_me_shifts(run):
+    """Call `run()` with integrators/manifold's volume and surface shifts
+    recorded: returns their calls in order, each as (target, scene, chain
+    dict, target points, photon args of the surface target or None,
+    n_iters, scene_scale)."""
+    from gvpm_tpu_torch.integrators import manifold
+    calls = []
+    shifts = {"volume": "me_shift_volume", "surface": "me_shift_surface"}
+    orig = {t: getattr(manifold, f) for t, f in shifts.items()}
+
+    def recorder(target):
+        def rec(scene, ch, *args, n_iters=5, scene_scale=1.0, **kw):
+            photon = tuple(args[:3]) if target == "surface" else None
+            calls.append((target, scene, ch, args[-1], photon, n_iters,
+                          scene_scale))
+            return orig[target](scene, ch, *args, n_iters=n_iters,
+                                scene_scale=scene_scale, **kw)
+        return rec
+
+    for t, f in shifts.items():
+        setattr(manifold, f, recorder(t))
+    try:
+        run()
+    finally:
+        for t, f in shifts.items():
+            setattr(manifold, f, orig[t])
+    return calls
+
+
+def me_newton_phase(calls):
+    """[me-newton]: the ME Newton kernel (ops/me_newton.py) on the largest
+    volume and surface shift call of `calls` (capture_me_shifts of a
+    headline ME pass: 16,384 lanes at its full budget) through
+    me_newton.solve, as the port calls it, against its plain version,
+    which the port runs on the CPU, on CPU copies of the inputs at
+    me_newton_against_plain's bars (the first Jacobian and the steps
+    from a traced launch), two launches bitwise equal; the kernel's ms
+    (20 launches after 5; and of a whole call through the wrapper, whose
+    host work is longer), the plain version's on the card (one call on
+    the card's tensors), the bound (the larger of the bytes the lanes
+    read and write once at PEAK_BYTES_S and me_newton_ops at
+    PEAK_FP32_S) and ptxas's registers and spills. Returns {target:
+    numbers}."""
+    from gvpm_tpu_torch.ops import me_newton
+    report = me_newton.build_report()
+    out = {}
+    for target in ("volume", "surface"):
+        c = max((c for c in calls if c[0] == target),
+                key=lambda c: c[3].shape[0])
+        _, scene, ch, c_t, photon, n_iters, scale = c
+        scale = scale.reshape(1)
+        s_cpu, ch_cpu, c_cpu, ph_cpu, sc_cpu = me_newton_cpu(
+            scene, ch, c_t, photon, scale)
+        want = me_newton_plain(target, s_cpu, ch_cpu, c_cpu, ph_cpu,
+                               n_iters, sc_cpu)
+        _, j0, steps = me_newton_traced(me_newton_launch, target, scene,
+                                        ch, c_t, photon, n_iters, scale)
+
+        def kernel():
+            return me_newton.solve(target, scene, ch, c_t, n_iters, scale,
+                                   photon)
+
+        a = kernel()
+        torch.cuda.synchronize()
+        err, converged = me_newton_against_plain(target, (a, j0, steps),
+                                                 want)
+        if not me_newton_same_bits(a, kernel()):
+            raise AssertionError(f"me_newton {target}: two launches on the "
+                                 "same inputs differ")
+        # the launch alone (its host side is shorter than the kernel) and
+        # a whole call through the wrapper (checks, allocations, launch)
+        inp, res, _, _keep = me_newton.launch_args(
+            target, scene, ch, c_t, n_iters, scale, photon)
+        ms = cuda_ms(lambda: me_newton_launch(inp, res), 20, warm=5)
+        call_ms = cuda_ms(kernel, 20, warm=5)
+        plain_ms = cuda_ms(lambda: me_newton_plain(
+            target, scene, ch, c_t, photon, n_iters, scale), 1, warm=0)
+        n_bytes = sum(t.nbytes for _, t, _, _ in me_newton.kernel_inputs(
+            target, scene, ch, c_t, photon)) \
+            + sum(t.nbytes for t in a[:4] + a[4]) + scale.nbytes
+        ops = me_newton_ops(target, scene, ch, photon, n_iters, steps)
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_FP32_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        r = report["surface" if target == "surface" else "volume"]
+        out[target] = dict(lanes=c_t.shape[0], converged=converged,
+                           max_abs_err=max(err.values()), ms=ms,
+                           call_ms=call_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bytes=n_bytes, operations=ops, **r)
+        phase("me-newton", f"{target}: {c_t.shape[0]} lanes, {converged} "
+                           f"converged, decisions equal, max|err| "
+                           f"{json.dumps(err)}, two launches bitwise equal, "
+                           f"kernel {ms:.4f} ms (a call through the "
+                           f"wrapper {call_ms:.4f} ms), plain "
+                           f"{plain_ms:.1f} ms, "
+                           f"bound {bound_ms:.3g} ms by {bound_by} "
+                           f"({n_bytes} bytes, {ops} operations), "
+                           f"{r['registers']} registers, spills "
+                           f"{r['spill_stores']} / {r['spill_loads']} "
+                           f"bytes, stack {r['stack']}")
+    return out
 
 
 # the scenes of the registry besides box-medium that the goldens hold
@@ -2551,6 +2835,7 @@ def main():
     sys.path.insert(0, ROOT)
     from gvpm_tpu_torch import scenes
     from gvpm_tpu_torch.core.config import GradientConfig, PhotonConfig
+    from gvpm_tpu_torch.core.logging import StatsCounter
     from gvpm_tpu_torch.integrators import gradient_gather, gvpm, sppm
     from gvpm_tpu_torch.ops import fused_gather as fg
     from gvpm_tpu_torch.utils import image as imglib
@@ -2572,19 +2857,21 @@ def main():
         except Exception as e:              # noqa: BLE001 -- raised below
             errors.append(e)
 
+    from gvpm_tpu_torch.ops import me_newton
     threads = [threading.Thread(target=build, args=(lib,))
-               for lib in (fg, bs)]
+               for lib in (fg, bs, me_newton)]
     for th in threads:
         th.start()
     for th in threads:
         th.join()
     if errors:
         raise errors[0]
-    phase("build", f"fused_gather and beam_sweep (gsweep.cu) kernels built in "
-                   f"{time.perf_counter() - t0:.2f} s; ptxas per "
-                   f"instantiation (registers a thread, bytes): "
+    phase("build", f"fused_gather, beam_sweep (gsweep.cu) and me_newton "
+                   f"kernels built in {time.perf_counter() - t0:.2f} s; "
+                   f"ptxas per instantiation (registers a thread, bytes): "
                    f"{json.dumps(fg.build_report())}; beam_sweep "
-                   f"{json.dumps(bs.build_report())}")
+                   f"{json.dumps(bs.build_report())}; me_newton "
+                   f"{json.dumps(me_newton.build_report())}")
 
     # ---- 3. kernel vs plain on one headline ME pass's inputs ----
     scene = scenes.box_medium(512, 512)          # default device: the card
@@ -2601,8 +2888,9 @@ def main():
 
     fg.fused_gather = capture
     try:
-        gvpm.render_pass(scene, cfg_me, "distance", n_photons, 5, 0, 1.0,
-                         1.0, r_vol_base)
+        me_calls = capture_me_shifts(lambda: gvpm.render_pass(
+            scene, cfg_me, "distance", n_photons, 5, 0, 1.0, 1.0,
+            r_vol_base))
     finally:
         fg.fused_gather = launch
     kernels = {}
@@ -2636,6 +2924,8 @@ def main():
             phase("kernels", f"{name} lane use: "
                              f"{json.dumps(lane_use(ev, *args))}")
     del captured, args, plan, tbl, qrows, want
+    me_kernels = me_newton_phase(me_calls)
+    del me_calls
 
     # ---- 3b. the stress input ----
     for name, ev in gradient_gather.EVALS.items():
@@ -2806,6 +3096,10 @@ def main():
 
         for k in fg.LAUNCHES:
             fg.LAUNCHES[k] = 0
+        for k in me_newton.LAUNCHES:
+            me_newton.LAUNCHES[k] = 0
+        plain_lanes = StatsCounter.get("me/newton_plain_lanes")
+        plain_before = plain_lanes.value()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = gvpm.render(scene, cfg, volume="distance", seed=5,
@@ -2813,6 +3107,8 @@ def main():
         torch.cuda.synchronize()
         t_all = time.perf_counter() - t0
         launches = dict(fg.LAUNCHES)
+        me_launches = dict(me_newton.LAUNCHES)
+        plain = plain_lanes.value() - plain_before
         starts = [t0] + [m[0] for m in marks[:-1]]
         pass_s = [m[0] - s for m, s in zip(marks, starts)]
         stats = [m[1] for m in marks]
@@ -2836,10 +3132,20 @@ def main():
                      f"{[s['shift_ok'] for s in stats]}, ME pairs taken "
                      f"{[s['me_pairs'] for s in stats]}, me_dropped "
                      f"{[s['me_dropped'] for s in stats]}")
-        phase(label, f"launches {launches}")
+        phase(label, f"launches {launches}; me_newton {me_launches}, "
+                     f"lanes of the plain Newton solve {plain:g}")
         if launches != expect:
             raise AssertionError(f"kernel launch counts {launches}, "
                                  f"expected {expect}")
+        # a pass's ME shifts: one surface call, one volume call a sample
+        me_expect = dict.fromkeys(me_newton.LAUNCHES, 0)
+        if cfg.use_manifold:
+            me_expect.update(volume=passes * cfg.volume_samples,
+                             surface=passes)
+        if me_launches != me_expect or plain != 0:
+            raise AssertionError(f"me_newton launch counts {me_launches}, "
+                                 f"expected {me_expect}; plain Newton "
+                                 f"lanes {plain}, expected 0")
         for k in ("primal", "gx", "gy", "image"):
             if out[k].shape != (512, 512, 3) or out[k].dtype != torch.float32:
                 raise AssertionError(
@@ -2850,12 +3156,12 @@ def main():
         if not abs(mr / mp - 1.0) < 0.25:
             raise AssertionError(f"recon mean {mr} vs primal mean {mp}")
         phase(label, f"finite; primal mean {mp:.5g}, recon mean {mr:.5g}")
-        return launches, stats
+        return launches, stats, me_launches
 
     none = dict.fromkeys(fg.LAUNCHES, 0)
-    launches_me, stats_me = drive(
+    launches_me, stats_me, me_launches = drive(
         "main-me", cfg_me, 3, dict(none, surface_me=3, volume_me=6))
-    launches, stats = drive(
+    launches, stats, _ = drive(
         "main", cfg, 2, dict(none, surface=2, volume=4))
     for it, (s_me, s) in enumerate(zip(stats_me, stats)):
         if s_me["visits"] != s["visits"]:
@@ -3330,7 +3636,19 @@ def main():
              bound_by=k["bound_by"],
              # no PyTorch call computes a pairwise sweep with this body
              library_ms=None)
-        for n, k in beam_kernels.items()]}))
+        for n, k in beam_kernels.items()] + [
+        # the 3-unknown instantiation also solves the beam target
+        dict(name=f"me_newton_{t}", route="cuda",
+             source="gvpm_tpu_torch/csrc/me_newton.cu",
+             replaces="gvpm_tpu/integrators/manifold.py",
+             launches=me_launches[t] + (me_launches["beam"]
+                                        if t == "volume" else 0),
+             max_abs_err=k["max_abs_err"], ms=k["ms"],
+             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+             bound_by=k["bound_by"],
+             # no PyTorch call solves a lane's Newton iteration
+             library_ms=None)
+        for t, k in me_kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,6 +22,11 @@ replica with its own unit tangent, yields every column of every lane's
 Jacobian at once. The 3x3 / 2x2 solves and determinants are closed-form
 tensor expressions (no LU, no host sync). The fixed iteration count
 (max_manifold_iterations, default 5) is a Python loop with masked lanes.
+That is the plain version (`_newton3_plain`, `_newton2_plain`), which
+CPU tensors take. On CUDA tensors the whole solve of a shift call is one
+kernel launch (ops/me_newton.py, csrc/me_newton.cuh): one thread a lane,
+its Jacobians carried as forward-mode dual numbers in registers, in the
+plain version's operation order.
 
 The same Jacobian at the solution and at u=0 yields the generalized
 geometric terms rho = |dc/d(omega, t)| whose ratio is the manifold
@@ -34,9 +39,11 @@ from __future__ import annotations
 
 import torch
 
+from ..core.logging import StatsCounter
 from ..core.logging import span as _span
 from ..core.math import (coordinate_system, cross, dot, fresnel_dielectric,
                          normalize)
+from ..ops import me_newton
 from ..scene.intersect import intersect
 from ..scene.types import (BSDF_CONDUCTOR, BSDF_DIELECTRIC, BSDF_NULL,
                            Scene)
@@ -358,6 +365,10 @@ def _lane_jacobian(fn, u):
     return val[:L], J, tuple(a[:L] for a in aux)
 
 
+def _det2(J):
+    return J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
+
+
 def _det3(J):
     a, b, c = J[:, 0, 0], J[:, 0, 1], J[:, 0, 2]
     d, e, f = J[:, 1, 0], J[:, 1, 1], J[:, 1, 2]
@@ -537,31 +548,47 @@ def me_shift_volume(scene: Scene, ch, c_target, n_iters=5,
     multiply the photon's stored alpha by alpha_ratio; pdf_ratio feeds
     the pairwise MIS; wi_new is the incident direction at the shifted
     photon. `span(name)` opens the spans of the Newton solve
-    ("me:newton": its n_iters + 1 Jacobian evaluations), the ratios
+    ("me:newton": one kernel launch on the card, the plain version's
+    n_iters + 1 Jacobian evaluations on the CPU), the ratios
     ("me:ratios") and the occlusion sweep ("me:occlusion")
     (core.logging.span; a pass gives its PhaseClock's, which times
     them)."""
-    def c_of(u):
-        w1 = _w1_of(chl3, sa3, ta3, u)
-        ep, ed, ok, F, _ci, ln = _retrace(scene, chl3, w1)
-        return ep + ed * u[:, 2:3], (ok, F.t(), ln.t(), w1, ed)
-
     with span("me:newton"):
-        s_ax, t_ax = coordinate_system(ch["w1_base"])
-        chl3 = _rep(_lanes(ch), 3)
-        sa3, ta3 = s_ax.repeat(3, 1), t_ax.repeat(3, 1)
-        u, conv, rho_off, rho_base, aux = _newton3(c_of, ch, c_target,
-                                                   n_iters, scene_scale)
+        u, conv, rho_off, rho_base, aux = _newton3(
+            scene, ch, c_target, n_iters, scene_scale, "volume")
     ok_tr, F_off, len_off, w1_new, wi_new = aux
     return _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(), u[:, 2],
                          rho_off, rho_base, conv & ok_tr, "volume",
                          c_target, span) + (wi_new,)
 
 
-def _newton3(c_of, ch, c_target, n_iters, scene_scale):
-    """Newton solve of c_of(u) = c_target in the unknowns u = (a, b, t)
-    from (0, 0, t_last), c_of as in me_shift_volume. Returns (u,
-    converged, rho_off, rho_base, aux of c_of at the solution)."""
+def _newton3(scene, ch, c_target, n_iters, scene_scale, target):
+    """Newton solve of the exit point + t * exit direction = c_target in
+    the unknowns u = (a, b, t) from (0, 0, t_last), for the "volume" and
+    "beam" targets: one kernel launch for CUDA tensors
+    (ops/me_newton.solve), else `_newton3_plain`. Returns (u, converged,
+    rho_off, rho_base, aux at the solution: ok, F [L,K], len [L,K], w1
+    [, the beam's exit point], exit direction)."""
+    if c_target.device.type == "cuda":
+        return me_newton.solve(target, scene, ch, c_target, n_iters,
+                               scene_scale)
+    StatsCounter.get("me/newton_plain_lanes").add(c_target.shape[0])
+    return _newton3_plain(scene, ch, c_target, n_iters, scene_scale, target)
+
+
+def _newton3_plain(scene, ch, c_target, n_iters, scene_scale, target):
+    """_newton3 in PyTorch: each Jacobian by one forward-mode product over
+    the lanes repeated 3 times (_lane_jacobian)."""
+    s_ax, t_ax = coordinate_system(ch["w1_base"])
+    chl3 = _rep(_lanes(ch), 3)
+    sa3, ta3 = s_ax.repeat(3, 1), t_ax.repeat(3, 1)
+
+    def c_of(u):
+        w1 = _w1_of(chl3, sa3, ta3, u)
+        ep, ed, ok, F, _ci, ln = _retrace(scene, chl3, w1)
+        exit_p = (ep,) if target == "beam" else ()
+        return ep + ed * u[:, 2:3], (ok, F.t(), ln.t(), w1) + exit_p + (ed,)
+
     u = torch.stack([torch.zeros_like(ch["t_last"]),
                      torch.zeros_like(ch["t_last"]), ch["t_last"]], dim=-1)
     c, J, aux = _lane_jacobian(c_of, u)
@@ -595,6 +622,43 @@ def me_shift_surface(scene: Scene, ch, photon_prim, photon_ns,
     outside). `span` as in me_shift_volume.
 
     Returns (alpha_ratio [L,3], pdf_ratio [L], ok [L], wi_new [L,3])."""
+    with span("me:newton"):
+        u, conv, rho_off, rho_base, aux = _newton2(
+            scene, ch, photon_prim, photon_ns, photon_enter, c_target,
+            n_iters, scene_scale)
+    ok_tr, F_off, len_off, w1_new, t_end, wi_new = aux
+    return _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(), t_end,
+                         rho_off, rho_base, conv & ok_tr, "surface",
+                         c_target, span) + (wi_new,)
+
+
+def _newton2(scene, ch, photon_prim, photon_ns, photon_enter, c_target,
+             n_iters, scene_scale):
+    """Newton solve of the surface target in the unknowns u = (a, b) from
+    0, the residual in the target's tangent frame: one kernel launch for
+    CUDA tensors (ops/me_newton.solve), else `_newton2_plain`. Returns
+    (u, converged, rho_off, rho_base, aux at the solution: ok, F [L,K],
+    len [L,K], w1, t_end, exit direction)."""
+    if c_target.device.type == "cuda":
+        return me_newton.solve("surface", scene, ch, c_target, n_iters,
+                               scene_scale,
+                               (photon_prim, photon_ns, photon_enter))
+    StatsCounter.get("me/newton_plain_lanes").add(c_target.shape[0])
+    return _newton2_plain(scene, ch, photon_prim, photon_ns, photon_enter,
+                          c_target, n_iters, scene_scale)
+
+
+def _newton2_plain(scene, ch, photon_prim, photon_ns, photon_enter,
+                   c_target, n_iters, scene_scale):
+    """_newton2 in PyTorch: each Jacobian by one forward-mode product over
+    the lanes repeated twice (_lane_jacobian)."""
+    s_ax, t_ax = coordinate_system(ch["w1_base"])
+    # tangent frame at the target surface for the 2D residual
+    ts_ax, tt_ax = coordinate_system(photon_ns)
+    chl2 = _rep(_lanes(ch), 2)
+    sa2, ta2 = s_ax.repeat(2, 1), t_ax.repeat(2, 1)
+    prim2, ent2 = photon_prim.repeat(2), photon_enter.repeat(2)
+
     def p_of(u):
         w1 = _w1_of(chl2, sa2, ta2, u)
         ep, ed, ok, F, _ci, ln = _retrace(scene, chl2, w1)
@@ -614,38 +678,24 @@ def me_shift_surface(scene: Scene, ch, photon_prim, photon_ns,
                          (Jp * tt_ax[..., None]).sum(1)], dim=1)
         return tangent2(p_end - c_target), J, aux
 
-    def det2(J):
-        return J[:, 0, 0] * J[:, 1, 1] - J[:, 0, 1] * J[:, 1, 0]
-
-    with span("me:newton"):
-        s_ax, t_ax = coordinate_system(ch["w1_base"])
-        # tangent frame at the target surface for the 2D residual
-        ts_ax, tt_ax = coordinate_system(photon_ns)
-        chl2 = _rep(_lanes(ch), 2)
-        sa2, ta2 = s_ax.repeat(2, 1), t_ax.repeat(2, 1)
-        prim2, ent2 = photon_prim.repeat(2), photon_enter.repeat(2)
-        u = torch.zeros((c_target.shape[0], 2), dtype=c_target.dtype,
-                        device=c_target.device)
+    u = torch.zeros((c_target.shape[0], 2), dtype=c_target.dtype,
+                    device=c_target.device)
+    r, J, aux = jac(u)
+    J_base = J
+    for _ in range(n_iters):
+        det = _det2(J)
+        inv_ok = torch.abs(det) > 1e-18
+        dsafe = torch.where(inv_ok, det, 1.0)
+        du = torch.stack(
+            [(J[:, 1, 1] * r[:, 0] - J[:, 0, 1] * r[:, 1]) / dsafe,
+             (-J[:, 1, 0] * r[:, 0] + J[:, 0, 0] * r[:, 1]) / dsafe],
+            dim=-1)
+        u = torch.where(inv_ok[:, None], u - _trust_step(du, 2), u)
         r, J, aux = jac(u)
-        J_base = J
-        for _ in range(n_iters):
-            det = det2(J)
-            inv_ok = torch.abs(det) > 1e-18
-            dsafe = torch.where(inv_ok, det, 1.0)
-            du = torch.stack(
-                [(J[:, 1, 1] * r[:, 0] - J[:, 0, 1] * r[:, 1]) / dsafe,
-                 (-J[:, 1, 0] * r[:, 0] + J[:, 0, 0] * r[:, 1]) / dsafe],
-                dim=-1)
-            u = torch.where(inv_ok[:, None], u - _trust_step(du, 2), u)
-            r, J, aux = jac(u)
-    ok_tr, F_off, len_off, w1_new, t_end, wi_new = aux
     conv = (_norm(r) < NEWTON_EPS * scene_scale) & (_norm(u) < MAX_DEV)
     s_off = (1.0 + u[:, 0] ** 2 + u[:, 1] ** 2) ** -1.5
-    rho_off = torch.abs(det2(J)) / torch.clamp(s_off, min=1e-12)
-    rho_base = torch.abs(det2(J_base))
-    return _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(), t_end,
-                         rho_off, rho_base, conv & ok_tr, "surface",
-                         c_target, span) + (wi_new,)
+    rho_off = torch.abs(_det2(J)) / torch.clamp(s_off, min=1e-12)
+    return u, conv, rho_off, torch.abs(_det2(J_base)), aux
 
 
 def me_shift_beam(scene: Scene, ch, y_target, n_iters=5, scene_scale=1.0,
@@ -665,17 +715,9 @@ def me_shift_beam(scene: Scene, ch, y_target, n_iters=5, scene_scale=1.0,
 
     Returns (origin_new [L,3], dir_new [L,3], t_new [L], alpha_ratio
     [L,3], pdf_ratio [L], ok [L])."""
-    def c_of(u):
-        w1 = _w1_of(chl3, sa3, ta3, u)
-        ep, ed, ok, F, _ci, ln = _retrace(scene, chl3, w1)
-        return ep + ed * u[:, 2:3], (ok, F.t(), ln.t(), w1, ep, ed)
-
     with span("me:newton"):
-        s_ax, t_ax = coordinate_system(ch["w1_base"])
-        chl3 = _rep(_lanes(ch), 3)
-        sa3, ta3 = s_ax.repeat(3, 1), t_ax.repeat(3, 1)
-        u, conv, rho_off, rho_base, aux = _newton3(c_of, ch, y_target,
-                                                   n_iters, scene_scale)
+        u, conv, rho_off, rho_base, aux = _newton3(
+            scene, ch, y_target, n_iters, scene_scale, "beam")
     ok_tr, F_off, len_off, w1_new, org_new, dir_new = aux
     t_new = u[:, 2]
     ar, pr, ok = _chain_ratios(scene, ch, w1_new, F_off.t(), len_off.t(),
