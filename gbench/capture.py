@@ -11,23 +11,21 @@ run without it on the path.
 from __future__ import annotations
 
 import contextlib
+import importlib
 
-
-def _targets():
-    from gvpm_tpu_torch.integrators import (gatherpoint, gradient_gather,
-                                            gvpm, manifold, sppm)
-    from gvpm_tpu_torch.ops import beam_sweep, fused_gather
-    return dict(light=(sppm, "shoot_photons"),
-                camera=(gatherpoint, "trace"),
-                surface_gather=(gradient_gather, "surface_gather"),
-                volume_gather=(gradient_gather, "volume_gather"),
-                gather=(fused_gather, "fused_gather"),
-                me_chains=(manifold, "pull_chains"),
-                me_volume=(manifold, "me_shift_volume"),
-                me_surface=(manifold, "me_shift_surface"),
-                sweep=(beam_sweep, "gsweep"),
-                buffers=(gvpm, "pass_buffers"),
-                film=(gvpm, "assemble_gradients"))
+# the calls every estimator's pass makes: {kind: (module of
+# gvpm_tpu_torch, function)}; an estimator's own are its check module's
+# TARGETS (gbench/checks)
+SHARED = dict(light=("integrators.sppm", "shoot_photons"),
+              camera=("integrators.gatherpoint", "trace"),
+              surface_gather=("integrators.gradient_gather",
+                              "surface_gather"),
+              gather=("ops.fused_gather", "fused_gather"),
+              me_chains=("integrators.manifold", "pull_chains"),
+              me_volume=("integrators.manifold", "me_shift_volume"),
+              me_surface=("integrators.manifold", "me_shift_surface"),
+              buffers=("integrators.gvpm", "pass_buffers"),
+              film=("integrators.gvpm", "assemble_gradients"))
 
 
 @contextlib.contextmanager
@@ -45,11 +43,12 @@ def patched(patches):
 
 
 @contextlib.contextmanager
-def recording(log):
+def recording(log, targets):
     """Append (kind, args, kwargs, result) to `log` for every call of the
-    light pass, the camera pass, the surface and volume gathers and their
-    kernels, the ME chain walks and shifts, the gradient sweeps, the pass
-    buffers and the gradient assembly."""
+    shared stages (SHARED: the light pass, the camera pass, the surface
+    gather, the gathers' kernel, the ME chain walks and shifts, the pass
+    buffers and the gradient assembly) and of the estimator's own
+    `targets` (its check module's TARGETS)."""
     def wrap(kind, fn):
         def rec(*args, **kwargs):
             out = fn(*args, **kwargs)
@@ -57,8 +56,11 @@ def recording(log):
             return out
         return rec
 
-    with patched([(m, a, wrap(k, getattr(m, a)))
-                  for k, (m, a) in _targets().items()]):
+    patches = []
+    for kind, (mod, attr) in {**SHARED, **targets}.items():
+        m = importlib.import_module("gvpm_tpu_torch." + mod)
+        patches.append((m, attr, wrap(kind, getattr(m, attr))))
+    with patched(patches):
         yield
 
 
@@ -80,8 +82,6 @@ SPANS = (("integrators.sppm", "shoot_photons", "light_trace"),
 def spans():
     """Every call in SPANS inside a torch.profiler range of its layer's
     name."""
-    import importlib
-
     import torch
 
     def wrap(name, fn):

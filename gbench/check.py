@@ -1,22 +1,23 @@
 """What decides `correct`: the numbers that compare what the timed path
 produced with the plain reference (gbench/reference), and their limits.
 
-The light pass and the camera pass are worked out again from the scene,
-the seed and the pass index alone, for a sample of paths and pixels
-drawn from the seed (`light_*`, `camera_*`). The surface and volume
-gathers are worked out again as whole functions from the camera pass's
-output, the photon table and the light records: their query rows, the
-per-pair sums, the scaling into estimates and the ME pairs' terms
-(`sgather_*`, `vgather_*`), and the pass buffers from the gathers'
-returns (`buffers_err`). Each stage's input from an earlier one is
-checked by itself: the camera segments cut to the pass's budget
-(`segment_err`), the gathers' photon rows against the light records
+This module holds what every volume estimator shares. The light pass and
+the camera pass are worked out again from the scene, the seed and the
+pass index alone, for a sample of paths and pixels drawn from the seed
+(`light_*`, `camera_*`). Each stage's input from an earlier one is
+checked by itself: the gathers' photon rows against the light records
 (`table_err`), the ME shifts from the records' chains (`me_shift_*`),
-the kernels on the program's own rows (`gather_err`, `count_err`), a
-rank's film against every rank's buffers (`film_gather_err`). The film
-and the solve are followed from the buffers and the running mean. A
-stage that recorded fewer calls than the pass makes, or more, counts in
-`stage_calls`, and a number whose stage was never called reads inf.
+the photon gathers' kernels on the program's own rows (`gather_err`,
+`count_err`, `me_key_err`, `me_count_err`), a rank's film against every
+rank's buffers (`film_gather_err`). The film and the solve are followed
+from the buffers and the running mean. A stage that recorded fewer calls
+than the pass makes, or more, counts in `stage_calls`, and a number
+whose stage was never called reads inf.
+
+What belongs to one estimator (for VPM distance the camera segments cut
+to the pass's budget, the surface and volume gathers as whole functions
+and the pass buffers; for Plane(0D) the plane sweep) is in the module
+its configuration names, gbench/checks/<check>.py, found by name.
 Each number is 0 for a perfect match; the limits are data
 (gbench/limits/<cell>.json).
 """
@@ -31,18 +32,14 @@ from .reference import gather as ref_gather
 from .reference import light as ref_light
 from .reference import me as ref_me
 from .reference import poisson as ref_poisson
-from .reference import rng as ref_rng
-from .reference import stages as ref_stages
-from .reference import sweep as ref_sweep
 
-SWEEP_SAMPLE = 512   # camera segments of a sweep call that are compared
 LIGHT_SAMPLE = 1024  # light paths of the pass that are traced again
 CAMERA_SAMPLE = 512  # pixels (each with its four offset paths)
 ME_SAMPLE = 512      # lanes of each ME shift call
 MISSING = float("inf")
 
 
-def _worst(values):
+def worst_of(values):
     """The largest of the values, inf where there is none."""
     return max(values) if values else MISSING
 
@@ -51,7 +48,7 @@ def _sample(n, k, gen, device):
     return torch.randperm(n, generator=gen)[:k].to(device)
 
 
-def _rel(a, b):
+def rel_err(a, b):
     """The mean over rows, where either side is not all zero, of
     |a - b|_1 / (|b|_1 + m), m the median |b|_1 of those rows: a relative
     error that no single row's magnitude can hide (a pass may hold a
@@ -67,7 +64,7 @@ def _rel(a, b):
     return float((d[live] / (mag[live] + m).clamp_min(1e-300)).mean())
 
 
-def _miss(a, b):
+def miss_share(a, b):
     """Share of rows, where either side is not all zero, whose integer
     counts differ."""
     a, b = a.to(torch.int64), b.to(torch.int64)
@@ -92,8 +89,8 @@ def compare_gather(prog, prog_key, ref, ref_key, me):
     counts differ, share of the queries with an ME pair whose ME key
     differs). prog [Q, >=29] (primal, S, W, visits, shift_ok), ref the
     reference's [Q, 29]."""
-    vals = _rel(prog[:, :27], ref[:, :27])
-    cnt = _miss(prog[:, 27:29], ref[:, 27:29])
+    vals = rel_err(prog[:, :27], ref[:, :27])
+    cnt = miss_share(prog[:, 27:29], ref[:, 27:29])
     if not me:
         return vals, cnt, 0.0
     has = int((ref_key != ref_gather.ME_NONE).sum())
@@ -134,7 +131,7 @@ def gather_numbers(log, dtype=torch.float32, work=None):
             work.append(dict(kind=kind, me=me, visits=float(ref[:, 27].sum()),
                              rows=rows_hit,
                              queries=int((qrows[:, qv] > 0.5).sum())))
-    out = {k: _worst(v) for k, v in found.items()}
+    out = {k: worst_of(v) for k, v in found.items()}
     return out, me_queries, me_prog, per_call
 
 
@@ -177,34 +174,7 @@ def table_numbers(log, scene, light, caps):
                 torch.int32)).any(1)
             worst.append(float(diff.double().mean()) if diff.numel()
                          else 0.0)
-    return _worst(worst)
-
-
-def sweep_numbers(log, seed, dtype=torch.float32):
-    """sweep_err and sweep_count_err of the pass's gradient sweeps on
-    SWEEP_SAMPLE camera segments drawn from `seed`."""
-    res = dict(sweep_err=[], sweep_count_err=[])
-    gen = torch.Generator().manual_seed(seed % (2 ** 63))
-    for kind, args, _, out in log:
-        if kind != "sweep":
-            continue
-        _, q, qx, rows, tails, _params = args
-        valid = torch.nonzero(q[:, ref_sweep.QSLOT["valid"]] > 0.5)[:, 0]
-        pick = torch.randperm(valid.shape[0], generator=gen)[:SWEEP_SAMPLE]
-        sample = valid[pick.to(valid.device)]
-        ref, vis, ok = ref_sweep.sweep(q, qx, rows, tails, sample)
-        if dtype != torch.float32:
-            p27, pv, pok = ref_sweep.sweep(q, qx, rows, tails, sample, dtype)
-        else:
-            pr, S, W, pv, pok = out[:5]
-            M = pr.shape[0]
-            p27 = torch.cat([pr, S.permute(1, 0, 2).reshape(M, 12),
-                             W.permute(1, 0, 2).reshape(M, 12)], 1)[sample]
-            pv, pok = pv[sample], pok[sample]
-        res["sweep_err"].append(_rel(p27, ref))
-        res["sweep_count_err"].append(_miss(
-            torch.stack([pv, pok], 1), torch.stack([vis, ok], 1)))
-    return {k: _worst(v) for k, v in res.items()}
+    return worst_of(worst)
 
 
 def film_numbers(log, height, width, dtype=torch.float64):
@@ -218,9 +188,9 @@ def film_numbers(log, height, width, dtype=torch.float64):
         ref = ref_film.assemble(p, S, W, height, width)
         prog = out if dtype == torch.float64 else ref_film.assemble(
             *(a.to(dtype) for a in args[:3]), height, width)
-        worst.append(max(_rel(a.reshape(-1, 3), b.reshape(-1, 3))
+        worst.append(max(rel_err(a.reshape(-1, 3), b.reshape(-1, 3))
                          for a, b in zip(prog, ref)))
-    return _worst(worst)
+    return worst_of(worst)
 
 
 def film_gather_numbers(log, rank_buffers):
@@ -234,7 +204,7 @@ def film_gather_numbers(log, rank_buffers):
         bad = sum(int((a != b).sum()) for a, b in
                   zip(args[:3], (p, S, W)))
         worst.append(bad / (p.numel() + S.numel() + W.numel()))
-    return _worst(worst)
+    return worst_of(worst)
 
 
 def solve_numbers(inputs, output, cfg, dtype=torch.float64):
@@ -247,8 +217,8 @@ def solve_numbers(inputs, output, cfg, dtype=torch.float64):
     if dtype != torch.float64:
         output = ref_poisson.solve(primal.to(dtype), gx.to(dtype),
                                    gy.to(dtype), **kw)
-    return _rel(output.reshape(-1, output.shape[-1]),
-                ref.reshape(-1, ref.shape[-1]))
+    return rel_err(output.reshape(-1, output.shape[-1]),
+                   ref.reshape(-1, ref.shape[-1]))
 
 
 def light_numbers(log, sc, cfg, seed, it, gen, control=None):
@@ -280,7 +250,7 @@ def light_numbers(log, sc, cfg, seed, it, gen, control=None):
         e, m = ref_light.compare(prog, ref, only=ref_light.read_masks(ref))
         found["light_err"].append(e)
         found["light_miss"].append(m)
-    return {k: _worst(v) for k, v in found.items()}
+    return {k: worst_of(v) for k, v in found.items()}
 
 
 def camera_numbers(log, sc, cfg, seed, it, gen, control=None,
@@ -316,7 +286,7 @@ def camera_numbers(log, sc, cfg, seed, it, gen, control=None,
                 e, m = MISSING, 1.0
         found["camera_err"].append(e)
         found["camera_miss"].append(m)
-    return {k: _worst(v) for k, v in found.items()}
+    return {k: worst_of(v) for k, v in found.items()}
 
 
 def me_numbers(log, sc, gen, control=None):
@@ -356,105 +326,7 @@ def me_numbers(log, sc, gen, control=None):
         e, m = ref_me.compare(prog, ref)
         found["me_shift_err"].append(e)
         found["me_shift_miss"].append(m)
-    return {k: _worst(v) for k, v in found.items()}
-
-
-def _counts_rel(prog, ref):
-    """(mean relative error of primal, S and W over the queries whose
-    visits and shift_ok agree, share of queries whose counts differ) of
-    two gather returns (primal [M, 3], S [4, M, 3], W [4, M, 3], visits,
-    shift_ok, ...)."""
-    cp = torch.stack([prog[3].to(torch.int64), prog[4].to(torch.int64)], 1)
-    cr = torch.stack([ref[3].to(torch.int64), ref[4].to(torch.int64)], 1)
-    live = (cp != 0).any(1) | (cr != 0).any(1)
-    miss = (cp != cr).any(1)
-
-    def flat(r):
-        return torch.cat([r[0], r[1].permute(1, 0, 2).reshape(-1, 12),
-                          r[2].permute(1, 0, 2).reshape(-1, 12)], 1)
-    keep = ~miss
-    err = _rel(flat(prog)[keep], flat(ref)[keep]) if bool(keep.any()) \
-        else 0.0
-    return err, float(miss[live].double().mean()) if bool(live.any()) \
-        else 0.0
-
-
-def stage_numbers(log, sc, cell, seed, it, light, control=None):
-    """segment_err, sgather_err / sgather_miss, vgather_err / vgather_miss,
-    buffers_err: the camera segments compacted to the pass's budget
-    against the volume gather's (exact share of differing values); each
-    gather as a whole function (reference/stages.py) from the camera
-    pass's output, the photon table and the light records `light`; the
-    pass buffers from the gathers' returns. `control`: the scene in a
-    lower precision whose stages take the program's place."""
-    cfg = cell["config"]["gradient_config"]
-    traffic = cell["traffic"]
-    out = dict(segment_err=MISSING, sgather_err=MISSING,
-               sgather_miss=MISSING, vgather_err=MISSING,
-               vgather_miss=MISSING, buffers_err=MISSING)
-    cam = [(a, o) for k, a, _, o in log if k == "camera"]
-    surf = [(a, o) for k, a, _, o in log if k == "surface_gather"]
-    vol = [(a, o) for k, a, _, o in log if k == "volume_gather"]
-    bufs = [o for k, _, _, o in log if k == "buffers"]
-    if len(cam) != 1 or len(surf) != 1 or len(vol) != 1 or len(bufs) != 1:
-        return out
-    (px5, py5), (gp5, cbs) = cam[0][0][3:5], cam[0][1]
-    W, H = sc["width"], sc["height"]
-    n = px5.shape[0] // 5
-    px, py = px5[:n].to(torch.int64), py5[:n].to(torch.int64)
-    border = torch.stack([px == W - 1, px == 0, py == H - 1, py == 0])
-    low = None if control is None else control["tri_p0"].dtype
-    scales = traffic["scales"]
-    kw = dict(n_emitted=max(cfg["surface_photons"], cfg["volume_photons"]),
-              min_depth=cfg.get("min_depth", 0),
-              me=traffic["use_manifold"], budget=traffic["me_pair_budget"])
-
-    def part(g):
-        return gp5.map(lambda a: a[g * n:(g + 1) * n])
-    base = part(0)
-    base = base.replace(radius=base.radius * scales[0])
-    sgps = [part(g) for g in range(1, 5)]
-    sargs, sout = surf[0]
-
-    def surface(scene, dtype=torch.float64):
-        return ref_stages.surface_gather(
-            scene, base, sgps, sargs[4], sargs[3].sorted_idx, light,
-            border=border, dtype=dtype, **kw)
-    s_prog = sout if control is None else surface(control, low)
-    out["sgather_err"], out["sgather_miss"] = _counts_rel(s_prog,
-                                                          surface(sc))
-
-    vargs, vout = vol[0]
-    cb, scb, lane = ref_stages.segments(cbs, py * W + px, W, H,
-                                        cfg["vol_segments_per_pixel"])
-    lane_b = torch.stack([border[i][lane] for i in range(4)])
-    diff = int((lane_b != vargs[8]).sum())
-    total = lane_b.numel()
-    for mine, theirs in zip([cb] + scb, [vargs[1]] + list(vargs[2])):
-        for k in ref_stages.CAMERA_FIELDS + ("gid",):
-            diff += int((mine[k] != theirs[k]).sum())
-            total += mine[k].numel()
-    out["segment_err"] = diff / max(total, 1)
-    ext = (sc["medium_hi"] - sc["medium_lo"]).double()
-    r_vol = 0.02 * float(torch.linalg.vector_norm(ext)) \
-        * cfg["initial_scale_volume"] * scales[1]
-    key = ref_rng.pass_key(seed, it, ref_rng.STREAM_GATHER)
-
-    def volume(scene, dtype=torch.float64):
-        return ref_stages.volume_gather(
-            scene, cb, scb, vargs[4], vargs[3].sorted_idx, light, r_vol=r_vol,
-            key=key, border=lane_b, n_samples=cfg["volume_samples"],
-            dtype=dtype, **kw)
-    v_prog = vout if control is None else volume(control, low)
-    out["vgather_err"], out["vgather_miss"] = _counts_rel(v_prog, volume(sc))
-
-    prog = bufs[0][:3] if control is None else ref_stages.buffers(
-        n, gp5, s_prog, v_prog, lane, border, low)
-    ref = ref_stages.buffers(n, gp5, s_prog, v_prog, lane, border)
-    out["buffers_err"] = max(
-        _rel(a.reshape(-1, 3), b.reshape(-1, 3)) for a, b in zip(
-            [prog[0], *prog[1], *prog[2]], [ref[0], *ref[1], *ref[2]]))
-    return out
+    return {k: worst_of(v) for k, v in found.items()}
 
 
 def stage_calls(log, expected):

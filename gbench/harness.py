@@ -5,7 +5,14 @@ traffic mix, a cell's limits or a metric is data found by name:
 
   BENCHMARK.json            the cell's configuration, traffic mix and
                             chips; its metrics
-  gbench/configs/<c>.json   scene, film, estimator, GradientConfig keys
+  gbench/configs/<c>.json   scene, film, estimator, its check module,
+                            GradientConfig keys
+  gbench/checks/<check>.py  the estimator's recorded calls, its share of
+                            stage_calls and its stage numbers (the
+                            configuration's "check"; gbench/checks)
+  gbench/reference/scenes/<s>.py
+                            the reference's scene (the configuration's
+                            scene.name)
   gbench/traffic/<t>.json   use_manifold, me_pair_budget, ranks,
                             dump_every, scales
   gbench/limits/<cell>.json the limit of each number compared
@@ -40,19 +47,30 @@ def _json(*parts):
 
 def load_cell(name, root=ROOT):
     """The cell `name` of BENCHMARK.json with its configuration, traffic
-    mix, limits and metrics."""
+    mix, limits and metrics. A configuration without a "check" key, or
+    whose check module or reference scene has no file, is refused here,
+    before any pass, naming the file."""
     bench = _json(root, "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     w = cells[name]
     here = os.path.join(root, "gbench")
+    config_file = os.path.join(here, "configs", w["config"] + ".json")
+    config = _json(config_file)
+    if "check" not in config:
+        raise KeyError(f"{config_file} names no check module (\"check\")")
+    for f in (os.path.join(here, "checks", config["check"] + ".py"),
+              os.path.join(here, "reference", "scenes",
+                           config["scene"]["name"] + ".py")):
+        if not os.path.isfile(f):
+            raise FileNotFoundError(f"{f}, named by {config_file}, "
+                                    "is not there")
 
     def mine(m):
         return name in m.get("workloads", [name])
 
-    return dict(name=name, chips=w["chips"],
-                config=_json(here, "configs", w["config"] + ".json"),
+    return dict(name=name, chips=w["chips"], config=config,
                 traffic=_json(here, "traffic", w["traffic"] + ".json"),
                 limits=_json(here, "limits", name + ".json"),
                 end_to_end=[m for m in bench["end_to_end"] if mine(m)],
@@ -62,6 +80,13 @@ def load_cell(name, root=ROOT):
 def metric_reader(name):
     """read(record) of metric `name`: gbench/metrics/<name>.py."""
     return importlib.import_module(f"gbench.metrics.{name}").read
+
+
+def checks_of(cell):
+    """The check module of the cell's configuration:
+    gbench/checks/<check>.py."""
+    return importlib.import_module(
+        f"gbench.checks.{cell['config']['check']}")
 
 
 def gradient_config(cell):
@@ -100,6 +125,7 @@ class Pass:
         self.scene = build_scene(cell, device)
         self.cfg = gradient_config(cell)
         self.volume = cell["config"]["volume"]
+        self.checks = checks_of(cell)
         self.n_photons = max(self.cfg.volume_photons,
                              self.cfg.surface_photons)
         self.r_vol = sppm.base_volume_radius(self.scene, self.cfg)
@@ -214,16 +240,12 @@ def _rank_max(mesh, numbers):
 
 def expected_calls(cell, me_calls):
     """The calls a pass makes of each recorded stage: one light pass,
-    camera pass, set of buffers, film and surface gather (with one
-    kernel call); for the distance estimator a volume gather with one
-    kernel call a volume sample; with ME one
+    camera pass, set of buffers, film and surface gather; the
+    estimator's own (its check module's expected_calls); with ME one
     chain walk and one shift for each gather in which the reference finds
     an ME pair (`me_calls`: {kind: count})."""
-    cfg = cell["config"]["gradient_config"]
     out = dict(light=1, camera=1, buffers=1, film=1, surface_gather=1)
-    if cell["config"]["volume"] == "distance":
-        out["gather"] = 1 + cfg["volume_samples"]
-        out["volume_gather"] = 1
+    out.update(checks_of(cell).expected_calls(cell, me_calls))
     if cell["traffic"]["use_manifold"]:
         out.update(me_calls)
     return out
@@ -238,8 +260,6 @@ def pass_numbers(run, log, it, work=None, dtype=torch.float32):
     control = dtype != torch.float32
     nums, me_queries, me_prog, per_call = check.gather_numbers(
         log, dtype, work=work)
-    if any(kind == "sweep" for kind, *_ in log):
-        nums.update(check.sweep_numbers(log, run.seed + it, dtype))
     gen = torch.Generator().manual_seed((run.seed * 1009 + it) % (2 ** 63))
     low = run.ref_scene(torch.bfloat16) if control else None
     gcfg = cell["config"]["gradient_config"]
@@ -250,9 +270,8 @@ def pass_numbers(run, log, it, work=None, dtype=torch.float32):
     lights = [out[0] for kind, _, _, out in log if kind == "light"]
     light = {k: _all_ranks(mesh, v) for k, v in lights[0].items()} \
         if lights else None
-    if light is not None and cell["config"]["volume"] == "distance":
-        nums.update(check.stage_numbers(log, run.ref_scene(), cell,
-                                        run.seed, it, light, low))
+    nums.update(run.checks.numbers(log, run.ref_scene(), cell, run.seed,
+                                   it, light, low))
     H, W = run.scene.height, run.scene.width
     nums["film_err"] = check.film_numbers(
         log, H, W, torch.float64 if not control else dtype)
@@ -292,7 +311,7 @@ def pass_numbers(run, log, it, work=None, dtype=torch.float32):
 
 def rerun(run, it, log):
     """Pass `it` again with its calls recorded; returns its stats."""
-    with capture.recording(log):
+    with capture.recording(log, run.checks.TARGETS):
         out = run(it)
     _sync(run.device)
     return check.stats_of(out[3])

@@ -5,12 +5,15 @@ import pytest
 import torch
 
 
-def tiny_cell(volume="distance", me=False, width=16, limits=None):
+def tiny_cell(volume="distance", me=False, width=16, limits=None,
+              check=None):
+    """`check`: the configuration's check module, the estimator's own
+    (`volume`) where not given."""
     return dict(
         name="tiny", chips=1,
         config=dict(
             scene=dict(name="box_medium", width=width, height=width),
-            volume=volume,
+            volume=volume, check=check or volume,
             gradient_config=dict(
                 max_depth=4, null_bounces=2, max_cam_depth=4,
                 surface_photons=1 << 11, volume_photons=1 << 11,

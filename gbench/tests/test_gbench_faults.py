@@ -272,6 +272,21 @@ def test_sweep_faults_fail(fault):
     assert _caught("plane0d", False, [(bs, "gsweep", broken)])
 
 
+def test_sweep_of_another_kind_fails():
+    """A pass whose recorded sweeps are beam1d's, judged by the plane's
+    check: the plane reference does not hold them, so its numbers read
+    inf."""
+    cell = tiny_cell("beam1d", check="plane0d")
+    run = harness.Pass(cell, SEED, torch.device("cpu"))
+    log = []
+    harness.rerun(run, 2, log)
+    kinds = {args[0] for kind, args, _, _ in log if kind == "sweep"}
+    assert kinds == {"gbeam1d"}
+    nums = harness.pass_numbers(run, log, 2)
+    assert nums["sweep_err"] == nums["sweep_count_err"] == check.MISSING
+    assert not check.judge(nums, _limits(False))[0]
+
+
 def test_solve_unchanged_fails():
     from gvpm_tpu_torch.ops import poisson
 

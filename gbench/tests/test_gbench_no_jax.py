@@ -1,7 +1,8 @@
 """Nothing under gbench/ imports JAX, the JAX package or the JAX
-harnesses: each import's top-level name (before the first dot) is
-compared whole, since the port's name gvpm_tpu_torch begins with the JAX
-package's."""
+harnesses, the modules found by name (gbench/checks, the reference's
+scenes) among them: each import's top-level name (before the first dot)
+is compared whole, since the port's name gvpm_tpu_torch begins with the
+JAX package's."""
 
 import ast
 import os
@@ -42,6 +43,20 @@ def _top_names(path):
                          ids=lambda p: os.path.relpath(p, GBENCH))
 def test_no_forbidden_import(path):
     assert not set(_top_names(path)) & FORBIDDEN
+
+
+def test_found_modules_are_scanned():
+    """The modules found by name (check modules, reference scenes, metric
+    readers) are among the sources scanned."""
+    scanned = {os.path.relpath(p, GBENCH) for p in _sources()}
+    for folder in ("checks", os.path.join("reference", "scenes"), "metrics"):
+        found = {os.path.join(folder, f)
+                 for f in os.listdir(os.path.join(GBENCH, folder))
+                 if f.endswith(".py")}
+        assert found and found <= scanned, folder
+    assert {os.path.join("checks", "distance.py"),
+            os.path.join("checks", "plane0d.py"),
+            os.path.join("reference", "scenes", "box_medium.py")} <= scanned
 
 
 def test_whole_name_compare():
