@@ -314,8 +314,7 @@ GBEAM_FULL_KW = dict(
     volume_samples=2, initial_scale_volume=0.8,
     grid_max_photons_per_cell=32, vol_segments_per_pixel=2,
     grid_dims=(64, 64, 64), grid_surface_rows=1 << 20,
-    grid_volume_rows=1 << 20, beam_seg_tile=8192, beams=1 << 14,
-    use_manifold=False)
+    grid_volume_rows=1 << 20, beam_seg_tile=8192, use_manifold=False)
 
 # the beam estimators' golden bars (tools/goldens.py CHECKS: 10 passes,
 # 30 for plane0d; the 32^2 artifact records sppm:beam1d only)
@@ -344,9 +343,10 @@ PEAK_FP32_UNFUSED_S = 132 * 128 * 1.98e9
 #                27 accumulations (volume 49, surface 56).
 # the beam / plane sweeps (ops/beam_sweep.py): their main path is the
 # SPPM pass at the goldens' 128^2 check config (tools/goldens.py::
-# _check_kw(128), beams=1 << 12 as it sets them), one pass of each beam
-# estimator; the 32^2 check config (_check_kw(32)) for sppm:beam1d
-BEAM_GOLD_KW = dict(SPPM_GOLD[1][1], beams=1 << 12)
+# _check_kw(128), every medium edge a beam as the goldens were rendered),
+# one pass of each beam estimator; the 32^2 check config (_check_kw(32))
+# for sppm:beam1d
+BEAM_GOLD_KW = dict(SPPM_GOLD[1][1])
 BEAM_REPLACES = {"beam1d": "gvpm_tpu/integrators/estimators.py:481",
                  "beam3d": "gvpm_tpu/integrators/estimators.py:262",
                  "plane0d": "gvpm_tpu/integrators/estimators.py:401"}

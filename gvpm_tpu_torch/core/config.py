@@ -7,9 +7,12 @@ pass always gathers with the fused kernel over each query's exact cell
 runs, with no window clipping, and the SPPM hash-grid gather chunks its
 queries by a module constant (ops/hashgrid.Q_CHUNK). So are the fields
 of parts not ported yet (cam_rays_per_pixel; see ROADMAP.md): they
-come back with the code that reads them. One field is carried with no
-reader: `beams`, read by nothing in either package, so that the
-goldens' check configs build. `beam_seg_tile` cuts the camera segments
+come back with the code that reads them. `beams` is the reference's beam
+map size (LTBeamMap, gvpm_beams.h:54-84): 0, the default, makes every
+medium edge of the pass's light paths a beam, as the JAX package does;
+B > 0 keeps the beams of the first light paths whose medium edges add up
+to at most B, and the beam and plane volumes divide by those paths
+(integrators/sppm.select_beams). `beam_seg_tile` cuts the camera segments
 of a gradient beam3d gather into the chunks its random stream follows
 (integrators/gradient_gather.beam3d_gradient_gather).
 """
@@ -42,7 +45,8 @@ class PhotonConfig(PathConfig):
     """Photon shooting + progressive estimation (GPMConfig analog)."""
     surface_photons: int = 65536
     volume_photons: int = 65536
-    beams: int = 4096                 # carried, read by nothing
+    beams: int = 0                    # beam map size (sppm.select_beams);
+                                      # 0: every medium edge
     max_passes: int = 16
     alpha: float = 0.7                # radius reduction (gvpm.cpp:181)
     initial_scale: float = 1.0

@@ -26,7 +26,10 @@ if not log.handlers:
 
 
 class StatsCounter:
-    """Named counter; kinds: value, percentage, average."""
+    """Named counter; kinds: value, percentage, average. `add` takes
+    numbers or device tensors: a tensor is summed where it lives and read
+    back only by value(), so that counting inside a pass adds no
+    synchronization."""
 
     REGISTRY = {}
 
@@ -43,17 +46,21 @@ class StatsCounter:
         return cls.REGISTRY.get(name) or cls(name, kind)
 
     def add(self, n, d=1.0):
-        self.num += float(n)
+        if isinstance(n, torch.Tensor):
+            self.num = n.detach().double() + self.num
+        else:
+            self.num += float(n)
         self.den += float(d)
 
     def value(self):
+        num = float(self.num)
         if self.kind == "value":
-            return self.num
+            return num
         if self.den == 0:
             return 0.0
         if self.kind == "percentage":
-            return 100.0 * self.num / self.den
-        return self.num / self.den
+            return 100.0 * num / self.den
+        return num / self.den
 
     @classmethod
     def print_stats(cls, logger=log):

@@ -12,8 +12,9 @@ Point gathers ride the hash grid (ops/hashgrid.py). The beam and plane
 estimators sweep every camera segment against every photon beam or
 plane: ops/beam_sweep.py runs that pair sweep (a CUDA kernel on the
 card, its plain PyTorch version on the CPU). Every estimator divides by
-n_emitted light paths; the constant kernels are K1 = 1/(2r),
-K2 = 1/(pi r^2) and K3 = 3/(4 pi r^3).
+n_emitted light paths (a beam estimator with a beam map by the map's
+paths, sppm.select_beams: an int or a device tensor); the constant
+kernels are K1 = 1/(2r), K2 = 1/(pi r^2) and K3 = 3/(4 pi r^3).
 """
 
 from __future__ import annotations
@@ -302,10 +303,12 @@ def beam_point_gather(scene: Scene, beams_cam, lb, n_emitted, r_beam, key,
 def make_planes(scene: Scene, lb, key):
     """Photon beams -> photon planes (PhotonPlane::transformBeam,
     plane_struct.h:73-93): extend each beam by a phase-sampled direction
-    w1 with an exponentially sampled length (no visibility). Draws over
-    the full beam array, as the JAX package does. Returns the plane dict
-    (o, w0, l0, w1, l1, alpha, med, valid, surv1_sigma, and the
-    generating beam's shift caches)."""
+    w1 with an exponentially sampled length (no visibility). Draws one
+    row a beam slot it is given: every slot of the light pass's beam
+    array, as the JAX package does, or the kept beams of the beam map
+    (sppm.select_beams), whose k-th beam takes the k-th draw. Returns the
+    plane dict (o, w0, l0, w1, l1, alpha, med, valid, surv1_sigma, and
+    the generating beam's shift caches)."""
     nb = lb["o"].shape[0]
     k_dir, k_len = rng.split(key)
     mi = lb["med"]

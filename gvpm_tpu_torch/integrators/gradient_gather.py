@@ -35,6 +35,7 @@ import math
 import torch
 
 from ..core import rng
+from ..core.logging import StatsCounter
 from ..core.logging import span as _span
 from ..core.math import coordinate_system, cross, dot, normalize, to_local
 from ..ops import beam_sweep as bs
@@ -1177,18 +1178,32 @@ def plane_gradient_gather(scene: Scene, cb, scb_list, planes, n_emitted,
     plane against the offset ray) for a non-reconnectable origin; with
     use_manifold, the manifold shift for a delta origin
     (`_plane_me_stage`), budgeted and timed as in beam_gradient_gather.
-    planes: estimators.make_planes' dict. Returns beam_gradient_gather's
-    tuple."""
+    planes: estimators.make_planes' dict; n_emitted: the light paths the
+    planes came from (an int, or sppm.select_beams' device tensor).
+    Returns beam_gradient_gather's tuple.
+
+    Each call adds to the StatsCounters (kind average, one a pass)
+    sweep/hits (the plane-segment intersections the sweep's visits
+    count), sweep/reconnections (the offsets of those whose rotation
+    shift succeeded: shift_ok), sweep/rows (the plane rows swept) and
+    sweep/segments (the valid camera segments), as device tensors: no
+    synchronization."""
     if use_manifold:
-        return _scaled(_segment_gather_me(
+        out = _scaled(_segment_gather_me(
             "gplane0d_me", _plane_me_stage, scene, cb, scb_list, planes,
             border_lane, bs.Params(), pv_chain, me_budget, seg_tile, span,
             me_iters=me_iters), 1.0 / n_emitted)
-    with span("volume_gather"):
-        rows, tails, _ = _sweep_beams(scene, planes, planes=True)
-        return _scaled(_segment_sweep("gplane0d", scene, cb, scb_list,
-                                      rows, tails, border_lane, bs.Params()),
-                       1.0 / n_emitted)
+    else:
+        with span("volume_gather"):
+            rows, tails, _ = _sweep_beams(scene, planes, planes=True)
+            out = _scaled(_segment_sweep("gplane0d", scene, cb, scb_list,
+                                         rows, tails, border_lane,
+                                         bs.Params()), 1.0 / n_emitted)
+    for name, n in (("hits", out[3].sum()), ("reconnections", out[4].sum()),
+                    ("rows", planes["valid"].sum()),
+                    ("segments", cb["valid"].sum())):
+        StatsCounter.get("sweep/" + name, "average").add(n)
+    return out
 
 
 def _beam3d_me_stage(scene, lb, pv_chain, me_q, me_b, yq, x, xs, sd, dc,

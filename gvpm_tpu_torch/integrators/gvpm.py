@@ -82,7 +82,9 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     keys (compact, chains, newton, ratios, occlusion), which the two
     phases include (a beam or plane volume runs its volume_me phase once
     per segment chunk). The volume estimator is `distance`, `bre`, or one
-    of the beams and planes (sppm.BEAM_VOLUMES). emission_scale weighs
+    of the beams and planes (sppm.BEAM_VOLUMES); with cfg.beams > 0 these
+    read the beam map of sppm.select_beams (the phase beam_select) and
+    divide by its paths, not by n_photons. emission_scale weighs
     the directly seen emission, the one term that reads no photon: a ring
     pass (parallel.dist) adds the photon terms once for each partition
     and passes 1 / partitions."""
@@ -91,6 +93,8 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     dev = scene.device
     n = px.shape[0]
     clock = PhaseClock(dev, timings)
+    # the light paths the volume estimate divides by
+    beams, n_vol = sppm.beam_map(cfg, volume, beams, n_photons, clock)
 
     # base + 4 offset camera paths with the SAME random numbers, traced
     # as one [5n]-ray wavefront
@@ -211,12 +215,12 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
     elif volume == "beam1d":
         p_v, S_v, W_v, v_v, so_v, med_v, mep_v = \
             gradient_gather.beam_gradient_gather(
-                scene, cb, scb_list, beams, n_photons, r_vol,
+                scene, cb, scb_list, beams, n_vol, r_vol,
                 border_lane, seg_tile=cfg.beam_seg_tile, **me_kw)
     elif volume == "beam3d":
         p_v, S_v, W_v, v_v, so_v, med_v, mep_v = \
             gradient_gather.beam3d_gradient_gather(
-                scene, cb, scb_list, beams, n_photons, r_vol, k_gather,
+                scene, cb, scb_list, beams, n_vol, r_vol, k_gather,
                 border_lane, n_samples=cfg.volume_samples,
                 tile=cfg.beam_tile, seg_tile=cfg.beam_seg_tile, **me_kw)
     else:
@@ -224,7 +228,7 @@ def pass_buffers(scene: Scene, cfg: GradientConfig, volume, n_photons,
             planes = estimators.make_planes(scene, beams, k_gather)
         p_v, S_v, W_v, v_v, so_v, med_v, mep_v = \
             gradient_gather.plane_gradient_gather(
-                scene, cb, scb_list, planes, n_photons, border_lane,
+                scene, cb, scb_list, planes, n_vol, border_lane,
                 seg_tile=cfg.beam_seg_tile, **me_kw)
 
     with clock.span("splat"):

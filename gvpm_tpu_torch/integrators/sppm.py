@@ -21,7 +21,7 @@ import torch
 
 from ..core import rng
 from ..core.config import PhotonConfig
-from ..core.logging import PhaseClock, log, span
+from ..core.logging import PhaseClock, StatsCounter, log, span
 from ..ops import hashgrid
 from ..scene.camera import pixel_grid
 from ..scene.types import Scene
@@ -96,6 +96,64 @@ def light_lanes(photons):
                                        device=vt.device))
 
 
+def select_beams(beams, n_paths, budget):
+    """The pass's beam map (LTBeamMap::tryAppendLT, gvpm_beams.h:54-84;
+    its size is the `beams` setting, photon_proc.h:17 / photon_proc.cpp as
+    SURVEY.md cites them): the light paths are taken in shooting order, by
+    path index, and each path's valid medium edges (its beams, in depth
+    order) are counted; whole paths are kept from the start of the pass
+    while the running count stays at most `budget`, so the first path
+    whose beams would pass it, and every later path, is left out. The
+    beam and plane estimators then divide by the kept paths, not by the
+    pass's light paths: the beam map holds those paths' beams and no
+    other. Surface photons and volume photons are not touched.
+
+    beams: shoot_photons' beam dict (flattened [S * n_paths], step-major);
+    budget > 0. Returns (the kept beams as a dict of min(budget, S *
+    n_paths) rows, path-major: the kept beams first, then rows with
+    `valid` false; the kept paths, an int64 device tensor, at least 1: a
+    budget below the first path's edges keeps no beam, and the estimate
+    is 0). Nothing is read back to the host. The StatsCounters beams/kept
+    and beams/paths (kind average) count the kept beams and paths of each
+    call."""
+    valid = beams["valid"].reshape(-1, n_paths)            # [S, P]
+    n_steps = valid.shape[0]
+    dev = valid.device
+    keep_path = torch.cumsum(valid.sum(0), 0) <= budget    # a prefix
+    kept = (valid & keep_path[None]).t().reshape(-1)       # path-major
+    n_rows = min(budget, kept.shape[0])
+    n_kept = kept.sum()
+    # step-major slot of each path-major (path, step), scattered to its
+    # rank among the kept beams (the others to a spare last row)
+    slot = (torch.arange(n_steps, device=dev)[None] * n_paths
+            + torch.arange(n_paths, device=dev)[:, None]).reshape(-1)
+    rank = torch.where(kept, torch.cumsum(kept, 0) - 1, n_rows)
+    src = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+    src = src.scatter(0, rank, slot)[:n_rows]
+    out = {k: v[src] for k, v in beams.items()}
+    out["valid"] = torch.arange(n_rows, device=dev) < n_kept
+    n_beam_paths = keep_path.sum()
+    StatsCounter.get("beams/kept", "average").add(n_kept)
+    StatsCounter.get("beams/paths", "average").add(n_beam_paths)
+    return out, n_beam_paths.clamp(min=1)
+
+
+def uses_beam_map(cfg: PhotonConfig, volume):
+    """Whether a pass of `volume` reads a beam map: a beam or plane volume
+    with cfg.beams > 0."""
+    return volume in BEAM_VOLUMES and cfg.beams > 0
+
+
+def beam_map(cfg: PhotonConfig, volume, beams, n_paths, clock):
+    """The beams that a pass's volume estimate reads and the light paths
+    it divides by: select_beams' map, in clock's span beam_select, where
+    uses_beam_map; else `beams` and `n_paths` as they are."""
+    if not uses_beam_map(cfg, volume):
+        return beams, n_paths
+    with clock.span("beam_select"):
+        return select_beams(beams, n_paths, cfg.beams)
+
+
 def gather_images(scene: Scene, cfg: PhotonConfig, volume, photons, beams,
                   n_emitted, key_cam, key_gather, px, py, surf_scale,
                   vol_scale, r_vol_base, timings=None, emission_scale=1.0):
@@ -104,7 +162,9 @@ def gather_images(scene: Scene, cfg: PhotonConfig, volume, photons, beams,
     the dicts of shoot_photons (beams may be None unless volume is one
     of BEAM_VOLUMES). surf_scale, vol_scale, r_vol_base:
     floats, taken as float32 scalars (the JAX package's traced
-    arguments). `timings` as in render_pass. emission_scale weighs the
+    arguments). With cfg.beams > 0 the beam and plane volumes read the
+    beam map of select_beams (the span beam_select) and divide by its
+    paths. `timings` as in render_pass. emission_scale weighs the
     directly seen emission: a ring pass (parallel.dist) gathers the same
     camera paths against each photon partition in turn and passes
     1 / partitions, so that the emission adds up to once."""
@@ -134,6 +194,7 @@ def gather_images(scene: Scene, cfg: PhotonConfig, volume, photons, beams,
         out = L_surf + emission_scale * gps.emission
     if volume == "none":
         return out
+    beams, n_vol = beam_map(cfg, volume, beams, n_emitted, clock)
 
     # ---- volume estimator: the segments' compaction is the first
     # span's, the grid's (distance, bre), the planes' (plane0d) or the
@@ -179,13 +240,13 @@ def gather_images(scene: Scene, cfg: PhotonConfig, volume, photons, beams,
                 max_per_cell=max_per_cell, pr=pr)
         elif volume == "beam1d":
             Lv, pix = estimators.beam_beam_gather(scene, cb, beams,
-                                                  n_emitted, r_vol)
+                                                  n_vol, r_vol)
         elif volume == "beam3d":
             Lv, pix = estimators.beam_point_gather(
-                scene, cb, beams, n_emitted, r_vol, key_gather,
+                scene, cb, beams, n_vol, r_vol, key_gather,
                 n_samples=cfg.volume_samples, tile=cfg.beam_tile)
         else:
-            Lv, pix = estimators.plane_gather(scene, cb, planes, n_emitted)
+            Lv, pix = estimators.plane_gather(scene, cb, planes, n_vol)
     with clock.span("splat"):
         out = out.index_add_(0, pix,
                              torch.where(cb["valid"][..., None], Lv, 0.0))
@@ -197,8 +258,9 @@ def render_pass(scene: Scene, cfg: PhotonConfig, volume, n_photons, seed,
     """One progressive pass, the span `pass`; returns the pass image
     [H,W,3]. `timings` (optional dict) collects the seconds of its spans,
     each ending in a device synchronize: light_trace, camera_trace,
-    surface_grid, surface_gather, volume_grid (distance, bre), planes
-    (plane0d), volume_gather, splat."""
+    surface_grid, surface_gather, beam_select (a beam or plane volume
+    with cfg.beams > 0), volume_grid (distance, bre), planes (plane0d),
+    volume_gather, splat."""
     with span("pass"):
         dev = scene.device
         H, W = scene.height, scene.width

@@ -48,6 +48,19 @@ def _check_split(mesh: Mesh, scene, n_photons):
                          f"over {mesh.size} ranks")
 
 
+def _check_beam_map(mesh: Mesh, cfg, volume):
+    """A beam map (cfg.beams > 0, sppm.select_beams) keeps the first light
+    paths of one shoot in shooting order; over more than one rank the
+    paths are shot in partitions, and no order across the ranks is
+    defined, so such a pass is refused."""
+    if mesh.size > 1 and sppm.uses_beam_map(cfg, volume):
+        raise ValueError(
+            f"a {volume} pass with a beam map (beams={cfg.beams}) runs on "
+            f"one rank only, not {mesh.size}: the beam map keeps the first "
+            "light paths in shooting order, which sharded shooting does "
+            "not define; set beams=0 (every medium edge) to shard it")
+
+
 def _keys(seed, it, device):
     return (rng.pass_key(seed, it, rng.STREAM_LIGHT, device),
             rng.pass_key(seed, it, rng.STREAM_CAMERA, device),
@@ -120,6 +133,7 @@ def render_pass_sharded(mesh: Mesh, scene, cfg, volume, n_photons, seed,
     == 0. The span `pass`; `timings` as in sppm.render_pass, plus
     allgather and film."""
     _check_split(mesh, scene, n_photons)
+    _check_beam_map(mesh, cfg, volume)
     with span("pass"):
         k_light, k_cam, k_gather = _keys(seed, it, scene.device)
         photons, beams = gather_photons(mesh, scene, cfg, n_photons,
@@ -145,6 +159,7 @@ def render_pass_sharded_ring(mesh: Mesh, scene, cfg, volume, n_photons,
     memory of 2 / ranks of the map a rank. Not for `bre` with
     cfg.bre_knn > 0: kNN radii from a partition's density are biased."""
     _check_split(mesh, scene, n_photons)
+    _check_beam_map(mesh, cfg, volume)
     if volume == "bre" and cfg.bre_knn:
         raise ValueError(
             "render_pass_sharded_ring: bre_knn radii are computed from "
@@ -214,6 +229,7 @@ def _assemble(mesh: Mesh, scene, p, S, W, stats, timings):
 def _gradient_setup(mesh: Mesh, scene, cfg, volume, n_photons):
     """Whether the pass reads the beams, after the checks of a pass."""
     _check_split(mesh, scene, n_photons)
+    _check_beam_map(mesh, cfg, volume)
     gvpm.prepare_pass(scene)
     return gvpm.reads_beams(cfg, volume)
 

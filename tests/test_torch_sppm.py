@@ -66,6 +66,11 @@ def test_entry_matches_graft_entry(monkeypatch):
                     jfn.__closure__))["cfg"].cell_contents
     fn, args = port_entry.entry(device="cpu")
     for f in dataclasses.fields(port_entry.CFG):
+        if f.name == "beams":
+            # the JAX package reads `beams` nowhere, so every medium edge
+            # is a beam there: the port's 0
+            assert port_entry.CFG.beams == 0
+            continue
         assert getattr(port_entry.CFG, f.name) == getattr(jcfg, f.name), f
     carried = port_scene_from_jax(jargs[0]).tensors()
     for k, v in args[0].tensors().items():
